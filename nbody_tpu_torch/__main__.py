@@ -1,0 +1,136 @@
+"""CLI entry point.
+
+Positional-argument compatible with the reference binaries, like
+``python -m nbody_tpu``:
+    python -m nbody_tpu_torch [N] [nsteps] [device] [cpu_ratio] [dim0 dim1]
+(ver0/main.cpp:25-46; ver5_all/main.cpp:23-66: the device token is echoed,
+``cpu`` selects the CPU, cpu_ratio is accepted for parity, and the thread
+dims map onto kernel tile sizes).
+
+Options:
+    --kernel {naive,pallas,pallas_sym,auto}   force kernel (auto: the
+                                   pair-symmetric CUDA kernel where it fits)
+    --integrator {euler,leapfrog}  parity default / symplectic option
+    --sfreq/--dt                   sample frequency and step size
+    --tile-i/--tile-j              kernel tiles (pallas_sym: tile-i = block)
+    --platform {cuda,cpu}          the card (default) or the CPU on request
+    --json PATH                    also write the run result as JSON ('-' =
+                                   stdout)
+
+The JAX package's other options are refused with the ROADMAP.md item that
+will port them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .config import SimConfig
+from .simulation import Simulation
+
+# Flags of ``python -m nbody_tpu`` that the port does not have yet.
+_NOT_PORTED = {
+    "--fused": "queue 1 item 5 (the fused sample block)",
+    "--energy-check": "queue 1 item 6 (the potential energy)",
+    "--pm-grid": "queue 1 items 7-10 (the mesh tiers)",
+    "--pm-cutoff": "queue 1 items 7-10 (the mesh tiers)",
+    "--pm-capacity": "queue 1 items 7-10 (the mesh tiers)",
+    "--pm-boundary": "queue 1 items 7-10 (the mesh tiers)",
+    "--pm-box": "queue 1 items 7-10 (the mesh tiers)",
+    "--pm-replan": "queue 1 items 7-10 (the mesh tiers)",
+    "--pm-sr-layout": "queue 1 items 7-10 (the mesh tiers)",
+    "--shards": "queue 1 item 11 (the particle decomposition)",
+    "--comm": "queue 1 item 11 (the particle decomposition)",
+    "--autotune": "queue 1 item 12 (autotuning)",
+    "--autotune-online": "queue 1 item 12 (autotuning)",
+    "--save-state": "queue 1 item 12 (checkpoints)",
+    "--load-state": "queue 1 item 12 (checkpoints)",
+    "--checkpoint-every": "queue 1 item 12 (checkpoints)",
+    "--checkpoint-backend": "queue 1 item 12 (checkpoints)",
+    "--snapshot-every": "queue 1 item 12 (snapshots)",
+    "--snapshot-dir": "queue 1 item 12 (snapshots)",
+}
+
+
+class _Refuse(argparse.Action):
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is not ported to nbody_tpu_torch yet: "
+                     f"ROADMAP.md {_NOT_PORTED[option_string]}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="nbody_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    from . import __version__
+
+    p.add_argument("--version", action="version",
+                   version=f"nbody-tpu-torch {__version__}")
+    p.add_argument("n", nargs="?", type=int, default=2000)
+    p.add_argument("nsteps", nargs="?", type=int, default=500)
+    p.add_argument("device", nargs="?", default=None,
+                   help="cpu|gpu|cpu+gpu (reference CLI parity)")
+    p.add_argument("cpu_ratio", nargs="?", type=float, default=None)
+    p.add_argument("dim0", nargs="?", type=int, default=0)
+    p.add_argument("dim1", nargs="?", type=int, default=0)
+    p.add_argument("--kernel", default="auto",
+                   choices=["naive", "pallas", "pallas_sym", "auto"])
+    p.add_argument("--precision", default="f32")
+    p.add_argument("--integrator", default="euler",
+                   choices=["euler", "leapfrog"])
+    p.add_argument("--distribution", default="reference")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--sfreq", type=int, default=50)
+    p.add_argument("--dt", type=float, default=0.1)
+    p.add_argument("--tile-i", type=int, default=0)
+    p.add_argument("--tile-j", type=int, default=0)
+    p.add_argument("--platform", default=None, choices=["cuda", "cpu"])
+    p.add_argument("--json", default=None, metavar="PATH",
+                   help="also write the run result as JSON ('-' = stdout)")
+    for flag in _NOT_PORTED:
+        p.add_argument(flag, nargs="?", action=_Refuse, help=argparse.SUPPRESS)
+    return p
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    try:
+        cfg = SimConfig(
+            n=args.n, nsteps=args.nsteps, dt=args.dt, sfreq=args.sfreq,
+            integrator=args.integrator, distribution=args.distribution,
+            seed=args.seed, kernel=args.kernel,
+            tile_i=args.tile_i or args.dim0, tile_j=args.tile_j or args.dim1,
+            precision=args.precision,
+            platform=args.platform or ("cpu" if args.device == "cpu" else None),
+        )
+    except (NotImplementedError, ValueError) as e:
+        parser.error(str(e))
+    sim = Simulation(cfg)
+    sim.init_mpi()
+    if args.device is not None:
+        # The reference echoes the token, then maps it onto the device
+        # selector (ver5_all/main.cpp:42-45: cpu=1, gpu=2, cpu+gpu=3).
+        print(args.device)
+        selector = {"cpu": 1, "gpu": 2, "cpu+gpu": 3}.get(args.device)
+        if selector is not None:
+            sim.set_devices(selector)
+    if args.cpu_ratio is not None:
+        sim.set_cpu_ratio(args.cpu_ratio)
+    result = sim.start()
+    if args.json:
+        import json
+
+        payload = json.dumps(result.to_dict(), indent=1)
+        if args.json == "-":
+            print(payload)
+        else:
+            with open(args.json, "w") as f:
+                f.write(payload + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

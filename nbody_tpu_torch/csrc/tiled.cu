@@ -1,0 +1,108 @@
+// Kernel A: the tiled targets x sources force sweep, fp32.
+//
+// Replaces nbody_tpu/ops/pallas_kernel.py::_nbody_kernel, which streams
+// (TILE_I, TILE_J) pair blocks through VMEM with (N,8)/(8,N) double
+// packing.  That packing is a TPU lane artifact and is not copied: the
+// kernel reads the (3,N) coordinate rows and the (N,) masses directly.
+//
+//   a_t = sum_s G m_s (r_s - r_t) / (|r_s - r_t|^2 + eps^2)^{3/2}
+//
+// Design.  A CTA of 256 threads owns tile_i targets (one thread per target,
+// x) and splits each source tile among 256/tile_i thread rows (y), so small
+// N still puts enough CTAs on the 132 SMs.  Source tiles of (x, y, z, G m)
+// are staged once per CTA through shared memory as float4 and read by
+// broadcast (every lane of a warp reads the same source).  Each thread
+// accumulates in fp32 registers; the thread rows' partial sums are added
+// in a fixed order at the end, so the result is deterministic.  The kernel
+// masks the ragged edges itself: targets past Nt compute and never store,
+// and sources past Ns are staged as zero mass, which adds exactly nothing.
+// So unpadded Nt and Ns are fine.
+//
+// Bound.  At N=16384 the sweep is compute-bound: each pair costs about 20
+// flops plus one IEEE sqrt and one IEEE divide, against 16 bytes of shared
+// memory per source that every thread of the CTA reuses.  Device memory
+// traffic is (Nt/tile_i) * Ns * 16 bytes, under 70 MB at N=16384, and the
+// source rows sit in the 50 MB L2.  What remains is the instruction rate
+// of the pair loop, which is unrolled by 8 to overlap the sqrt and divide
+// latencies of neighbouring pairs.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+tiled_accel_kernel(const float* __restrict__ pos_t, int nt,
+                   const float* __restrict__ pos_s,
+                   const float* __restrict__ mass_s, int ns,
+                   float* __restrict__ out, int tile_j) {
+  extern __shared__ float4 src[];  // tile_j sources: x, y, z, G*m
+  __shared__ float part[3][kThreads];
+  const int ti = blockDim.x, rows = blockDim.y;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * ti + tx;
+  const int i = blockIdx.x * ti + tx;
+  const int ic = i < nt ? i : nt - 1;  // ragged edge: compute, never store
+  const float xi = pos_t[ic], yi = pos_t[nt + ic], zi = pos_t[2 * nt + ic];
+  const int per = tile_j / rows;
+  const float4* mine = src + ty * per;
+
+  float ax = 0.f, ay = 0.f, az = 0.f;
+  for (int j0 = 0; j0 < ns; j0 += tile_j) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int k = tid; k < tile_j; k += kThreads) {
+      const int j = j0 + k;
+      src[k] = j < ns ? make_float4(pos_s[j], pos_s[ns + j], pos_s[2 * ns + j],
+                                    mass_s[j] * nbt::kG)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < per; ++k) {
+      const float4 p = mine[k];
+      const float dx = p.x - xi, dy = p.y - yi, dz = p.z - zi;
+      const float w = p.w * nbt::inv_cube(dx, dy, dz);
+      ax += w * dx;
+      ay += w * dy;
+      az += w * dz;
+    }
+  }
+
+  part[0][tid] = ax;
+  part[1][tid] = ay;
+  part[2][tid] = az;
+  __syncthreads();
+  if (ty == 0 && i < nt) {
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+    for (int r = 0; r < rows; ++r) {  // fixed order: deterministic
+      sx += part[0][r * ti + tx];
+      sy += part[1][r * ti + tx];
+      sz += part[2][r * ti + tx];
+    }
+    out[i] = sx;
+    out[nt + i] = sy;
+    out[2 * nt + i] = sz;
+  }
+}
+
+}  // namespace
+
+// pos_t (3,nt), pos_s (3,ns), mass_s (ns,) -> out (3,nt), all fp32 and
+// contiguous.  tile_i targets per CTA: a multiple of 32 that divides 256.
+// tile_j sources per shared-memory tile: a multiple of 256/tile_i, at most
+// 3072 (48 KB).  The wrapper checks both.  Launches on `stream` without
+// synchronising and returns cudaGetLastError().
+extern "C" int nbt_tiled_accel(const float* pos_t, int nt, const float* pos_s,
+                               const float* mass_s, int ns, float* out,
+                               int tile_i, int tile_j, void* stream) {
+  const dim3 block(tile_i, kThreads / tile_i);
+  const dim3 grid((nt + tile_i - 1) / tile_i);
+  const size_t smem = size_t(tile_j) * sizeof(float4);
+  tiled_accel_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      pos_t, nt, pos_s, mass_s, ns, out, tile_j);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* nbt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

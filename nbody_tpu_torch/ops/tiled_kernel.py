@@ -1,0 +1,105 @@
+"""Kernel A: the tiled targets x sources force sweep (``csrc/tiled.cu``).
+
+Replaces ``nbody_tpu/ops/pallas_kernel.py::_nbody_kernel``, f32 only (the
+bf16 deltas are ROADMAP.md queue 1 item 4).  The public functions keep the
+JAX package's layout: ``accelerations_between(pos_tgt (3,Nt), pos_src
+(3,Ns), mass_src (Ns,)) -> (3,Nt)`` and ``accelerations(pos, mass)``.
+
+On a CUDA tensor the wrapper launches the hand-written kernel or raises; on
+a CPU tensor it runs ``accelerations_between_plain``, the same function in
+plain PyTorch.  The kernel masks its ragged edges, so Nt and Ns need no
+padding.  Design and bound: see the note at the top of ``csrc/tiled.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..types import G_NEWTON, SOFTENING_SQUARED
+from ..utils import build
+
+DEFAULT_TILE_I = 64  # targets per CTA (256 threads: 4 rows of 64)
+DEFAULT_TILE_J = 256  # sources per shared-memory tile
+THREADS = 256
+MAX_TILE_J = 3072  # 48 KB of float4 sources
+
+# Kernel launches on CUDA tensors; chip_smoke.py zeroes and reads it.
+launches = 0
+
+
+def check_input(name: str, t: torch.Tensor, shape: tuple,
+                device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous fp32 tensor of ``shape`` on
+    ``device``."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def accelerations_between_plain(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
+                                 mass_src: torch.Tensor, chunk: int = 1024
+                                 ) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: broadcast pair blocks over
+    chunks of targets, with the kernel's ``1 / sqrt`` (IEEE) instead of
+    ``rsqrt``.  The kernel's tiles do not change the function."""
+    gm = mass_src * G_NEWTON
+    out = []
+    for c0 in range(0, pos_tgt.shape[1], chunk):
+        d = pos_src[:, None, :] - pos_tgt[:, c0:c0 + chunk, None]  # (3, C, Ns)
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
+        inv = 1.0 / torch.sqrt(d2)
+        w = gm[None, :] * (inv * inv * inv)
+        out.append((d * w).sum(dim=2))
+    return torch.cat(out, dim=1)
+
+
+def accelerations_between(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
+                          mass_src: torch.Tensor, tile_i: int = 0,
+                          tile_j: int = 0) -> torch.Tensor:
+    """Accelerations of targets due to sources.
+    pos_tgt (3, Nt), pos_src (3, Ns), mass_src (Ns,) -> (3, Nt) fp32.
+
+    ``tile_i``: targets per CTA, a multiple of 32 dividing 256 (default 64).
+    ``tile_j``: sources per shared-memory tile, a multiple of 256/tile_i,
+    at most 3072 (default 256)."""
+    global launches
+    dev = pos_tgt.device
+    nt, ns = pos_tgt.shape[1], pos_src.shape[1]
+    check_input("pos_tgt", pos_tgt, (3, nt), dev)
+    check_input("pos_src", pos_src, (3, ns), dev)
+    check_input("mass_src", mass_src, (ns,), dev)
+    if dev.type == "cpu":
+        return accelerations_between_plain(pos_tgt, pos_src, mass_src)
+    if dev.type != "cuda":
+        raise ValueError(f"tiled kernel runs on cuda or cpu, not {dev}")
+    ti = tile_i or DEFAULT_TILE_I
+    tj = tile_j or DEFAULT_TILE_J
+    if ti % 32 or THREADS % ti:
+        raise ValueError(f"tile_i={ti} must be a multiple of 32 dividing {THREADS}")
+    if tj % (THREADS // ti) or not 0 < tj <= MAX_TILE_J:
+        raise ValueError(
+            f"tile_j={tj} must be a multiple of {THREADS // ti} in (0, {MAX_TILE_J}]"
+        )
+    out = torch.empty((3, nt), dtype=torch.float32, device=dev)
+    if nt == 0 or ns == 0:
+        return out.zero_()
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.nbt_tiled_accel(
+            pos_tgt.data_ptr(), nt, pos_src.data_ptr(), mass_src.data_ptr(),
+            ns, out.data_ptr(), ti, tj, torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, "nbt_tiled_accel")
+    launches += 1
+    return out
+
+
+def accelerations(pos: torch.Tensor, mass: torch.Tensor, tile_i: int = 0,
+                  tile_j: int = 0) -> torch.Tensor:
+    """All-pairs self-accelerations. pos (3,N), mass (N,) -> (3,N)."""
+    return accelerations_between(pos, pos, mass, tile_i=tile_i, tile_j=tile_j)

@@ -1,0 +1,215 @@
+"""The simulation engine, the GSimulation analog.
+
+Owns the run lifecycle of the reference's ``GSimulation::start()``
+(ver0/GSimulation.cpp:95-213), as ``nbody_tpu.simulation`` does: build the
+state, print the header, run the sample-block loop with per-block timing
+and GFlop/s statistics, print the footer.
+
+* A sample block (sfreq steps) runs on the device with no host sync; the
+  host syncs once per block, when it reads the kinetic energy.
+* A warm-up block runs before the clock starts: it builds the CUDA kernels
+  and runs one block, and its result is discarded.
+* The statistics replicate the reference's: per-block
+  ``gflops*sfreq/block_seconds`` with running mean/stddev that exclude the
+  first two sample blocks (ver0/GSimulation.cpp:186-203).
+
+The JAX engine's autotune, online retune, mesh, watchdog, sharding, fused,
+checkpoint and ref64 branches are not ported yet (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import sys
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import SimConfig
+from .init import make_state
+from .models.gravity import make_accel_fn, make_block_fn
+from .state import ParticleState
+from .utils import reporting
+from .utils.flops import step_gflops
+from .utils.timer import WallTime
+
+
+@dataclasses.dataclass
+class RunResult:
+    samples: List[Tuple[int, float, float, float, float]]
+    # each: (step, phys_time, kenergy, block_seconds, block_gflops)
+    total_time: float
+    av: float
+    dev: float
+    nthreads: int
+    device: str = ""  # what ran the blocks: "cpu" or the card's name
+
+    @property
+    def kenergy_trace(self) -> List[Tuple[int, float]]:
+        return [(s, ke) for (s, _, ke, _, _) in self.samples]
+
+    def to_dict(self) -> dict:
+        return dict(
+            samples=[
+                dict(step=s, t_phys=t, kenergy=ke, seconds=b, gflops=g)
+                for (s, t, ke, b, g) in self.samples
+            ],
+            total_time=self.total_time,
+            gflops_mean=self.av,
+            gflops_dev=self.dev,
+            nthreads=self.nthreads,
+            device=self.device,
+        )
+
+
+class _DeviceRunner:
+    """Produces (state, kenergy) per sample block on one device."""
+
+    def __init__(self, cfg: SimConfig):
+        self.cfg = cfg
+        self.device = cfg.device()
+        self.accel_fn = make_accel_fn(cfg.kernel, **cfg.kernel_opts())
+        self.state: Optional[ParticleState] = None
+        self._blocks = {}
+
+    def device_name(self) -> str:
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return self.device.type
+
+    def _block_for(self, steps: int):
+        if steps not in self._blocks:
+            self._blocks[steps] = make_block_fn(
+                self.accel_fn, self.cfg.dt, steps, integrator=self.cfg.integrator
+            )
+        return self._blocks[steps]
+
+    def prepare(self) -> None:
+        cfg = self.cfg
+        self.state = make_state(
+            cfg.n, pad_multiple=cfg.pad_multiple(),
+            distribution=cfg.distribution, seed=cfg.seed, device=self.device,
+        )
+        # Warm-up: builds the kernels at first use and runs one block; the
+        # block does not touch its input, so the state stays as it was.
+        _, ke = self._block_for(min(cfg.sfreq, cfg.nsteps))(self.state)
+        float(ke)
+
+    def run_block(self, steps: int) -> float:
+        self.state, ke = self._block_for(steps)(self.state)
+        # float() copies the block's kinetic energy to the host: the one
+        # sync per sample block.
+        return float(ke)
+
+
+def run(cfg: SimConfig, out=None, quiet: bool = False) -> RunResult:
+    return _run_prepared(_DeviceRunner(cfg), cfg, out, quiet)
+
+
+def _run_prepared(runner: _DeviceRunner, cfg: SimConfig, out,
+                  quiet: bool) -> RunResult:
+    emit = (lambda *_: None) if quiet else reporting.emit
+
+    runner.prepare()
+    emit(reporting.header(cfg.n, cfg.nsteps, cfg.dt), out)
+
+    gflops = step_gflops(cfg.n)
+    timer = WallTime()
+    samples: List[Tuple[int, float, float, float, float]] = []
+    av = 0.0
+    dev = 0.0
+    nf = 0
+
+    t0 = timer.start()
+    s = 0
+    while s < cfg.nsteps:
+        steps = min(cfg.sfreq, cfg.nsteps - s)
+        b0 = timer.start()
+        ke = runner.run_block(steps)
+        b1 = timer.stop()
+        s += steps
+        if steps == cfg.sfreq and s % cfg.sfreq == 0:
+            nf += 1
+            block_secs = b1 - b0
+            block_gf = gflops * cfg.sfreq / block_secs
+            t_phys = float(np.float32(s) * np.float32(cfg.dt))
+            samples.append((s, t_phys, ke, block_secs, block_gf))
+            emit(reporting.stats_row(s, t_phys, ke, block_secs, block_gf), out)
+            if nf > 2:
+                av += block_gf
+                dev += block_gf * block_gf
+    t1 = timer.stop()
+
+    total = t1 - t0
+    if nf > 2:
+        av /= nf - 2
+        dev = math.sqrt(max(dev / (nf - 2) - av * av, 0.0))
+    else:
+        av = dev = float("nan")
+
+    nthreads = 1
+    emit(reporting.footer(nthreads, total, av, dev), out)
+    return RunResult(samples, total, av, dev, nthreads,
+                     device=runner.device_name())
+
+
+class Simulation:
+    """Class-style facade mirroring the reference's GSimulation public API
+    (ver0/GSimulation.hpp:36-80; ver5_all/GSimulation.hpp:40-65)."""
+
+    def __init__(self, config: Optional[SimConfig] = None, quiet: bool = False):
+        self.config = config or SimConfig()
+        self._quiet = quiet
+        self.world_rank = 0  # one process: the multi-process path is not ported
+        self.world_size = 1
+        self._banner_printed = False
+        self.result: Optional[RunResult] = None
+
+    def _print_banner_once(self) -> None:
+        if not self._banner_printed and not self._quiet:
+            reporting.print_banner()
+        self._banner_printed = True
+
+    def init_mpi(self) -> None:
+        """The reference's ``init_mpi()`` (ver5_all/GSimulation.cpp:93-115).
+        One process on one card: prints the banner and nothing more (the
+        particle decomposition is ROADMAP.md queue 1 item 11)."""
+        self._print_banner_once()
+
+    def set_number_of_particles(self, n: int) -> None:
+        self.config.n = n
+
+    def set_number_of_steps(self, nsteps: int) -> None:
+        self.config.nsteps = nsteps
+
+    def set_devices(self, n: int) -> None:
+        """The reference's device selector (ver5_all/main.cpp:42-45):
+        1 = cpu; 2 (gpu) and 3 (cpu+gpu) = the card."""
+        if n == 1:
+            self.config.platform = "cpu"
+        elif n in (2, 3):
+            self.config.platform = None
+
+    def set_cpu_ratio(self, ratio: float) -> None:
+        """ver5_all CLI parity (main.cpp:49).  The reference's OpenCL backend
+        splits each step between CPU and GPU by this ratio; the port runs
+        every step on one device, so the value is noted and not used."""
+        self._cpu_ratio = ratio
+        if not self._quiet:
+            print(f"# cpu_ratio={ratio:g} noted: every step runs on one "
+                  "device (no CPU/GPU co-execution)", file=sys.stderr)
+
+    def set_thread_dim0(self, d: int) -> None:
+        if d > 0:
+            self.config.tile_i = d
+
+    def set_thread_dim1(self, d: int) -> None:
+        if d > 0:
+            self.config.tile_j = d
+
+    def start(self) -> RunResult:
+        self._print_banner_once()
+        self.result = run(self.config, quiet=self._quiet)
+        return self.result

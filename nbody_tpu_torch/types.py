@@ -1,0 +1,17 @@
+"""Physics constants and the precision policy of the PyTorch port.
+
+The constants are the reference's (ver0/GSimulation.cpp:114-116), as in
+``nbody_tpu.types``.  The JAX package offers three force precisions; the
+port carries the names so configurations read the same, but only ``f32``
+(fp32 deltas and fp32 accumulation) runs so far.
+"""
+
+from __future__ import annotations
+
+# Physics constants, as the reference defines them (ver0/GSimulation.cpp:114-116).
+SOFTENING_SQUARED = 1e-3
+G_NEWTON = 6.67259e-11
+
+# Precision modes of the JAX package; the port accepts only "f32" so far.
+PRECISIONS = ("f32", "bf16", "ref64")
+SUPPORTED_PRECISIONS = ("f32",)

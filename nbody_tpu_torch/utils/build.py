@@ -1,0 +1,119 @@
+"""Build the CUDA kernels with ``nvcc`` at first use and load them with ctypes.
+
+Every ``nbody_tpu_torch/csrc/*.cu`` is compiled into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/nbody_tpu_torch/<hash>/libnbody_kernels.so
+
+The library lands under ``build/`` beside the package, in a directory named
+by a hash of the sources and flags, so an edited source builds anew and an
+unchanged one loads at once.  There is no fast-math flag: ``1.0f/sqrtf`` is
+IEEE-rounded under nvcc's default ``-prec-div``/``-prec-sqrt``.  A missing
+``nvcc`` raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "nbody_tpu_torch"
+LIB_NAME = "libnbody_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C function -> argument types; every function returns a cudaError_t as int.
+SIGNATURES = {
+    # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, stream
+    "nbt_tiled_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _P),
+    # pos, mass, n, block, partials, out, stream
+    "nbt_sym_accel": (_P, _P, _I, _I, _P, _P, _P),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):  # .cu and .cuh
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / source_hash() / LIB_NAME
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
+        "kernels are built from nbody_tpu_torch/csrc at first use"
+    )
+
+
+def build(verbose: bool = False) -> tuple[Path, float]:
+    """Compile the kernels unless this source hash is already built.
+    Returns the library path and the seconds the build took (0 when it
+    was already there).  The compiler's report (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside the library in ``nvcc.log``."""
+    lib = library_path()
+    if lib.exists():
+        return lib, 0.0
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    (lib.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    if verbose:
+        print(log, end="")
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib, secs
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.nbt_error_string.argtypes = [ctypes.c_int]
+    lib.nbt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C launcher returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        msg = library().nbt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} at launch ({msg})")

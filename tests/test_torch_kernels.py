@@ -1,0 +1,165 @@
+"""The port's force kernels against the JAX package's.
+
+On the CPU every wrapper runs its plain PyTorch version (the CUDA kernels
+cannot run here), so these tests hold the plain versions against the JAX
+functions they port: ``naive`` against JAX ``naive``, the plain tiled sweep
+against ``pallas_kernel.accelerations_between(interpret=True)`` and the
+plain pair-symmetric sweep against ``pallas_sym.accelerations(interpret=
+True)``.  Inputs are made by numpy from a seed and fed to both packages.
+The kernels themselves are held against these plain versions on a card by
+tests/test_torch_cuda.py and chip_smoke.py.
+
+Tolerances: the sweeps sum in other orders than the Pallas kernels, so they
+agree to fp32 summation error, stated as a relative-norm bound (5e-6 for
+the kernels, 1e-6 for the naive broadcast, which differs only in the order
+of its one reduction).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nbody_tpu.ops import naive as jax_naive
+from nbody_tpu.ops import pallas_kernel as jax_pallas
+from nbody_tpu.ops import pallas_sym as jax_sym
+from nbody_tpu_torch.init import make_state
+from nbody_tpu_torch.ops import naive, registry, sym_kernel, tiled_kernel
+from nbody_tpu_torch.utils import build
+
+torch.set_num_threads(2)
+
+
+def _particles(n, seed, pad_to=None):
+    """Random positions in the unit cube and reference-scale masses, with
+    zero-mass padding on the far diagonal up to ``pad_to``."""
+    rng = np.random.default_rng(seed)
+    pos = rng.random((3, n), dtype=np.float32)
+    mass = (np.float32(n) * rng.random(n, dtype=np.float32)).astype(np.float32)
+    if pad_to and pad_to > n:
+        far = 1.0e6 + np.arange(pad_to - n, dtype=np.float32)
+        pos = np.concatenate([pos, np.tile(far, (3, 1))], axis=1)
+        mass = np.concatenate([mass, np.zeros(pad_to - n, np.float32)])
+    return pos, mass
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return np.linalg.norm(got - ref) / np.linalg.norm(ref)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("nt,ns,seed", [(256, 256, 0), (200, 333, 1)])
+def test_naive_matches_jax_naive(nt, ns, seed):
+    pt, _ = _particles(nt, seed)
+    ps, ms = _particles(ns, seed + 100)
+    ours = naive.accelerations_between(_t(pt), _t(ps), _t(ms), chunk=64)
+    ref = jax_naive.accelerations_between(jnp.asarray(pt), jnp.asarray(ps),
+                                          jnp.asarray(ms))
+    assert ours.shape == (3, nt) and ours.dtype == torch.float32
+    assert _rel(ours.numpy(), ref) <= 1e-6
+
+
+def test_plain_tiled_matches_pallas_interpret():
+    pt, _ = _particles(256, 2)
+    ps, ms = _particles(384, 3)
+    ref = jax_pallas.accelerations_between(
+        jnp.asarray(pt), jnp.asarray(ps), jnp.asarray(ms),
+        tile_i=128, tile_j=128, interpret=True)
+    plain = tiled_kernel.accelerations_between_plain(_t(pt), _t(ps), _t(ms))
+    # The wrapper on CPU tensors is the plain version, and launches nothing.
+    before = tiled_kernel.launches
+    wrapped = tiled_kernel.accelerations_between(_t(pt), _t(ps), _t(ms),
+                                                 tile_i=128, tile_j=128)
+    assert tiled_kernel.launches == before
+    assert torch.equal(wrapped, plain)
+    assert plain.shape == (3, 256)
+    assert _rel(plain.numpy(), ref) <= 5e-6
+
+
+@pytest.mark.parametrize("n", [256, 512])
+def test_plain_sym_matches_pallas_sym_interpret(n):
+    pos, mass = _particles(n, 10 + n)
+    ref = jax_sym.accelerations(jnp.asarray(pos), jnp.asarray(mass),
+                                block=128, interpret=True)
+    plain = sym_kernel.accelerations_plain(_t(pos), _t(mass), block=128)
+    before = sym_kernel.launches
+    wrapped = sym_kernel.accelerations(_t(pos), _t(mass), block=128)
+    assert sym_kernel.launches == before
+    assert torch.equal(wrapped, plain)
+    assert _rel(plain.numpy(), ref) <= 5e-6
+
+
+def test_padded_columns_exactly_zero():
+    pos, mass = _particles(200, 4, pad_to=256)
+    acc = sym_kernel.accelerations_plain(_t(pos), _t(mass), block=128)
+    assert torch.all(acc[:, 200:] == 0.0)
+    # ... and the padding changes nothing for the real particles.
+    real = naive.accelerations(_t(pos[:, :200]), _t(mass[:200]))
+    assert _rel(acc[:, :200].numpy(), real.numpy()) <= 5e-6
+    # The tiled sweep with padded sources equals it without them.
+    a_pad = tiled_kernel.accelerations_between(_t(pos[:, :200]), _t(pos),
+                                               _t(mass))
+    assert _rel(a_pad.numpy(), real.numpy()) <= 5e-6
+
+
+def test_sym_reference_state_matches_jax_sym():
+    st = make_state(2000, pad_multiple=128)  # the N=2000 -> 2048 case
+    ref = jax_sym.accelerations(jnp.asarray(st.pos.numpy()),
+                                jnp.asarray(st.mass.numpy()), block=1024,
+                                interpret=True)
+    ours = sym_kernel.accelerations(st.pos, st.mass)
+    assert _rel(ours.numpy(), ref) <= 5e-6
+    assert torch.all(ours[:, 2000:] == 0.0)
+
+
+@pytest.mark.parametrize("fn,args,exc", [
+    ("tiled", dict(dtype=torch.float64), TypeError),
+    ("tiled", dict(transpose=True), ValueError),
+    ("sym", dict(dtype=torch.float64), TypeError),
+    ("sym", dict(n=200), ValueError),  # not a multiple of the block
+])
+def test_wrappers_check_inputs(fn, args, exc):
+    n = args.get("n", 256)
+    pos = torch.rand(3, n, dtype=args.get("dtype", torch.float32))
+    mass = torch.rand(n, dtype=pos.dtype)
+    if args.get("transpose"):
+        pos = torch.rand(n, 3).t()  # (3, n) but not contiguous
+    with pytest.raises(exc):
+        if fn == "tiled":
+            tiled_kernel.accelerations(pos, mass)
+        else:
+            sym_kernel.accelerations(pos, mass, block=128)
+
+
+def test_registry_auto_and_names():
+    assert registry.available() == ("naive", "pallas", "pallas_sym", "auto")
+    assert registry.resolve("auto", "cpu") == "naive"
+    assert registry.resolve("auto", "cuda") == "pallas_sym"
+    assert registry.resolve("pallas", "cpu") == "pallas"
+    assert registry.get_between("pallas_sym") is tiled_kernel.accelerations_between
+    pos, mass = _particles(128, 5)
+    auto = registry.get("auto")(_t(pos), _t(mass), tile_i=64)
+    assert torch.equal(auto, naive.accelerations(_t(pos), _t(mass)))
+    with pytest.raises(KeyError, match="unknown kernel"):
+        registry.get("pm")
+
+
+def test_sym_scratch_budget():
+    # 12 N^2 / B bytes of partials: 25 MB at N=16384, B=128.
+    assert sym_kernel.scratch_bytes(16384, 128) == 12 * 16384 * 16384 // 128
+    assert sym_kernel.scratch_bytes(2048, 128) == 3 * 2048 * 16 * 4
+
+
+def test_build_layout():
+    srcs = [p.name for p in build.sources()]
+    assert srcs == ["sym.cu", "tiled.cu"]
+    path = build.library_path()
+    assert path.name == "libnbody_kernels.so"
+    assert path.parent.parent == build.BUILD_DIR
+    assert len(path.parent.name) == 16
+    assert "--use_fast_math" not in build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
