@@ -4,8 +4,10 @@ It runs the reference N-body main path (bit-exact initial conditions,
 zero-mass padding, the force-kernel registry, the Euler and leapfrog sample
 blocks, the kinetic energy and the reference's table) in PyTorch, with
 hand-written CUDA kernels for the two force sweeps of that path
-(csrc/tiled.cu, csrc/sym.cu).  It imports torch and never JAX; the JAX
-package ``nbody_tpu`` stays beside it as the reference it is held against.
+(csrc/tiled.cu, csrc/sym.cu) and for the fused sample block, a whole block
+of steps in one launch (csrc/fused.cu, ``SimConfig(fused=True)``).  It
+imports torch and never JAX; the JAX package ``nbody_tpu`` stays beside it
+as the reference it is held against.
 """
 
 from .config import SimConfig

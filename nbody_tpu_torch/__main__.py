@@ -11,6 +11,10 @@ Options:
     --kernel {naive,pallas,pallas_sym,auto}   force kernel (auto: the
                                    pair-symmetric CUDA kernel where it fits)
     --integrator {euler,leapfrog}  parity default / symplectic option
+    --fused                        each sample block in one kernel launch
+                                   (f32; rows layout, or columns with a
+                                   rectangular --tile-i/--tile-j); --kernel
+                                   then sets nothing
     --sfreq/--dt                   sample frequency and step size
     --tile-i/--tile-j              kernel tiles (pallas_sym: tile-i = block)
     --platform {cuda,cpu}          the card (default) or the CPU on request
@@ -31,7 +35,6 @@ from .simulation import Simulation
 
 # Flags of ``python -m nbody_tpu`` that the port does not have yet.
 _NOT_PORTED = {
-    "--fused": "queue 1 item 5 (the fused sample block)",
     "--energy-check": "queue 1 item 6 (the potential energy)",
     "--pm-grid": "queue 1 items 7-10 (the mesh tiers)",
     "--pm-cutoff": "queue 1 items 7-10 (the mesh tiers)",
@@ -84,6 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--sfreq", type=int, default=50)
     p.add_argument("--dt", type=float, default=0.1)
+    p.add_argument("--fused", action="store_true",
+                   help="run each sample block in one kernel launch")
     p.add_argument("--tile-i", type=int, default=0)
     p.add_argument("--tile-j", type=int, default=0)
     p.add_argument("--platform", default=None, choices=["cuda", "cpu"])
@@ -103,7 +108,7 @@ def main(argv=None) -> int:
             integrator=args.integrator, distribution=args.distribution,
             seed=args.seed, kernel=args.kernel,
             tile_i=args.tile_i or args.dim0, tile_j=args.tile_j or args.dim1,
-            precision=args.precision,
+            precision=args.precision, fused=args.fused,
             platform=args.platform or ("cpu" if args.device == "cpu" else None),
         )
     except (NotImplementedError, ValueError) as e:

@@ -55,6 +55,7 @@ class SimConfig:
     tile_i: int = 0  # 0 = kernel default (pallas_sym: the block size)
     tile_j: int = 0
     precision: str = "f32"
+    fused: bool = False  # the whole sample block in one kernel launch
     platform: Optional[str] = None  # None = cuda; "cpu" only on request
 
     def __post_init__(self):
@@ -71,6 +72,8 @@ class SimConfig:
             raise ValueError(
                 f"unknown precision {self.precision!r}; options: {PRECISIONS}"
             )
+        if self.fused and self.precision != "f32":
+            raise ValueError("--fused requires f32 precision")
         _check("precision", self.precision, SUPPORTED_PRECISIONS)
         if self.platform is not None:
             _check("platform", self.platform, PLATFORMS)
@@ -107,9 +110,14 @@ class SimConfig:
     def pad_multiple(self) -> int:
         """Particle-count padding the kernel needs: the pair-symmetric
         kernel sweeps whole blocks (``auto`` on CUDA pads for it, so N=2000
-        becomes 2048); the tiled kernel and naive take any N."""
+        becomes 2048); the tiled kernel and naive take any N.  Under
+        ``fused`` the fused block's layout sets it, whatever ``kernel``
+        says: rows blocks, or columns tiles that divide N."""
+        from .ops import fused_block
         from .ops.sym_kernel import DEFAULT_BLOCK
 
+        if self.fused:
+            return fused_block.pad_multiple(self.tile_i, self.tile_j)
         if self.resolved_kernel() == "pallas_sym":
             return self.tile_i or DEFAULT_BLOCK
         return 1

@@ -35,11 +35,13 @@
 // 26 flops, one IEEE sqrt, one IEEE divide and 3 shuffles per unordered
 // pair.  Device memory traffic is the 12 N^2 / B bytes of partials written
 // once and read once.
+//
+// The tile-pair body and the ordered sum are the device functions
+// nbt::sym_tile_pair and nbt::sym_reduce (common.cuh), which the fused rows
+// block (fused.cu) runs too.
 #include "common.cuh"
 
 namespace {
-
-constexpr unsigned kFullMask = 0xffffffffu;
 
 __global__ void sym_pairs_kernel(const float* __restrict__ pos,
                                  const float* __restrict__ mass, int n,
@@ -48,71 +50,14 @@ __global__ void sym_pairs_kernel(const float* __restrict__ pos,
   const int it = blockIdx.y, jt = blockIdx.x;
   if (jt < it) return;  // each unordered tile pair once
   extern __shared__ float4 smem[];
-  float4* sj = smem;                                  // the j tile
-  float* red = reinterpret_cast<float*>(smem + B);    // [warp][3][B]
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, nwarps = B >> 5;
-  const int i = it * B + t, j = jt * B + t;
-  sj[t] = make_float4(pos[j], pos[n + j], pos[2 * n + j], mass[j] * nbt::kG);
-  const float xi = pos[i], yi = pos[n + i], zi = pos[2 * n + i];
-  const float gmi = mass[i] * nbt::kG;
+  float4* sj = smem;                                // the j tile
+  float* red = reinterpret_cast<float*>(smem + B);  // [warp][3][B]
+  const int t = threadIdx.x;
+  constexpr nbt::Loads kLoads = nbt::Loads::kFixed;
+  sj[t] = nbt::load_body<kLoads>(pos, mass, n, jt * B + t);
+  const float4 bi = nbt::load_body<kLoads>(pos, mass, n, it * B + t);
   __syncthreads();
-
-  float* pi = part + (size_t(it) * T + jt) * 3 * B;  // P[it][jt]
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  if (it == jt) {  // diagonal tile: one-sided sum over all of its pairs
-    for (int k = 0; k < B; ++k) {
-      const float4 p = sj[k];
-      const float dx = p.x - xi, dy = p.y - yi, dz = p.z - zi;
-      const float w = (gmi * p.w) * nbt::inv_cube(dx, dy, dz);
-      ax += w * dx;
-      ay += w * dy;
-      az += w * dz;
-    }
-    pi[t] = ax;
-    pi[B + t] = ay;
-    pi[2 * B + t] = az;
-    return;
-  }
-
-  for (int s = 0; s < nwarps; ++s) {  // 32-wide j subtiles
-    const float4* sub = sj + s * 32;
-    float bx = 0.f, by = 0.f, bz = 0.f;  // j side of j = s*32 + (lane+k)%32
-    for (int k = 0; k < 32; ++k) {
-      const float4 p = sub[(lane + k) & 31];
-      const float dx = p.x - xi, dy = p.y - yi, dz = p.z - zi;
-      const float w = (gmi * p.w) * nbt::inv_cube(dx, dy, dz);
-      const float px = w * dx, py = w * dy, pz = w * dz;
-      ax += px;
-      ay += py;
-      az += pz;
-      bx -= px;
-      by -= py;
-      bz -= pz;
-      // Hand each j-side sum to the lane that takes its j at step k+1.
-      const int from = (lane + 1) & 31;
-      bx = __shfl_sync(kFullMask, bx, from);
-      by = __shfl_sync(kFullMask, by, from);
-      bz = __shfl_sync(kFullMask, bz, from);
-    }
-    red[(warp * 3 + 0) * B + s * 32 + lane] = bx;
-    red[(warp * 3 + 1) * B + s * 32 + lane] = by;
-    red[(warp * 3 + 2) * B + s * 32 + lane] = bz;
-  }
-  __syncthreads();
-
-  float sx = 0.f, sy = 0.f, sz = 0.f;
-  for (int w = 0; w < nwarps; ++w) {  // fixed order: deterministic
-    sx += red[(w * 3 + 0) * B + t];
-    sy += red[(w * 3 + 1) * B + t];
-    sz += red[(w * 3 + 2) * B + t];
-  }
-  pi[t] = ax;
-  pi[B + t] = ay;
-  pi[2 * B + t] = az;
-  float* pj = part + (size_t(jt) * T + it) * 3 * B;  // P[jt][it]
-  pj[t] = sx;
-  pj[B + t] = sy;
-  pj[2 * B + t] = sz;
+  nbt::sym_tile_pair(sj, red, bi, it, jt, T, part);
 }
 
 // a = (sum_u P[t][u]) / (G m), u in order; zero mass gives exactly 0.
@@ -121,14 +66,11 @@ __global__ void sym_reduce_kernel(const float* __restrict__ part,
                                   float* __restrict__ out) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  const int T = n / B, t = idx / B, l = idx - t * B;
   const float gm = mass[idx] * nbt::kG;
-  const float* row = part + size_t(t) * T * 3 * B + l;
-  for (int c = 0; c < 3; ++c) {
-    float s = 0.f;
-    for (int u = 0; u < T; ++u) s += row[(size_t(u) * 3 + c) * B];
-    out[size_t(c) * n + idx] = gm > 0.f ? s / gm : 0.f;
-  }
+  const float3 a = nbt::sym_reduce<nbt::Loads::kFixed>(part, gm, idx, n / B, B);
+  out[idx] = a.x;
+  out[n + idx] = a.y;
+  out[2 * n + idx] = a.z;
 }
 
 }  // namespace

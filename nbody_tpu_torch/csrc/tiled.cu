@@ -25,63 +25,31 @@
 // source rows sit in the 50 MB L2.  What remains is the instruction rate
 // of the pair loop, which is unrolled by 8 to overlap the sqrt and divide
 // latencies of neighbouring pairs.
+//
+// The source loop and the ordered row sum are the device functions
+// nbt::tiled_source_loop and nbt::tiled_row_sum (common.cuh), which the
+// fused columns block (fused.cu) runs too.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(nbt::kTiledThreads)
 tiled_accel_kernel(const float* __restrict__ pos_t, int nt,
                    const float* __restrict__ pos_s,
                    const float* __restrict__ mass_s, int ns,
                    float* __restrict__ out, int tile_j) {
   extern __shared__ float4 src[];  // tile_j sources: x, y, z, G*m
-  __shared__ float part[3][kThreads];
-  const int ti = blockDim.x, rows = blockDim.y;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * ti + tx;
-  const int i = blockIdx.x * ti + tx;
+  __shared__ float part[3 * nbt::kTiledThreads];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int ic = i < nt ? i : nt - 1;  // ragged edge: compute, never store
-  const float xi = pos_t[ic], yi = pos_t[nt + ic], zi = pos_t[2 * nt + ic];
-  const int per = tile_j / rows;
-  const float4* mine = src + ty * per;
-
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int j0 = 0; j0 < ns; j0 += tile_j) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int k = tid; k < tile_j; k += kThreads) {
-      const int j = j0 + k;
-      src[k] = j < ns ? make_float4(pos_s[j], pos_s[ns + j], pos_s[2 * ns + j],
-                                    mass_s[j] * nbt::kG)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < per; ++k) {
-      const float4 p = mine[k];
-      const float dx = p.x - xi, dy = p.y - yi, dz = p.z - zi;
-      const float w = p.w * nbt::inv_cube(dx, dy, dz);
-      ax += w * dx;
-      ay += w * dy;
-      az += w * dz;
-    }
-  }
-
-  part[0][tid] = ax;
-  part[1][tid] = ay;
-  part[2][tid] = az;
-  __syncthreads();
-  if (ty == 0 && i < nt) {
-    float sx = 0.f, sy = 0.f, sz = 0.f;
-    for (int r = 0; r < rows; ++r) {  // fixed order: deterministic
-      sx += part[0][r * ti + tx];
-      sy += part[1][r * ti + tx];
-      sz += part[2][r * ti + tx];
-    }
-    out[i] = sx;
-    out[nt + i] = sy;
-    out[2 * nt + i] = sz;
+  const float3 acc = nbt::tiled_source_loop<nbt::Loads::kFixed>(
+      src, pos_s, mass_s, ns, tile_j, pos_t[ic], pos_t[nt + ic],
+      pos_t[2 * nt + ic]);
+  const float3 a = nbt::tiled_row_sum(part, acc);
+  if (threadIdx.y == 0 && i < nt) {
+    out[i] = a.x;
+    out[nt + i] = a.y;
+    out[2 * nt + i] = a.z;
   }
 }
 
@@ -95,7 +63,7 @@ tiled_accel_kernel(const float* __restrict__ pos_t, int nt,
 extern "C" int nbt_tiled_accel(const float* pos_t, int nt, const float* pos_s,
                                const float* mass_s, int ns, float* out,
                                int tile_i, int tile_j, void* stream) {
-  const dim3 block(tile_i, kThreads / tile_i);
+  const dim3 block(tile_i, nbt::kTiledThreads / tile_i);
   const dim3 grid((nt + tile_i - 1) / tile_i);
   const size_t smem = size_t(tile_j) * sizeof(float4);
   tiled_accel_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -7,7 +7,8 @@ Reference semantics (ver0/GSimulation.cpp:153-173):
 The port of ``nbody_tpu.models.gravity`` without the TPU watchdog
 host-chunking (ROADMAP.md "What is not ported"): PyTorch launches eagerly,
 so a sample block is a Python loop of kernel launches with no host sync,
-and the kinetic energy stays on the device until the engine reads it.
+or one launch of the fused block, and the kinetic energy stays on the
+device until the engine reads it.
 """
 
 from __future__ import annotations
@@ -46,6 +47,24 @@ def make_block_fn(accel_fn: AccelFn, dt: float, block_steps: int,
     from .integrators import make_block_fn as _mk
 
     return _mk(accel_fn, dt, block_steps, integrator=integrator)
+
+
+def make_fused_block_fn(dt: float, block_steps: int, tile_i: int = 0,
+                        tile_j: int = 0, integrator: str = "euler"):
+    """A sample block run in one kernel launch (ops/fused_block.py), with
+    the same (state) -> (state, kinetic_energy) contract as make_block_fn;
+    the energy is computed after the kernel.  Fused leapfrog re-seeds the
+    carried acceleration each block, as the unfused leapfrog does."""
+    from ..ops import fused_block as fb
+
+    def block(state: ParticleState):
+        pos, vel = fb.fused_block(state.pos, state.vel, state.mass, dt,
+                                  block_steps, tile_i=tile_i, tile_j=tile_j,
+                                  integrator=integrator)
+        new = ParticleState(pos=pos, vel=vel, mass=state.mass, n=state.n)
+        return new, kinetic_energy(new)
+
+    return block
 
 
 def make_accel_fn(kernel_name: str, **opts) -> AccelFn:

@@ -14,6 +14,7 @@ warm-up block leaves the state it was given untouched.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..state import ParticleState
 from .gravity import AccelFn, kinetic_energy
@@ -21,43 +22,48 @@ from .gravity import AccelFn, kinetic_energy
 INTEGRATORS = ("euler", "leapfrog")
 
 
+def step_sizes(dt: float) -> tuple[float, float]:
+    """The fp32 step sizes the JAX package uses (jnp.float32(dt) and 0.5 *
+    that, both in fp32), as Python floats that are exact in fp32."""
+    return float(np.float32(dt)), float(np.float32(0.5) * np.float32(dt))
+
+
+def advance(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
+            accel_fn: AccelFn, dt: float, steps: int,
+            integrator: str = "euler") -> tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` steps from (pos, vel), returned as new tensors."""
+    dtf, half = step_sizes(dt)
+    if integrator == "euler":
+        for _ in range(steps):
+            acc = accel_fn(pos, mass)
+            vel = vel + acc * dtf
+            pos = pos + vel * dtf
+        return pos, vel
+    if integrator == "leapfrog":
+        # One extra force evaluation per block re-seeds the carried
+        # acceleration (state holds no acc between blocks).
+        acc = accel_fn(pos, mass)
+        for _ in range(steps):
+            vel_h = vel + acc * half  # kick
+            pos = pos + vel_h * dtf  # drift
+            acc = accel_fn(pos, mass)
+            vel = vel_h + acc * half  # kick
+        return pos, vel
+    raise ValueError(f"unknown integrator {integrator!r}; options: {INTEGRATORS}")
+
+
 def make_block_fn(accel_fn: AccelFn, dt: float, block_steps: int,
                   integrator: str = "euler"):
     """Sample block: advances block_steps steps on the device and returns
     (state, kinetic_energy) with the energy as a 0-d device tensor."""
-    # The fp32 step sizes the JAX package uses (jnp.float32(dt) and
-    # 0.5 * that, both in fp32), held as Python floats that are exact in fp32.
-    dtf = float(np.float32(dt))
-    half = float(np.float32(0.5) * np.float32(dt))
+    if integrator not in INTEGRATORS:
+        raise ValueError(
+            f"unknown integrator {integrator!r}; options: {INTEGRATORS}")
 
-    if integrator == "euler":
+    def block(state: ParticleState):
+        pos, vel = advance(state.pos, state.vel, state.mass, accel_fn, dt,
+                           block_steps, integrator)
+        new = ParticleState(pos=pos, vel=vel, mass=state.mass, n=state.n)
+        return new, kinetic_energy(new)
 
-        def block(state: ParticleState):
-            pos, vel, mass = state.pos, state.vel, state.mass
-            for _ in range(block_steps):
-                acc = accel_fn(pos, mass)
-                vel = vel + acc * dtf
-                pos = pos + vel * dtf
-            new = ParticleState(pos=pos, vel=vel, mass=mass, n=state.n)
-            return new, kinetic_energy(new)
-
-        return block
-
-    if integrator == "leapfrog":
-
-        def block(state: ParticleState):
-            pos, vel, mass = state.pos, state.vel, state.mass
-            # One extra force evaluation per block re-seeds the carried
-            # acceleration (state holds no acc between blocks).
-            acc = accel_fn(pos, mass)
-            for _ in range(block_steps):
-                vel_h = vel + acc * half  # kick
-                pos = pos + vel_h * dtf  # drift
-                acc = accel_fn(pos, mass)
-                vel = vel_h + acc * half  # kick
-            new = ParticleState(pos=pos, vel=vel, mass=mass, n=state.n)
-            return new, kinetic_energy(new)
-
-        return block
-
-    raise ValueError(f"unknown integrator {integrator!r}; options: {INTEGRATORS}")
+    return block

@@ -9,12 +9,17 @@ and GFlop/s statistics, print the footer.
   host syncs once per block, when it reads the kinetic energy.
 * A warm-up block runs before the clock starts: it builds the CUDA kernels
   and runs one block, and its result is discarded.
+* ``SimConfig.fused`` runs each sample block as one launch of the fused
+  block (``ops/fused_block.py``) instead of a loop of force sweeps; f32
+  only, and ``kernel`` then sets nothing: the padding follows the layout.
 * The statistics replicate the reference's: per-block
   ``gflops*sfreq/block_seconds`` with running mean/stddev that exclude the
   first two sample blocks (ver0/GSimulation.cpp:186-203).
 
-The JAX engine's autotune, online retune, mesh, watchdog, sharding, fused,
-checkpoint and ref64 branches are not ported yet (ROADMAP.md queue 1).
+The JAX engine's autotune, online retune, mesh, sharding, checkpoint and
+ref64 branches are not ported yet (ROADMAP.md queue 1); its watchdog
+branches, the fused block's pair budget among them, are not ported at all
+(ROADMAP.md "What is not ported").
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 
 from .config import SimConfig
 from .init import make_state
-from .models.gravity import make_accel_fn, make_block_fn
+from .models.gravity import make_accel_fn, make_block_fn, make_fused_block_fn
 from .state import ParticleState
 from .utils import reporting
 from .utils.flops import step_gflops
@@ -81,9 +86,16 @@ class _DeviceRunner:
 
     def _block_for(self, steps: int):
         if steps not in self._blocks:
-            self._blocks[steps] = make_block_fn(
-                self.accel_fn, self.cfg.dt, steps, integrator=self.cfg.integrator
-            )
+            cfg = self.cfg
+            if cfg.fused:
+                self._blocks[steps] = make_fused_block_fn(
+                    cfg.dt, steps, tile_i=cfg.tile_i, tile_j=cfg.tile_j,
+                    integrator=cfg.integrator,
+                )
+            else:
+                self._blocks[steps] = make_block_fn(
+                    self.accel_fn, cfg.dt, steps, integrator=cfg.integrator
+                )
         return self._blocks[steps]
 
     def prepare(self) -> None:

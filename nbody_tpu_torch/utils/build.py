@@ -1,10 +1,13 @@
 """Build the CUDA kernels with ``nvcc`` at first use and load them with ctypes.
 
-Every ``nbody_tpu_torch/csrc/*.cu`` is compiled into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds):
+Every ``nbody_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``, all
+started together, and the objects are linked into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/nbody_tpu_torch/<hash>/libnbody_kernels.so
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/nbody_tpu_torch/<hash>/libnbody_kernels.so *.o
 
 The library lands under ``build/`` beside the package, in a directory named
 by a hash of the sources and flags, so an edited source builds anew and an
@@ -28,19 +31,23 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "nbody_tpu_torch"
 LIB_NAME = "libnbody_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C function -> argument types; every function returns a cudaError_t as int.
 SIGNATURES = {
     # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, stream
     "nbt_tiled_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _P),
     # pos, mass, n, block, partials, out, stream
     "nbt_sym_accel": (_P, _P, _I, _I, _P, _P, _P),
+    # pos, vel, mass, n, block, partials, queue, steps, dt, half, leapfrog,
+    # stream
+    "nbt_fused_rows": (_P, _P, _P, _I, _I, _P, _P, _I, _F, _F, _I, _P),
+    # pos2, vel, mass, n, tile_i, tile_j, steps, dt, half, leapfrog, stream
+    "nbt_fused_cols": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
 }
 
 
@@ -83,16 +90,33 @@ def build(verbose: bool = False) -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sources():
+        obj = lib.with_name(f"{src.stem}.{os.getpid()}.o")  # nvcc reads .o
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+            *(str(obj) for _, obj, _ in jobs)]
+    log, failed = "", False
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log += " ".join(cmd) + "\n" + out
+        failed = failed or proc.returncode != 0
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+        failed = proc.returncode != 0
     secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (lib.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
+    (lib.parent / "nvcc.log").write_text(log)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed:\n{log}")
     if verbose:
         print(log, end="")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file

@@ -18,7 +18,8 @@ import torch
 
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.init import make_state
-from nbody_tpu_torch.ops import sym_kernel, tiled_kernel
+from nbody_tpu_torch.models.gravity import make_accel_fn, make_block_fn
+from nbody_tpu_torch.ops import fused_block, sym_kernel, tiled_kernel
 from nbody_tpu_torch.simulation import run
 from nbody_tpu_torch.utils.reporting import parse_trace
 
@@ -84,3 +85,77 @@ def test_golden_trace_on_card(cuda_device, kernel, module):
     assert module.launches - before == 150
     assert [(s, f"{ke:.5g}") for s, ke in res.kenergy_trace] == golden
     assert res.device == torch.cuda.get_device_name(0)
+
+
+# (tile_i, tile_j): the rows layout with its default block, and the columns
+FUSED_TILES = [(0, 0), (64, 256)]
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+@pytest.mark.parametrize("tiles", FUSED_TILES, ids=["rows", "columns"])
+@pytest.mark.parametrize("n,n_pad", [(2048, 2048), (2000, 2048)])
+def test_fused_matches_plain(cuda_device, n, n_pad, tiles, integrator):
+    st = make_state(n, pad_multiple=n_pad, device=cuda_device)
+    args = (st.pos, st.vel, st.mass, 0.1, 20, *tiles, integrator)
+    before = fused_block.launches
+    pos, vel = fused_block.fused_block(*args)
+    pos2, vel2 = fused_block.fused_block(*args)
+    torch.cuda.synchronize()
+    assert fused_block.launches == before + 2
+    # Two launches on one input agree bit for bit: a barrier race shows here.
+    assert torch.equal(pos, pos2) and torch.equal(vel, vel2)
+    p_ref, v_ref = fused_block.fused_block_plain(*args)
+    assert _rel(pos, p_ref) <= 1e-5 and _rel(vel, v_ref) <= 1e-5
+    if tiles == (0, 0):  # rows: a / (G m) gives zero-mass padding exactly 0
+        assert torch.all(vel[:, n:] == 0.0)
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+def test_fused_rows_ctas_take_many_pairs(cuda_device, integrator):
+    """More tile pairs than the card can hold CTAs, so each CTA draws
+    several pairs from the counter and reuses its shared memory."""
+    n, block = 8192, 64
+    props = torch.cuda.get_device_properties(cuda_device)
+    most_ctas = props.multi_processor_count * (
+        props.max_threads_per_multi_processor // block)
+    pairs = (n // block) * (n // block + 1) // 2
+    assert pairs > 1.5 * most_ctas
+    st = make_state(n, device=cuda_device)
+    args = (st.pos, st.vel, st.mass, 0.1, 4, block, block, integrator)
+    pos, vel = fused_block.fused_block(*args)
+    pos2, vel2 = fused_block.fused_block(*args)
+    assert torch.equal(pos, pos2) and torch.equal(vel, vel2)
+    p_ref, v_ref = fused_block.fused_block_plain(*args)
+    assert _rel(pos, p_ref) <= 1e-5 and _rel(vel, v_ref) <= 1e-5
+
+
+def test_fused_euler_rows_is_unfused_sym_block(cuda_device):
+    """The rows kernel runs Kernel B's arithmetic and the unfused update's
+    rounding, so an Euler block equals the unfused block bit for bit."""
+    st = make_state(2000, pad_multiple=128, device=cuda_device)
+    pos, vel = fused_block.fused_block(st.pos, st.vel, st.mass, 0.1, 10)
+    blk = make_block_fn(make_accel_fn("pallas_sym", tile_i=128), 0.1, 10)
+    want, _ = blk(st)
+    assert torch.equal(pos, want.pos) and torch.equal(vel, want.vel)
+
+
+@pytest.mark.parametrize("tiles", FUSED_TILES, ids=["rows", "columns"])
+def test_fused_golden_trace_on_card(cuda_device, tiles):
+    with open(os.path.join(GOLDEN, "ver0_n256_s100.txt")) as f:
+        golden = parse_trace(f.read())
+    counts = [m.launches for m in (fused_block, sym_kernel, tiled_kernel)]
+    res = run(SimConfig(n=256, nsteps=100, fused=True, tile_i=tiles[0],
+                        tile_j=tiles[1]), quiet=True)
+    # one launch per block, plus the warm-up block's; no unfused sweep
+    assert [m.launches for m in (fused_block, sym_kernel, tiled_kernel)] == [
+        counts[0] + 3, counts[1], counts[2]]
+    assert [(s, f"{ke:.5g}") for s, ke in res.kenergy_trace] == golden
+
+
+def test_fused_raises_on_bad_tiles(cuda_device):
+    st = make_state(512, device=cuda_device)
+    with pytest.raises(ValueError, match="block"):
+        fused_block.fused_block(st.pos, st.vel, st.mass, 0.1, 1, tile_i=512)
+    with pytest.raises(ValueError, match="tile_i"):
+        fused_block.fused_block(st.pos, st.vel, st.mass, 0.1, 1, tile_i=512,
+                                tile_j=256)

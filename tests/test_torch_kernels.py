@@ -15,6 +15,9 @@ the kernels, 1e-6 for the naive broadcast, which differs only in the order
 of its one reduction).
 """
 
+import os
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,10 +159,52 @@ def test_sym_scratch_budget():
 
 def test_build_layout():
     srcs = [p.name for p in build.sources()]
-    assert srcs == ["sym.cu", "tiled.cu"]
+    assert srcs == ["fused.cu", "sym.cu", "tiled.cu"]
     path = build.library_path()
     assert path.name == "libnbody_kernels.so"
     assert path.parent.parent == build.BUILD_DIR
     assert len(path.parent.name) == 16
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+with open({log!r}, "a") as f:
+    f.write(" ".join(args) + "\\n")
+if any(a.endswith("{fail}") for a in args):
+    print("error: {fail} does not compile")
+    sys.exit(2)
+open(args[args.index("-o") + 1], "w").close()
+"""
+
+
+@pytest.mark.parametrize("fail", ["", "fused.cu"])
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch, fail):
+    """One nvcc per source, then one link; a failing source raises with
+    the compiler's output and leaves no library behind."""
+    log = tmp_path / "calls.txt"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable, log=str(log),
+                                     fail=fail or "never"))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    if fail:
+        with pytest.raises(RuntimeError, match="fused.cu does not compile"):
+            build.build()
+        assert not build.library_path().exists()
+    else:
+        lib, _ = build.build()
+        assert lib == build.library_path() and lib.exists()
+        assert build.build() == (lib, 0.0)  # built once per source hash
+    calls = log.read_text().splitlines()
+    compiles = sorted(c.split()[-1] for c in calls if " -c " in c)
+    assert compiles == sorted(str(p) for p in build.sources())
+    assert all(" ".join(build.NVCC_FLAGS) in c for c in calls if " -c " in c)
+    links = [c for c in calls if "-shared" in c]
+    assert len(links) == (0 if fail else 1)
+    assert not [p for p in os.listdir(build.library_path().parent)
+                if p.endswith((".o", ".tmp"))]

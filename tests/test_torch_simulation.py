@@ -147,7 +147,7 @@ def test_cli_in_process(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--fused"], "queue 1 item 5"),
+    (["--energy-check"], "queue 1 item 6"),
     (["--shards", "4"], "queue 1 item 11"),
     (["--autotune"], "queue 1 item 12"),
     (["--precision", "bf16"], "queue 1 item 4"),
