@@ -43,6 +43,28 @@ Phases, each printing what it found; any failure exits non-zero:
    version (relative-norm error <= 1e-5) and must repeat bit for bit;
    then the per-block time of each fused kernel and of its plain version
    (CUDA events).
+9. The force VJP kernel against its plain version, at N=2048, N=16384 and
+   N=2000 unpadded, with the cotangent g = naive accelerations * 1e20:
+   relative-norm error of d_pos and d_mass <= 2e-5 (printed beside both
+   against a float64 plain sweep); N=2000 padded to 2048 with a zero
+   cotangent on the padding must give the real particles exactly the
+   unpadded result; two launches must repeat bit for bit; each forward
+   kernel must refuse inputs that require grad.  Then the per-call time of
+   the kernel and of its plain version at N=16384 (CUDA events).
+10. The differentiable rollout at N=16384: ``make_accel_fn("auto",
+    differentiable=True)``, 10 Euler steps, remat on; the gradients of
+    sum((p_final - target)^2) with respect to vel and mass must agree with
+    the plain backward (``backward="jnp"``) to 1e-4 relative norm and with
+    ``remat=False`` bit for bit, and the run must launch the VJP kernel 10
+    times, Kernel B 20 times (forward and recompute) and Kernel A never.
+    The time of one forward plus backward (CUDA events).  Then
+    ``examples.fit_velocities`` at N=2048, 10 steps, 60 iterations must
+    recover the velocities (exit 0) and prints its seconds per iteration.
+11. ``--energy-check``: N=2000/500 with ``energy_check=True`` keeps the
+    golden trace and prints a finite drift; the Plummer run of
+    tests/test_distributions.py (N=512, 100 leapfrog steps, dt 0.01, seed
+    7) through ``auto`` must drift below 1e-4; N=16384 ``auto`` prints its
+    drift beside its GFLOP/s.
 
 The last two lines are a JSON object of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -51,6 +73,7 @@ The last two lines are a JSON object of the kernels and
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -59,6 +82,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "ver0_n2000_s500.txt")
 REL_TOL = 1e-5  # fp32, different summation order: relative-norm error bound
+# The force VJP: JAX's bound between its kernel and its plain sweep
+# (tests/test_grad.py), and between the kernel and plain backward of a
+# rollout (the analytic VJP against autodiff, the same file).
+VJP_TOL = 2e-5
+ROLLOUT_TOL = 1e-4
+G_SCALE = 1e20  # cotangent scale: brings reference-scale a^2 into fp32 range
 TIME_REPS = 20
 BLOCK = 50  # steps of a sample block
 # The fused layouts: (label, tile_i, tile_j); rows take the default block.
@@ -81,6 +110,9 @@ def card_line() -> str:
 
 
 def rel_err(got, ref) -> float:
+    """Relative-norm error, in float64: the VJP's cotangents, scaled by
+    G_SCALE, overflow a float32 sum of squares."""
+    got, ref = got.double(), ref.double()
     return float((got - ref).norm() / ref.norm())
 
 
@@ -110,8 +142,17 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from nbody_tpu_torch import SimConfig, make_state, run
+    from nbody_tpu_torch.examples import fit_velocities
     from nbody_tpu_torch.models.gravity import make_accel_fn, make_block_fn
-    from nbody_tpu_torch.ops import fused_block, naive, sym_kernel, tiled_kernel
+    from nbody_tpu_torch.models.rollout import make_rollout_fn
+    from nbody_tpu_torch.ops import (
+        fused_block,
+        grad,
+        naive,
+        sym_kernel,
+        tiled_kernel,
+        vjp_kernel,
+    )
     from nbody_tpu_torch.utils import build
     from nbody_tpu_torch.utils.reporting import _g5, parse_trace
 
@@ -334,6 +375,138 @@ def main() -> int:
               f"{BLOCK * n * n / ms[label] / 1e6:.1f} Gpairs/s (N^2 model) "
               f"{tag}", flush=True)
 
+    # 9. The force VJP kernel against its plain version.
+    err["vjp"] = 0.0
+    got = {}
+    for n in (2048, 16384, 2000):
+        st = make_state(n, device=dev)
+        pos, mass = st.pos, st.mass
+        g = naive.accelerations(pos, mass) * G_SCALE
+        d = vjp_kernel.force_vjp(pos, mass, g)
+        d2 = vjp_kernel.force_vjp(pos, mass, g)
+        plain = grad.force_vjp(pos, mass, g)
+        f64 = grad.force_vjp(pos.double(), mass.double(), g.double())
+        torch.cuda.synchronize()
+        got[n] = d
+        if not all(torch.isfinite(t).all() for t in d):
+            fail(f"vjp kernel: non-finite cotangents at N={n}")
+        if not all(torch.equal(a, b) for a, b in zip(d, d2)):
+            fail(f"vjp kernel: two launches at N={n} differ")
+        rk = [rel_err(a, b) for a, b in zip(d, f64)]
+        rp = [rel_err(a, b) for a, b in zip(plain, f64)]
+        rel = [rel_err(a, b) for a, b in zip(d, plain)]
+        err["vjp"] = max([err["vjp"]] + [float((a - b).abs().max())
+                                          for a, b in zip(d, plain)])
+        print(f"vjp N={n}: kernel vs plain d_pos {rel[0]:.3e}, d_mass "
+              f"{rel[1]:.3e}; vs float64: kernel {rk[0]:.3e}/{rk[1]:.3e}, "
+              f"plain {rp[0]:.3e}/{rp[1]:.3e} (d_pos/d_mass); repeats bit "
+              "for bit", flush=True)
+        if max(rel) > VJP_TOL:
+            fail(f"vjp kernel disagrees with its plain version at N={n}")
+    st = make_state(2000, pad_multiple=2048, device=dev)
+    g = torch.zeros_like(st.pos)
+    g[:, :2000] = naive.accelerations(st.pos[:, :2000].contiguous(),
+                                      st.mass[:2000].contiguous()) * G_SCALE
+    d_pad = vjp_kernel.force_vjp(st.pos, st.mass, g)
+    if not (torch.equal(d_pad[0][:, :2000], got[2000][0])
+            and torch.equal(d_pad[1][:2000], got[2000][1])):
+        fail("vjp kernel: zero-mass padding changed the real cotangents")
+    print("vjp padding N=2000->2048, zero cotangent on the padding: "
+          "equal to the unpadded run bit for bit", flush=True)
+    st = make_state(256, device=dev)
+    p, m = st.pos.clone().requires_grad_(True), st.mass.clone().requires_grad_(True)
+    for name, call in (
+            ("tiled", lambda: tiled_kernel.accelerations(p, m)),
+            ("sym", lambda: sym_kernel.accelerations(p, m)),
+            ("fused", lambda: fused_block.fused_block(p, st.vel, m, 0.1, 2))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "differentiable=True" not in str(e):
+                raise
+        else:
+            fail(f"{name} kernel accepted inputs that require grad")
+    print("tiled, sym and fused kernels refuse inputs that require grad",
+          flush=True)
+    n = 16384
+    st = make_state(n, device=dev)
+    pos, mass = st.pos, st.mass
+    g = naive.accelerations(pos, mass) * G_SCALE
+    ms["vjp"] = time_ms(lambda: vjp_kernel.force_vjp(pos, mass, g))
+    ms["vjp_plain"] = time_ms(lambda: grad.force_vjp(pos, mass, g), reps=5)
+    print(f"vjp N={n}: kernel {ms['vjp']:.4f} ms, plain {ms['vjp_plain']:.4f} "
+          f"ms per call; {n * n / ms['vjp'] / 1e6:.1f} Gpairs/s (N^2 model) "
+          f"{tag}", flush=True)
+
+    # 10. The differentiable rollout at full width.
+    steps = 10
+    with torch.no_grad():
+        target = make_rollout_fn(make_accel_fn("auto"), 0.1, steps)(
+            st.pos, st.vel, st.mass)[0]
+
+    def rollout_grads(backward_opts=None, remat=True):
+        accel = make_accel_fn("auto", differentiable=True,
+                              backward_opts=backward_opts)
+        rollout = make_rollout_fn(accel, 0.1, steps, remat=remat)
+        vel = (0.5 * st.vel).requires_grad_(True)
+        m = st.mass.clone().requires_grad_(True)
+        d = rollout(st.pos, vel, m)[0] - target
+        torch.sum(d * d).backward()
+        return vel.grad, m.grad
+
+    vjp_kernel.launches = sym_kernel.launches = tiled_kernel.launches = 0
+    grads = rollout_grads()
+    torch.cuda.synchronize()
+    counts = (vjp_kernel.launches, sym_kernel.launches, tiled_kernel.launches)
+    launches["vjp"] = counts[0]
+    print(f"rollout N={n}, {steps} Euler steps, remat: vjp launches "
+          f"{counts[0]}, sym {counts[1]}, tiled {counts[2]}", flush=True)
+    if counts != (steps, 2 * steps, 0):
+        fail(f"rollout launches {counts} != ({steps}, {2 * steps}, 0)")
+    if not all(t is not None and torch.isfinite(t).all() and t.abs().max() > 0
+               for t in grads):
+        fail("rollout gradients missing, non-finite or zero")
+    plain = rollout_grads({"backward": "jnp"})
+    rel = [rel_err(a, b) for a, b in zip(grads, plain)]
+    same = all(torch.equal(a, b) for a, b in zip(grads, rollout_grads(remat=False)))
+    print(f"rollout N={n}: kernel vs plain backward d_vel {rel[0]:.3e}, "
+          f"d_mass {rel[1]:.3e}; remat equals no remat bit for bit: {same}",
+          flush=True)
+    if max(rel) > ROLLOUT_TOL:
+        fail("rollout gradients disagree with the plain backward")
+    if not same:
+        fail("rollout gradients with remat differ from those without")
+    ms["rollout"] = time_ms(lambda: rollout_grads(), reps=5)
+    print(f"rollout N={n}, {steps} Euler steps: forward + backward "
+          f"{ms['rollout']:.4f} ms {tag}", flush=True)
+    rc = fit_velocities.main(["2048", "10", "60"])
+    if rc != 0:
+        fail(f"examples.fit_velocities 2048 10 60 exited {rc}")
+    print(f"fit_velocities N=2048, 10 steps, 60 iterations: recovered {tag}",
+          flush=True)
+
+    # 11. --energy-check.
+    res = run(SimConfig(n=2000, nsteps=500, energy_check=True), out=sys.stdout)
+    got = [(s, _g5(ke)) for s, ke in res.kenergy_trace]
+    if got != golden:
+        fail(f"energy-check trace {got} != golden {golden}")
+    if not (res.energy_drift is not None and math.isfinite(res.energy_drift)):
+        fail(f"energy drift {res.energy_drift} is not finite")
+    print(f"energy check N=2000/500: all {len(golden)} kinetic-energy rows "
+          f"equal the golden trace; drift {res.energy_drift:.6e}", flush=True)
+    res = run(SimConfig(n=512, nsteps=100, dt=0.01, distribution="plummer",
+                        seed=7, integrator="leapfrog", energy_check=True),
+              quiet=True)
+    print(f"energy check plummer N=512, 100 leapfrog steps: drift "
+          f"{res.energy_drift:.6e}", flush=True)
+    if not res.energy_drift < 1e-4:
+        fail(f"plummer energy drift {res.energy_drift} >= 1e-4")
+    res = run(SimConfig(n=16384, nsteps=500, energy_check=True), quiet=True)
+    print(f"energy check N=16384/500 auto: drift {res.energy_drift:.6e}, "
+          f"{res.av:.6g} +- {res.dev:.6g} GFLOP/s {tag}", flush=True)
+    if not math.isfinite(res.energy_drift):
+        fail("N=16384 energy drift is not finite")
+
     print(json.dumps({"kernels": [
         {"name": "sym_pairs_kernel+sym_reduce_kernel (Kernel B)",
          "route": "cuda", "source": "nbody_tpu_torch/csrc/sym.cu",
@@ -355,6 +528,11 @@ def main() -> int:
          "replaces": "nbody_tpu/ops/fused_block.py:78",
          "launches": launches["columns"], "max_abs_err": err["columns"],
          "ms": ms["columns"], "plain_ms": ms["columns_plain"]},
+        {"name": "force_vjp_kernel", "route": "cuda",
+         "source": "nbody_tpu_torch/csrc/vjp.cu",
+         "replaces": "nbody_tpu/ops/grad.py:102",
+         "launches": launches["vjp"], "max_abs_err": err["vjp"],
+         "ms": ms["vjp"], "plain_ms": ms["vjp_plain"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,8 @@ Options:
                                    rectangular --tile-i/--tile-j); --kernel
                                    then sets nothing
     --sfreq/--dt                   sample frequency and step size
+    --distribution {reference,plummer,cold_sphere}  initial conditions
+    --energy-check                 report total-energy (KE+PE) drift at the end
     --tile-i/--tile-j              kernel tiles (pallas_sym: tile-i = block)
     --platform {cuda,cpu}          the card (default) or the CPU on request
     --json PATH                    also write the run result as JSON ('-' =
@@ -35,7 +37,6 @@ from .simulation import Simulation
 
 # Flags of ``python -m nbody_tpu`` that the port does not have yet.
 _NOT_PORTED = {
-    "--energy-check": "queue 1 item 6 (the potential energy)",
     "--pm-grid": "queue 1 items 7-10 (the mesh tiers)",
     "--pm-cutoff": "queue 1 items 7-10 (the mesh tiers)",
     "--pm-capacity": "queue 1 items 7-10 (the mesh tiers)",
@@ -84,6 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--integrator", default="euler",
                    choices=["euler", "leapfrog"])
     p.add_argument("--distribution", default="reference")
+    p.add_argument("--energy-check", action="store_true",
+                   help="report total-energy (KE+PE) drift at the end")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--sfreq", type=int, default=50)
     p.add_argument("--dt", type=float, default=0.1)
@@ -106,7 +109,7 @@ def main(argv=None) -> int:
         cfg = SimConfig(
             n=args.n, nsteps=args.nsteps, dt=args.dt, sfreq=args.sfreq,
             integrator=args.integrator, distribution=args.distribution,
-            seed=args.seed, kernel=args.kernel,
+            seed=args.seed, energy_check=args.energy_check, kernel=args.kernel,
             tile_i=args.tile_i or args.dim0, tile_j=args.tile_j or args.dim1,
             precision=args.precision, fused=args.fused,
             platform=args.platform or ("cpu" if args.device == "cpu" else None),

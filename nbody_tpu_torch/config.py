@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from .init import DISTRIBUTIONS
+from .models.distributions import DISTRIBUTIONS
 from .models.integrators import INTEGRATORS
 from .types import PRECISIONS, SUPPORTED_PRECISIONS
 
@@ -27,8 +27,6 @@ _NOT_PORTED = {
     "pm": "queue 1 item 7 (the PM tier)",
     "p3m": "queue 1 item 8 (P3M)",
     "pallas_mxu": "queue 1 item 13 (pallas_mxu)",
-    "plummer": "queue 1 item 1 (models/distributions.py)",
-    "cold_sphere": "queue 1 item 1 (models/distributions.py)",
 }
 
 
@@ -49,8 +47,9 @@ class SimConfig:
     dt: float = 0.1
     sfreq: int = 50
     integrator: str = "euler"  # euler (reference parity) | leapfrog
-    distribution: str = "reference"
+    distribution: str = "reference"  # | plummer | cold_sphere
     seed: int = 42  # the reference hard-codes 42 (ver0/GSimulation.cpp:47)
+    energy_check: bool = False  # report total-energy (KE+PE) drift at end
     kernel: str = "auto"  # naive | pallas | pallas_sym | auto
     tile_i: int = 0  # 0 = kernel default (pallas_sym: the block size)
     tile_j: int = 0
@@ -66,7 +65,7 @@ class SimConfig:
         if self.sfreq < 1:
             raise ValueError(f"sfreq must be >= 1, got {self.sfreq}")
         _check("integrator", self.integrator, INTEGRATORS)
-        _check("distribution", self.distribution, DISTRIBUTIONS)
+        _check("distribution", self.distribution, tuple(DISTRIBUTIONS))
         _check("kernel", self.kernel, KERNELS)
         if self.precision not in PRECISIONS:
             raise ValueError(

@@ -11,10 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from .models.distributions import make_arrays
 from .state import ParticleState, pad_state, round_up
 from .utils.mt19937 import MT19937, generate_canonical_f32, uniform_real_f32
-
-DISTRIBUTIONS = ("reference",)
 
 
 def reference_init_arrays(n: int, seed: int = 42
@@ -41,12 +40,8 @@ def reference_init_arrays(n: int, seed: int = 42
 def make_state(n: int, pad_multiple: int = 1, distribution: str = "reference",
                seed: int = 42, device="cpu") -> ParticleState:
     """A state on ``device`` padded with zero-mass particles to a multiple
-    of ``pad_multiple``."""
-    if distribution != "reference":
-        raise NotImplementedError(
-            f"distribution {distribution!r} is not ported yet (ROADMAP.md "
-            "queue 1 item 1: models/distributions.py); the port has "
-            f"{DISTRIBUTIONS}"
-        )
-    pos, vel, mass = reference_init_arrays(n, seed)
+    of ``pad_multiple``.  ``distribution``: 'reference' (bit-exact reference
+    ICs, the default), 'plummer' or 'cold_sphere' (models/distributions.py);
+    an unknown name raises ``KeyError``."""
+    pos, vel, mass = make_arrays(distribution, n, seed=seed)
     return pad_state(pos, vel, mass, round_up(n, max(1, pad_multiple)), device)

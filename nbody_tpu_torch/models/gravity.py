@@ -1,5 +1,5 @@
-"""The gravity model: semi-implicit Euler stepping and the kinetic-energy
-diagnostic, with a whole sample block run on the device.
+"""The gravity model: semi-implicit Euler stepping, the kinetic- and
+potential-energy diagnostics, with a whole sample block run on the device.
 
 Reference semantics (ver0/GSimulation.cpp:153-173):
   vel += acc * dt;  pos += vel_new * dt;  KE = 0.5 * sum(m * |v|^2)
@@ -19,6 +19,7 @@ from typing import Callable
 import torch
 
 from ..state import ParticleState
+from ..types import G_NEWTON, SOFTENING_SQUARED
 
 AccelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -67,9 +68,42 @@ def make_fused_block_fn(dt: float, block_steps: int, tile_i: int = 0,
     return block
 
 
-def make_accel_fn(kernel_name: str, **opts) -> AccelFn:
-    """Bind a registry kernel with its options into the AccelFn signature."""
+def potential_energy(state: ParticleState, chunk: int = 1024) -> torch.Tensor:
+    """Softened potential energy, consistent with the force law, as a 0-d
+    device tensor: PE = -(G/2) sum_i sum_j m_i m_j (|r_ij|^2 + eps)^(-1/2).
+
+    Includes the i==j self term, a constant (-G m^2 / (2 sqrt(eps)) per
+    particle) that is irrelevant to conservation diagnostics; the reference
+    likewise never masks the diagonal.  KE + PE is the conserved energy of
+    the softened system.  A plain chunked sweep, as in the JAX package
+    (``nbody_tpu.models.gravity.potential_energy``), which computes it
+    outside any kernel."""
+    pos, mass = state.pos, state.mass
+    total = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    for c0 in range(0, pos.shape[1], chunk):
+        d = pos[:, None, :] - pos[:, c0:c0 + chunk, None]  # (3, c, N)
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
+        inv = 1.0 / torch.sqrt(d2)
+        total = total + torch.sum((mass[c0:c0 + chunk, None] * mass[None, :]) * inv)
+    return (-0.5 * G_NEWTON) * total
+
+
+def make_accel_fn(kernel_name: str, differentiable: bool = False,
+                  backward_opts: dict | None = None, **opts) -> AccelFn:
+    """Bind a registry kernel with its options into the AccelFn signature.
+
+    ``differentiable=True`` attaches the analytic VJP (ops/grad.py), the
+    only way to differentiate through the CUDA kernels, which autograd
+    cannot see.  ``backward_opts`` flow to ``grad.differentiable``
+    (``backward``: 'jnp', 'pallas' or 'auto'; ``chunk``; the kernel's
+    ``tile_i``/``tile_j``)."""
     from ..ops import registry
 
     fn = registry.get(kernel_name)
-    return functools.partial(fn, **opts) if opts else fn
+    if opts:
+        fn = functools.partial(fn, **opts)
+    if differentiable:
+        from ..ops.grad import differentiable as _diff
+
+        fn = _diff(fn, **(backward_opts or {}))
+    return fn

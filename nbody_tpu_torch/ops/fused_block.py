@@ -30,7 +30,7 @@ import torch
 from ..models.integrators import INTEGRATORS, advance, step_sizes
 from ..utils import build
 from . import sym_kernel, tiled_kernel
-from .tiled_kernel import check_input
+from .tiled_kernel import check_input, refuse_autograd
 
 # Rows: the largest power of two up to DEFAULT_BLOCK that divides N.
 DEFAULT_BLOCK = sym_kernel.DEFAULT_BLOCK
@@ -146,6 +146,7 @@ def fused_block(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
                                  integrator, rows)
     if dev.type != "cuda":
         raise ValueError(f"fused block runs on cuda or cpu, not {dev}")
+    refuse_autograd("fused block", pos, vel, mass)
     _check_cuda_tiles(rows, ti, tj)
     cap = fused_cap(rows, ti, dev)
     if n > cap:

@@ -24,7 +24,7 @@ import torch
 
 from ..types import G_NEWTON, SOFTENING_SQUARED
 from ..utils import build
-from .tiled_kernel import accelerations_between, check_input
+from .tiled_kernel import check_input, refuse_autograd
 
 DEFAULT_BLOCK = 128
 MAX_BLOCK = 256  # 8 warps of j-side partials fill 24 KB of shared memory
@@ -97,6 +97,7 @@ def accelerations(pos: torch.Tensor, mass: torch.Tensor, block: int = 0,
         return accelerations_plain(pos, mass, b)
     if dev.type != "cuda":
         raise ValueError(f"sym kernel runs on cuda or cpu, not {dev}")
+    refuse_autograd("sym kernel", pos, mass)
     if b % 32 or b > MAX_BLOCK:
         raise ValueError(f"block={b} must be a multiple of 32, at most {MAX_BLOCK}")
     part = torch.empty(scratch_bytes(n, b) // 4, dtype=torch.float32, device=dev)

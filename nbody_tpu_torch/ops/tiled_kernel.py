@@ -41,6 +41,22 @@ def check_input(name: str, t: torch.Tensor, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would record a call of a CUDA kernel.
+
+    The kernels are launched through ctypes on raw pointers, which autograd
+    cannot see: their output would carry no ``grad_fn`` and every gradient
+    through it would silently miss the force term.  The differentiable path
+    runs the kernels under ``torch.no_grad()`` inside an
+    ``autograd.Function`` whose backward is the analytic force VJP."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and autograd cannot trace a "
+            "CUDA kernel launched through ctypes; differentiate through "
+            "make_accel_fn(..., differentiable=True) instead"
+        )
+
+
 def accelerations_between_plain(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
                                  mass_src: torch.Tensor, chunk: int = 1024
                                  ) -> torch.Tensor:
@@ -77,6 +93,7 @@ def accelerations_between(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
         return accelerations_between_plain(pos_tgt, pos_src, mass_src)
     if dev.type != "cuda":
         raise ValueError(f"tiled kernel runs on cuda or cpu, not {dev}")
+    refuse_autograd("tiled kernel", pos_tgt, pos_src, mass_src)
     ti = tile_i or DEFAULT_TILE_I
     tj = tile_j or DEFAULT_TILE_J
     if ti % 32 or THREADS % ti:

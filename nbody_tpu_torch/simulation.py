@@ -15,6 +15,9 @@ and GFlop/s statistics, print the footer.
 * The statistics replicate the reference's: per-block
   ``gflops*sfreq/block_seconds`` with running mean/stddev that exclude the
   first two sample blocks (ver0/GSimulation.cpp:186-203).
+* ``SimConfig.energy_check`` reports the total-energy (KE + PE) drift over
+  the run: E0 is taken before the header and E1 after the footer, both
+  outside the clock.
 
 The JAX engine's autotune, online retune, mesh, sharding, checkpoint and
 ref64 branches are not ported yet (ROADMAP.md queue 1); its watchdog
@@ -34,7 +37,13 @@ import torch
 
 from .config import SimConfig
 from .init import make_state
-from .models.gravity import make_accel_fn, make_block_fn, make_fused_block_fn
+from .models.gravity import (
+    kinetic_energy,
+    make_accel_fn,
+    make_block_fn,
+    make_fused_block_fn,
+    potential_energy,
+)
 from .state import ParticleState
 from .utils import reporting
 from .utils.flops import step_gflops
@@ -50,6 +59,7 @@ class RunResult:
     dev: float
     nthreads: int
     device: str = ""  # what ran the blocks: "cpu" or the card's name
+    energy_drift: Optional[float] = None  # set when energy_check is on
 
     @property
     def kenergy_trace(self) -> List[Tuple[int, float]]:
@@ -66,6 +76,7 @@ class RunResult:
             gflops_dev=self.dev,
             nthreads=self.nthreads,
             device=self.device,
+            energy_drift=self.energy_drift,
         )
 
 
@@ -115,6 +126,11 @@ class _DeviceRunner:
         # sync per sample block.
         return float(ke)
 
+    def total_energy(self) -> float:
+        """KE + PE of the current state (zero-mass padding adds nothing)."""
+        return float(kinetic_energy(self.state)) + float(
+            potential_energy(self.state))
+
 
 def run(cfg: SimConfig, out=None, quiet: bool = False) -> RunResult:
     return _run_prepared(_DeviceRunner(cfg), cfg, out, quiet)
@@ -125,6 +141,7 @@ def _run_prepared(runner: _DeviceRunner, cfg: SimConfig, out,
     emit = (lambda *_: None) if quiet else reporting.emit
 
     runner.prepare()
+    e0 = runner.total_energy() if cfg.energy_check else None
     emit(reporting.header(cfg.n, cfg.nsteps, cfg.dt), out)
 
     gflops = step_gflops(cfg.n)
@@ -163,8 +180,15 @@ def _run_prepared(runner: _DeviceRunner, cfg: SimConfig, out,
 
     nthreads = 1
     emit(reporting.footer(nthreads, total, av, dev), out)
-    return RunResult(samples, total, av, dev, nthreads,
-                     device=runner.device_name())
+    result = RunResult(samples, total, av, dev, nthreads,
+                       device=runner.device_name())
+    if e0 is not None:
+        e1 = runner.total_energy()
+        drift = abs(e1 - e0) / max(abs(e0), 1e-30)
+        result.energy_drift = drift
+        emit(f"# Energy drift |dE/E|: {drift:.3e} "
+             f"(E0={e0:.6g}, E1={e1:.6g})", out)
+    return result
 
 
 class Simulation:

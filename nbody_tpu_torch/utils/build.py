@@ -48,6 +48,8 @@ SIGNATURES = {
     "nbt_fused_rows": (_P, _P, _P, _I, _I, _P, _P, _I, _F, _F, _I, _P),
     # pos2, vel, mass, n, tile_i, tile_j, steps, dt, half, leapfrog, stream
     "nbt_fused_cols": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
+    # pos, mass, g, n, d_pos, d_mass, tile_i, tile_j, stream
+    "nbt_force_vjp": (_P, _P, _P, _I, _P, _P, _I, _I, _P),
 }
 
 

@@ -8,7 +8,9 @@ there it is skipped with ``--noconftest``):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerance: the kernels sum in other orders than the plain versions, so
-they agree to fp32 summation error, bounded at 1e-5 relative norm.
+they agree to fp32 summation error, bounded at 1e-5 relative norm; the
+force VJP at 2e-5, the JAX package's bound between its VJP kernel and its
+plain sweep (tests/test_grad.py).
 """
 
 import os
@@ -19,7 +21,15 @@ import torch
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.init import make_state
 from nbody_tpu_torch.models.gravity import make_accel_fn, make_block_fn
-from nbody_tpu_torch.ops import fused_block, sym_kernel, tiled_kernel
+from nbody_tpu_torch.models.rollout import make_rollout_fn
+from nbody_tpu_torch.ops import (
+    fused_block,
+    grad,
+    naive,
+    sym_kernel,
+    tiled_kernel,
+    vjp_kernel,
+)
 from nbody_tpu_torch.simulation import run
 from nbody_tpu_torch.utils.reporting import parse_trace
 
@@ -159,3 +169,80 @@ def test_fused_raises_on_bad_tiles(cuda_device):
     with pytest.raises(ValueError, match="tile_i"):
         fused_block.fused_block(st.pos, st.vel, st.mass, 0.1, 1, tile_i=512,
                                 tile_j=256)
+
+
+@pytest.mark.parametrize("tiles", [(0, 0), (32, 64), (128, 1024), (256, 8)])
+@pytest.mark.parametrize("n", [300, 1000, 2000])
+def test_vjp_kernel_matches_plain(cuda_device, n, tiles):
+    """Ragged N: the kernel masks targets and sources past N itself."""
+    st = make_state(n, device=cuda_device)
+    g = naive.accelerations(st.pos, st.mass) * 1e20
+    before = vjp_kernel.launches
+    d_pos, d_mass = vjp_kernel.force_vjp(st.pos, st.mass, g, *tiles)
+    again = vjp_kernel.force_vjp(st.pos, st.mass, g, *tiles)
+    torch.cuda.synchronize()
+    assert vjp_kernel.launches == before + 2
+    assert torch.equal(d_pos, again[0]) and torch.equal(d_mass, again[1])
+    want = grad.force_vjp(st.pos, st.mass, g)
+    assert _rel(d_pos, want[0]) <= 2e-5 and _rel(d_mass, want[1]) <= 2e-5
+
+
+def test_vjp_kernel_zero_cotangent_and_bad_tiles(cuda_device):
+    st = make_state(512, device=cuda_device)
+    d_pos, d_mass = vjp_kernel.force_vjp(st.pos, st.mass,
+                                         torch.zeros_like(st.pos))
+    assert torch.all(d_pos == 0) and torch.all(d_mass == 0)
+    with pytest.raises(ValueError, match="tile_i"):
+        vjp_kernel.force_vjp(st.pos, st.mass, st.pos, tile_i=48)
+    with pytest.raises(ValueError, match="tile_j"):
+        vjp_kernel.force_vjp(st.pos, st.mass, st.pos, tile_j=2048)
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda_device):
+    """A ctypes launch is invisible to autograd: the CUDA branches raise
+    rather than return a tensor with no grad_fn."""
+    st = make_state(256, device=cuda_device)
+    pos = st.pos.clone().requires_grad_(True)
+    calls = [
+        lambda: tiled_kernel.accelerations(pos, st.mass),
+        lambda: tiled_kernel.accelerations_between(pos, st.pos, st.mass),
+        lambda: sym_kernel.accelerations(pos, st.mass),
+        lambda: fused_block.fused_block(pos, st.vel, st.mass, 0.1, 2),
+        lambda: vjp_kernel.force_vjp(pos, st.mass, st.pos),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError,
+                           match=r"make_accel_fn\(\.\.\., differentiable=True\)"):
+            call()
+    with torch.no_grad():  # what the analytic VJP's forward does
+        assert sym_kernel.accelerations(pos, st.mass).grad_fn is None
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+def test_rollout_grads_on_card(cuda_device, integrator):
+    """Kernel forward, kernel backward: the gradients agree with the plain
+    backward, and remat recomputes the deterministic forward bit for bit."""
+    st = make_state(1024, device=cuda_device)
+    with torch.no_grad():
+        target = make_rollout_fn(make_accel_fn("auto"), 0.1, 4, integrator)(
+            st.pos, st.vel, st.mass)[0]
+
+    def grads(remat=True, backward_opts=None):
+        accel = make_accel_fn("auto", differentiable=True,
+                              backward_opts=backward_opts)
+        vel = (0.5 * st.vel).requires_grad_(True)
+        mass = st.mass.clone().requires_grad_(True)
+        p = make_rollout_fn(accel, 0.1, 4, integrator, remat)(st.pos, vel, mass)[0]
+        torch.sum((p - target) ** 2).backward()
+        return vel.grad, mass.grad
+
+    before = vjp_kernel.launches
+    got = grads()
+    # The loss reads only the positions, so the last leapfrog step's closing
+    # kick, which moves only the velocities, has no backward to run.
+    sweeps = 4 if integrator == "euler" else 2 * 4 - 1
+    assert vjp_kernel.launches - before == sweeps
+    for a, b in zip(got, grads(remat=False)):
+        assert torch.equal(a, b)
+    for a, b in zip(got, grads(backward_opts={"backward": "jnp"})):
+        assert _rel(a, b) <= 1e-4

@@ -159,7 +159,7 @@ def test_sym_scratch_budget():
 
 def test_build_layout():
     srcs = [p.name for p in build.sources()]
-    assert srcs == ["fused.cu", "sym.cu", "tiled.cu"]
+    assert srcs == ["fused.cu", "sym.cu", "tiled.cu", "vjp.cu"]
     path = build.library_path()
     assert path.name == "libnbody_kernels.so"
     assert path.parent.parent == build.BUILD_DIR

@@ -147,11 +147,11 @@ def test_cli_in_process(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--energy-check"], "queue 1 item 6"),
+    (["--pm-grid", "64"], "queue 1 items 7-10"),
     (["--shards", "4"], "queue 1 item 11"),
     (["--autotune"], "queue 1 item 12"),
     (["--precision", "bf16"], "queue 1 item 4"),
-    (["--distribution", "plummer"], "queue 1 item 1"),
+    (["--save-state", "state.npz"], "queue 1 item 12"),
 ])
 def test_cli_refuses_unported(argv, match, capsys):
     with pytest.raises(SystemExit) as e:

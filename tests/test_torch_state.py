@@ -93,15 +93,17 @@ def test_pad_state_matches_jax_and_round_trips():
 
 
 def test_make_state_refuses_unported_distribution():
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        make_state(10, distribution="plummer")
+    # Every family of the JAX package is ported; a name it does not have
+    # is refused by name.
+    with pytest.raises(KeyError, match="unknown distribution 'gaussian'"):
+        make_state(10, distribution="gaussian")
 
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(precision="bf16"), NotImplementedError, "queue 1 item 4"),
     (dict(precision="ref64"), NotImplementedError, "queue 1 item 12"),
     (dict(kernel="p3m"), NotImplementedError, "queue 1 item 8"),
-    (dict(distribution="cold_sphere"), NotImplementedError, "queue 1 item 1"),
+    (dict(kernel="pm"), NotImplementedError, "queue 1 item 7"),
     (dict(kernel="bogus"), ValueError, "unknown kernel"),
     (dict(platform="tpu"), ValueError, "unknown platform"),
     (dict(n=0), ValueError, "n must be"),
