@@ -65,13 +65,38 @@ Phases, each printing what it found; any failure exits non-zero:
     tests/test_distributions.py (N=512, 100 leapfrog steps, dt 0.01, seed
     7) through ``auto`` must drift below 1e-4; N=16384 ``auto`` prints its
     drift beside its GFLOP/s.
+12. The P3M short-range kernel against its plain version on the Plummer
+    sphere of the JAX package's gate (N=262144, seed 7, ng=128, cutoff 4)
+    at the plan suggested for each layout name (``xla`` runs the kernel in
+    its plain layout; the card's default is ``pallas_paired``): occupied
+    slots agree within 2e-5 of the largest; a 4-way split of the entry
+    bounds sums to the full sweep (rtol 1e-6, atol 2e-6 of the largest);
+    the layouts without a reaction repeat bit for bit, the symmetric ones
+    within 1e-6 relative norm on the occupied slots.  The per-call time of
+    kernel and plain version (CUDA events) with the entry count.
+13. The P3M path: the port's ``pm`` and ``p3m`` at Plummer N=16384 against
+    the JAX package's accelerations in
+    tests/golden/torch_p3m_plummer_n16384.npz (1e-4 relative norm); at
+    N=262144 both against the exact forces of Kernel B, at the suggested
+    plan (whose capacity cap lets the core overflow to mesh-quality forces)
+    and at a capacity with no overflow, where the p3m error must be at
+    least 5x below pm's (tests/test_p3m.py's check); then
+    ``run(SimConfig(n=262144, nsteps=16, sfreq=8, kernel="p3m",
+    distribution="plummer", seed=7))`` must give finite energies, launch the
+    short-range kernel 24 times (16 steps and the 8-step warm-up) and no
+    other kernel, and prints its ms per step.
+14. ``kernel="p3m"`` and ``kernel="pm"`` at N=1048576 on the reference
+    initial conditions, 8 steps, sfreq 4: finite energies, ms per step and
+    the short-range kernel's launches (12 and 0).
 
-The last two lines are a JSON object of the kernels and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The last lines are the card's name and power limit, a JSON object of the
+kernels with their bounds, and ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -81,6 +106,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "ver0_n2000_s500.txt")
+MESH_FIXTURE = os.path.join(ROOT, "tests", "golden",
+                            "torch_p3m_plummer_n16384.npz")
 REL_TOL = 1e-5  # fp32, different summation order: relative-norm error bound
 # The force VJP: JAX's bound between its kernel and its plain sweep
 # (tests/test_grad.py), and between the kernel and plain backward of a
@@ -92,6 +119,32 @@ TIME_REPS = 20
 BLOCK = 50  # steps of a sample block
 # The fused layouts: (label, tile_i, tile_j); rows take the default block.
 FUSED = (("rows", 0, 0), ("columns", 64, 256))
+# The P3M short-range sweep: tests/test_p3m.py's bound between the Pallas
+# and the plain sweep, as a share of the largest occupied slot; the mesh
+# tiers against the JAX package's accelerations (relative norm).
+SR_TOL = 2e-5
+MESH_TOL = 1e-4
+P3M_GATE = dict(n=262144, seed=7, grid=128, cutoff=4)  # bench.py:102-103
+N_UNIFORM = 1048576  # the suite's N=1M rows, bench.py:46-47
+
+# The least time the card could take: the larger of the operations over the
+# H100 SXM's fp32 rate outside the tensor cores (NVIDIA's data sheet) and
+# the bytes (each input read once, each output written once) over its
+# memory rate.  fp32 operations per pair evaluation, counted from each
+# kernel's pair arithmetic (sqrt, divide and rsqrt count one, an FMA two):
+FP32_RATE = 67e12
+HBM_RATE = 3.35e12
+OPS_SYM = 27  # per unordered pair: 3 sub, 6 for |d|^2 + eps^2, sqrt,
+# divide, 2 cube, 2 mass, 3 FMA each side
+OPS_VJP = 45  # csrc/vjp.cu's note
+OPS_SR = 31  # 3 sub, 5 |d|^2, eps, rsqrt, 3 clamp, 7 taper, 4 weight, 1 mass, 3 FMA
+OPS_SR_REACTION = 7  # the symmetric layouts: target mass, 3 products, 3 adds
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) for ``ops`` fp32 operations and ``nbytes``."""
+    t_ops, t_bytes = ops / FP32_RATE * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def fail(msg: str) -> None:
@@ -133,6 +186,160 @@ def time_ms(fn, reps: int = TIME_REPS) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def mesh_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
+    """Phases 12-14; fills ``err``, ``ms`` and ``launches`` and returns the
+    short-range kernel's figures per layout name."""
+    import numpy as np
+    import torch
+
+    from nbody_tpu_torch import SimConfig, run
+    from nbody_tpu_torch.models import distributions
+    from nbody_tpu_torch.ops import (
+        fused_block,
+        pm,
+        sr_kernel,
+        sym_kernel,
+        tiled_kernel,
+        vjp_kernel,
+    )
+
+    # 12. The P3M short-range kernel against its plain version.
+    gate = P3M_GATE
+    n = gate["n"]
+    pos_np, _, mass_np = distributions.plummer(n, seed=gate["seed"])
+    p = torch.tensor(pos_np, device=dev)
+    m = torch.tensor(mass_np, device=dev)
+    ng, cutoff = gate["grid"], gate["cutoff"]
+    err["sr"] = 0.0
+    sr = {}  # layout -> (entries run, width, symmetric, kernel ms, plain ms)
+    for layout, (sym, paired) in pm.SR_LAYOUTS.items():
+        plan = pm.suggest_sr_plan(p, m, ng, cutoff, layout=layout)
+        pk = pm.sr_pack_inputs(p, m, grid=ng, cutoff_cells=cutoff,
+                               symmetric=sym, paired=paired, **plan)
+        n_e = int(pk["n_e"])
+        if n_e > pk["e_max"]:
+            fail(f"sr {layout}: the suggested plan drops entries")
+        kw = dict(symmetric=sym, paired=paired)
+        tabs = (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"])
+        bounds = torch.tensor([0, n_e], dtype=torch.int32, device=dev)
+        got = sr_kernel.sweep(*tabs, bounds, pk["rc2"], **kw)
+        again = sr_kernel.sweep(*tabs, bounds, pk["rc2"], **kw)
+        per = -(-n_e // 4)
+        parts = sum(sr_kernel.sweep(
+            *tabs, torch.tensor([i * per, min((i + 1) * per, n_e)],
+                                dtype=torch.int32, device=dev),
+            pk["rc2"], **kw) for i in range(4))
+        plain = sr_kernel.sweep_plain(*tabs, bounds, pk["rc2"], **kw)
+        torch.cuda.synchronize()
+        occ = pk["mtab"] > 0
+        scale = float(plain[:, occ].abs().max())
+        diff = float((got - plain)[:, occ].abs().max())
+        rep = rel_err(again[:, occ], got[:, occ])
+        # tests/test_p3m.py's bound for a split: rtol 1e-6, atol 2e-6 * scale.
+        split = float(((parts - got).abs() - 1e-6 * got.abs())[:, occ].max())
+        err["sr"] = max(err["sr"], diff)
+        print(f"sr {layout} N={n}: {n_e} entries of {pk['e_max']}; kernel vs "
+              f"plain {diff / scale:.3e} of the largest occupied slot; "
+              f"repeat {rep:.3e} (relative norm); 4-way bounds split "
+              f"{split / scale:.3e}",
+              flush=True)
+        if not torch.isfinite(got).all():
+            fail(f"sr {layout}: non-finite output")
+        if diff > SR_TOL * scale:
+            fail(f"sr {layout}: kernel disagrees with its plain version")
+        if rep > 1e-6 if sym else not torch.equal(got, again):
+            fail(f"sr {layout}: two launches differ")
+        if split > 2e-6 * scale:
+            fail(f"sr {layout}: the bounds split does not sum to the sweep")
+        del got, again, parts, plain
+        ms_k = time_ms(lambda: sr_kernel.sweep(*tabs, bounds, pk["rc2"], **kw),
+                       reps=10)
+        ms_p = time_ms(lambda: sr_kernel.sweep_plain(*tabs, bounds, pk["rc2"],
+                                                     **kw), reps=1)
+        width = 2 * pm.SLAB if paired else pm.SLAB
+        sr[layout] = (n_e, width, sym, ms_k, ms_p, pk["ptab"].shape[1])
+        print(f"sr {layout} N={n}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms "
+              f"per call; {n_e * pm.SLAB * width / ms_k / 1e6:.1f} Gpairs/s "
+              f"{tag}", flush=True)
+        del pk, tabs
+
+    # 13. The P3M path.
+    fx = np.load(MESH_FIXTURE)
+    pos16, _, mass16 = distributions.plummer(int(fx["n"]), seed=int(fx["seed"]))
+    digest = hashlib.sha256(pos16.tobytes() + mass16.tobytes()).hexdigest()
+    if digest != str(fx["digest"]):
+        fail("the Plummer N=16384 state differs from the fixture's")
+    p16, m16 = (torch.tensor(a, device=dev) for a in (pos16, mass16))
+    r_pm = rel_err(pm.accelerations(p16, m16, grid=int(fx["grid"])).cpu(),
+                   torch.tensor(fx["pm"]))
+    plan16 = pm.suggest_sr_plan(p16, m16, int(fx["grid"]), int(fx["cutoff"]),
+                                capacity=int(fx["capacity"]))
+    r_p3m = rel_err(pm.p3m_accelerations(p16, m16, grid=int(fx["grid"]),
+                                         **plan16).cpu(),
+                    torch.tensor(fx["p3m"]))
+    print(f"mesh N=16384 plummer vs the JAX fixture: pm {r_pm:.3e}, p3m "
+          f"{r_p3m:.3e} (relative norm)", flush=True)
+    if max(r_pm, r_p3m) > MESH_TOL:
+        fail("the mesh tiers disagree with the JAX package's accelerations")
+    ref = sym_kernel.accelerations(p, m)  # exact, Kernel B
+    e_pm = rel_err(pm.accelerations(p, m, grid=ng), ref)
+    # The suggested plan caps the cell capacity at 2048, and the Plummer
+    # core overflows it; a capacity over the largest cell's occupancy
+    # serves every pair exactly, which the accuracy check needs.
+    full_cap = pm.suggest_capacity(p, m, ng, cutoff, max_capacity=1 << 20)
+    e_p3m = {}
+    for label, cap in (("suggested plan", 0), ("no overflow", full_cap)):
+        plan = pm.suggest_sr_plan(p, m, ng, cutoff, capacity=cap)
+        over = float(pm.cell_overflow_fraction(p, m, ng, cutoff,
+                                                plan["capacity"]))
+        e_p3m[label] = rel_err(pm.p3m_accelerations(p, m, grid=ng, **plan),
+                               ref)
+        print(f"mesh N={n} plummer vs exact (Kernel B), {label} {plan}, "
+              f"cell overflow {over:.4f}: pm {e_pm:.4e}, p3m "
+              f"{e_p3m[label]:.4e} (relative L2), ratio "
+              f"{e_pm / e_p3m[label]:.2f}", flush=True)
+    if not e_p3m["no overflow"] * 5 <= e_pm:
+        fail("the p3m force error is not 5x below pm's")
+    del ref
+    counters = (sr_kernel, tiled_kernel, sym_kernel, fused_block, vjp_kernel)
+    for mod in counters:
+        mod.launches = 0
+    syncs = pm.host_syncs
+    res = run(SimConfig(n=n, nsteps=16, sfreq=8, kernel="p3m",
+                        distribution="plummer", seed=gate["seed"]), quiet=True)
+    counts = tuple(mod.launches for mod in counters)
+    launches["sr"] = counts[0]
+    kes = [ke for _, ke in res.kenergy_trace]
+    step_ms = [1e3 * b / 8 for (_, _, _, b, _) in res.samples]
+    print(f"p3m run N={n} plummer, 16 steps: sr/tiled/sym/fused/vjp launches "
+          f"{counts}, {pm.host_syncs - syncs} host syncs; ms per step "
+          f"{', '.join(f'{t:.3f}' for t in step_ms)}; energies "
+          f"{', '.join(f'{k:.6g}' for k in kes)} {tag}", flush=True)
+    if counts != (24, 0, 0, 0, 0):
+        fail(f"p3m run launches {counts} != (24, 0, 0, 0, 0)")
+    if len(kes) != 2 or not all(math.isfinite(k) and k > 0 for k in kes):
+        fail(f"p3m run energies not finite and positive: {kes}")
+
+    # 14. The uniform and mesh-only rows.
+    for kernel, want in (("p3m", 12), ("pm", 0)):
+        for mod in counters:
+            mod.launches = 0
+        res = run(SimConfig(n=N_UNIFORM, nsteps=8, sfreq=4, kernel=kernel),
+                  quiet=True)
+        counts = tuple(mod.launches for mod in counters)
+        kes = [ke for _, ke in res.kenergy_trace]
+        step_ms = [1e3 * b / 4 for (_, _, _, b, _) in res.samples]
+        print(f"{kernel} run N={N_UNIFORM} reference, 8 steps: sr/tiled/sym/"
+              f"fused/vjp launches {counts}; ms per step "
+              f"{', '.join(f'{t:.3f}' for t in step_ms)} {tag}", flush=True)
+        if counts != (want, 0, 0, 0, 0):
+            fail(f"{kernel} N={N_UNIFORM} launches {counts}")
+        if len(kes) != 2 or not all(math.isfinite(k) and k > 0 for k in kes):
+            fail(f"{kernel} N={N_UNIFORM} energies not finite and positive: "
+                 f"{kes}")
+    return sr
+
+
 def main() -> int:
     import torch
 
@@ -149,6 +356,7 @@ def main() -> int:
         fused_block,
         grad,
         naive,
+        pm,
         sym_kernel,
         tiled_kernel,
         vjp_kernel,
@@ -507,33 +715,51 @@ def main() -> int:
     if not math.isfinite(res.energy_drift):
         fail("N=16384 energy drift is not finite")
 
-    print(json.dumps({"kernels": [
-        {"name": "sym_pairs_kernel+sym_reduce_kernel (Kernel B)",
-         "route": "cuda", "source": "nbody_tpu_torch/csrc/sym.cu",
-         "replaces": "nbody_tpu/ops/pallas_sym.py:85",
-         "launches": launches["B"], "max_abs_err": err["B"],
-         "ms": ms["B"], "plain_ms": ms["B_plain"]},
-        {"name": "tiled_accel_kernel (Kernel A)",
-         "route": "cuda", "source": "nbody_tpu_torch/csrc/tiled.cu",
-         "replaces": "nbody_tpu/ops/pallas_kernel.py:58",
-         "launches": launches["A"], "max_abs_err": err["A"],
-         "ms": ms["A"], "plain_ms": ms["A_plain"]},
-        {"name": "fused_rows_kernel (fused block, rows layout)",
-         "route": "cuda", "source": "nbody_tpu_torch/csrc/fused.cu",
-         "replaces": "nbody_tpu/ops/fused_block.py:163",
-         "launches": launches["rows"], "max_abs_err": err["rows"],
-         "ms": ms["rows"], "plain_ms": ms["rows_plain"]},
-        {"name": "fused_cols_kernel (fused block, columns layout)",
-         "route": "cuda", "source": "nbody_tpu_torch/csrc/fused.cu",
-         "replaces": "nbody_tpu/ops/fused_block.py:78",
-         "launches": launches["columns"], "max_abs_err": err["columns"],
-         "ms": ms["columns"], "plain_ms": ms["columns_plain"]},
-        {"name": "force_vjp_kernel", "route": "cuda",
-         "source": "nbody_tpu_torch/csrc/vjp.cu",
-         "replaces": "nbody_tpu/ops/grad.py:102",
-         "launches": launches["vjp"], "max_abs_err": err["vjp"],
-         "ms": ms["vjp"], "plain_ms": ms["vjp_plain"]},
-    ]}), flush=True)
+    sr = mesh_phases(dev, tag, err, ms, launches)
+
+    # The bounds, from this run's inputs: the least work of each function,
+    # whatever layout its kernel takes.  Kernel A and the columns block
+    # compute what Kernel B and the rows block do, so all four count N^2/2
+    # unordered pairs; the short-range sum counts the layout that needs the
+    # fewest operations at these inputs.
+    n = 16384
+    bounds_ms = {
+        "B": bound(OPS_SYM * n * n / 2, 28 * n),
+        "A": bound(OPS_SYM * n * n / 2, 28 * n),
+        "rows": bound(BLOCK * OPS_SYM * n * n / 2, 52 * n),
+        "columns": bound(BLOCK * OPS_SYM * n * n / 2, 52 * n),
+        "vjp": bound(OPS_VJP * n * n, 44 * n),
+    }
+    bounds_ms["sr"] = min(
+        bound(n_e * pm.SLAB * width * (OPS_SR + OPS_SR_REACTION * sym),
+              28 * nslots + 8 * n_e)
+        for n_e, width, sym, _, _, nslots in sr.values())
+    # The row's times: the layout the main path ran.
+    sr_default = next(name for name, state in pm.SR_LAYOUTS.items()
+                      if state == pm._active_sr_layout(True))
+    _, _, _, ms["sr"], ms["sr_plain"], _ = sr[sr_default]
+    rows = [
+        ("sym_pairs_kernel+sym_reduce_kernel (Kernel B)", "sym.cu",
+         "nbody_tpu/ops/pallas_sym.py:85", "B"),
+        ("tiled_accel_kernel (Kernel A)", "tiled.cu",
+         "nbody_tpu/ops/pallas_kernel.py:58", "A"),
+        ("fused_rows_kernel (fused block, rows layout)", "fused.cu",
+         "nbody_tpu/ops/fused_block.py:163", "rows"),
+        ("fused_cols_kernel (fused block, columns layout)", "fused.cu",
+         "nbody_tpu/ops/fused_block.py:78", "columns"),
+        ("force_vjp_kernel", "vjp.cu", "nbody_tpu/ops/grad.py:102", "vjp"),
+        (f"sr_sweep_kernel (P3M short range, {sr_default} layout)",
+         "sr.cu", "nbody_tpu/ops/pm.py:1630", "sr"),
+    ]
+    kernels = [{
+        "name": name, "route": "cuda", "source": f"nbody_tpu_torch/csrc/{src}",
+        "replaces": replaces, "launches": launches[key],
+        "max_abs_err": err[key], "ms": ms[key], "plain_ms": ms[f"{key}_plain"],
+        "bound_ms": bounds_ms[key][0], "bound_by": bounds_ms[key][1],
+        "library_ms": None,  # no one PyTorch call computes any of them
+    } for name, src, replaces, key in rows]
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

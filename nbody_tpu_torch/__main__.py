@@ -8,8 +8,15 @@ Positional-argument compatible with the reference binaries, like
 dims map onto kernel tile sizes).
 
 Options:
-    --kernel {naive,pallas,pallas_sym,auto}   force kernel (auto: the
-                                   pair-symmetric CUDA kernel where it fits)
+    --kernel {naive,pallas,pallas_sym,pm,p3m,auto}   force kernel (auto:
+                                   the pair-symmetric CUDA kernel where it
+                                   fits; pm/p3m: the mesh tiers)
+    --pm-grid/--pm-cutoff/--pm-capacity  mesh points per axis, the P3M split
+                                   radius in grid spacings, P3M slots a cell
+    --pm-boundary open             the mesh boundary (periodic: not yet)
+    --pm-sr-layout NAME            the P3M sweep layout (ops/pm.SR_LAYOUTS;
+                                   "xla" is the kernel's plain layout)
+    --pm-replan                    regrow the P3M plan mid-run on overflow
     --integrator {euler,leapfrog}  parity default / symplectic option
     --fused                        each sample block in one kernel launch
                                    (f32; rows layout, or columns with a
@@ -37,13 +44,7 @@ from .simulation import Simulation
 
 # Flags of ``python -m nbody_tpu`` that the port does not have yet.
 _NOT_PORTED = {
-    "--pm-grid": "queue 1 items 7-10 (the mesh tiers)",
-    "--pm-cutoff": "queue 1 items 7-10 (the mesh tiers)",
-    "--pm-capacity": "queue 1 items 7-10 (the mesh tiers)",
-    "--pm-boundary": "queue 1 items 7-10 (the mesh tiers)",
-    "--pm-box": "queue 1 items 7-10 (the mesh tiers)",
-    "--pm-replan": "queue 1 items 7-10 (the mesh tiers)",
-    "--pm-sr-layout": "queue 1 items 7-10 (the mesh tiers)",
+    "--pm-box": "queue 1 item 9 (periodic boundary)",
     "--shards": "queue 1 item 11 (the particle decomposition)",
     "--comm": "queue 1 item 11 (the particle decomposition)",
     "--autotune": "queue 1 item 12 (autotuning)",
@@ -80,7 +81,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("dim0", nargs="?", type=int, default=0)
     p.add_argument("dim1", nargs="?", type=int, default=0)
     p.add_argument("--kernel", default="auto",
-                   choices=["naive", "pallas", "pallas_sym", "auto"])
+                   choices=["naive", "pallas", "pallas_sym", "pm", "p3m",
+                            "auto"])
+    p.add_argument("--pm-grid", type=int, default=0, metavar="NG",
+                   help="mesh points per axis for --kernel pm/p3m "
+                        "(default 128)")
+    p.add_argument("--pm-cutoff", type=int, default=0, metavar="A",
+                   help="P3M split radius in grid spacings (default 4 for "
+                        "--kernel p3m; error ~ A^-3, short-range cost ~ A^3)")
+    p.add_argument("--pm-capacity", type=int, default=0, metavar="C",
+                   help="P3M cell-list slots per cell (default: measured on "
+                        "the initial state)")
+    p.add_argument("--pm-boundary", default="open",
+                   help="mesh boundary: open (periodic is not ported yet)")
+    p.add_argument("--pm-replan", action="store_true",
+                   help="re-measure the P3M plan mid-run when the per-block "
+                        "health check finds overflow (grow-only)")
+    p.add_argument("--pm-sr-layout", default="",
+                   choices=["", "xla", "pallas", "pallas_sym",
+                            "pallas_paired", "pallas_paired_sym"],
+                   help="P3M short-range sweep layout (default "
+                        "pallas_paired on the card, pallas_sym on the "
+                        "CPU; xla = the kernel's plain layout)")
     p.add_argument("--precision", default="f32")
     p.add_argument("--integrator", default="euler",
                    choices=["euler", "leapfrog"])
@@ -112,6 +134,9 @@ def main(argv=None) -> int:
             seed=args.seed, energy_check=args.energy_check, kernel=args.kernel,
             tile_i=args.tile_i or args.dim0, tile_j=args.tile_j or args.dim1,
             precision=args.precision, fused=args.fused,
+            pm_grid=args.pm_grid, pm_cutoff=args.pm_cutoff,
+            pm_capacity=args.pm_capacity, pm_boundary=args.pm_boundary,
+            pm_replan=args.pm_replan, pm_sr_layout=args.pm_sr_layout,
             platform=args.platform or ("cpu" if args.device == "cpu" else None),
         )
     except (NotImplementedError, ValueError) as e:

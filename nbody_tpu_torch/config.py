@@ -17,15 +17,14 @@ from .models.distributions import DISTRIBUTIONS
 from .models.integrators import INTEGRATORS
 from .types import PRECISIONS, SUPPORTED_PRECISIONS
 
-KERNELS = ("naive", "pallas", "pallas_sym", "auto")
+KERNELS = ("naive", "pallas", "pallas_sym", "pm", "p3m", "auto")
 PLATFORMS = ("cuda", "cpu")
 
 # Known to the JAX package, not ported yet: value -> ROADMAP.md item.
 _NOT_PORTED = {
     "bf16": "queue 1 item 4 (the bf16 distance mode)",
     "ref64": "queue 1 item 12 (the ref64 host oracle)",
-    "pm": "queue 1 item 7 (the PM tier)",
-    "p3m": "queue 1 item 8 (P3M)",
+    "periodic": "queue 1 item 9 (periodic boundary)",
     "pallas_mxu": "queue 1 item 13 (pallas_mxu)",
 }
 
@@ -50,9 +49,22 @@ class SimConfig:
     distribution: str = "reference"  # | plummer | cold_sphere
     seed: int = 42  # the reference hard-codes 42 (ver0/GSimulation.cpp:47)
     energy_check: bool = False  # report total-energy (KE+PE) drift at end
-    kernel: str = "auto"  # naive | pallas | pallas_sym | auto
+    kernel: str = "auto"  # naive | pallas | pallas_sym | pm | p3m | auto
     tile_i: int = 0  # 0 = kernel default (pallas_sym: the block size)
     tile_j: int = 0
+    pm_grid: int = 0  # mesh points per axis (0 = ops/pm.DEFAULT_GRID)
+    pm_cutoff: int = 0  # P3M split radius in grid spacings (0 = off for
+    # pm, ops/pm.DEFAULT_CUTOFF_CELLS for p3m)
+    pm_capacity: int = 0  # P3M slots per cell (0 = measured at prepare
+    # time by pm.suggest_sr_plan)
+    pm_sr_slabs: int = 0  # P3M table slabs (0 = measured, as above)
+    pm_sr_entries: int = 0  # P3M worklist entries (0 = measured)
+    pm_boundary: str = "open"  # open only; periodic is queue 1 item 9
+    pm_box: float = 0.0  # the periodic box edge (queue 1 item 9)
+    pm_sr_layout: str = ""  # P3M sweep layout (ops/pm.SR_LAYOUTS); "" =
+    # the module default
+    pm_replan: bool = False  # re-measure the P3M plan when the per-block
+    # health check finds overflow (grow-only); off = warn once
     precision: str = "f32"
     fused: bool = False  # the whole sample block in one kernel launch
     platform: Optional[str] = None  # None = cuda; "cpu" only on request
@@ -76,6 +88,29 @@ class SimConfig:
         _check("precision", self.precision, SUPPORTED_PRECISIONS)
         if self.platform is not None:
             _check("platform", self.platform, PLATFORMS)
+        _check("pm boundary", self.pm_boundary, ("open",))
+        if self.pm_box:
+            raise NotImplementedError(
+                "--pm-box is not ported yet: ROADMAP.md queue 1 item 9 "
+                "(periodic boundary)")
+        short_range = self.kernel == "p3m" or (self.kernel == "pm"
+                                               and self.pm_cutoff)
+        if self.pm_sr_layout:
+            from .ops.pm import SR_LAYOUTS
+
+            if self.pm_sr_layout not in SR_LAYOUTS:
+                raise ValueError(
+                    f"unknown --pm-sr-layout {self.pm_sr_layout!r}; "
+                    f"options: {tuple(SR_LAYOUTS)}")
+            if not short_range:
+                raise ValueError(
+                    "--pm-sr-layout selects the P3M short-range sweep "
+                    "layout; it requires --kernel p3m (or --kernel pm with "
+                    "--pm-cutoff > 0)")
+        if self.pm_replan and not short_range:
+            raise ValueError(
+                "--pm-replan re-measures the P3M short-range plan; it "
+                "requires --kernel p3m (or --kernel pm with --pm-cutoff > 0)")
 
     def device(self) -> torch.device:
         """The device the run uses.  CUDA unless the CPU was asked for; a
@@ -97,13 +132,51 @@ class SimConfig:
 
         return resolve(self.kernel, self.platform or "cuda")
 
+    def mesh_params(self) -> tuple:
+        """(grid, cutoff_cells) of the mesh tiers, with ops/pm's defaults
+        where unset: p3m always has a cutoff, pm only when pm_cutoff is
+        set."""
+        from .ops.pm import DEFAULT_CUTOFF_CELLS, DEFAULT_GRID
+
+        grid = self.pm_grid or DEFAULT_GRID
+        if self.resolved_kernel() == "p3m":
+            return grid, self.pm_cutoff or DEFAULT_CUTOFF_CELLS
+        return grid, self.pm_cutoff
+
+    def resolve_sr_plan(self, pos, mass) -> bool:
+        """Fill the P3M static plan (capacity, slabs, entries) from the
+        concrete state through pm.suggest_sr_plan, unless all three are
+        pinned.  Returns whether this config has a short-range pass."""
+        resolved = self.resolved_kernel()
+        if not (resolved == "p3m" or (resolved == "pm" and self.pm_cutoff)):
+            return False
+        if self.pm_capacity and self.pm_sr_slabs and self.pm_sr_entries:
+            return True
+        from .ops.pm import suggest_sr_plan
+
+        plan = suggest_sr_plan(pos, mass, *self.mesh_params(),
+                               capacity=self.pm_capacity)
+        self.pm_capacity = plan["capacity"]
+        self.pm_sr_slabs = self.pm_sr_slabs or plan["sr_slabs"]
+        self.pm_sr_entries = self.pm_sr_entries or plan["sr_entries"]
+        return True
+
     def kernel_opts(self) -> dict:
         opts = {}
-        if self.resolved_kernel() != "naive":
+        resolved = self.resolved_kernel()
+        if resolved in ("pallas", "pallas_sym"):
             if self.tile_i:
                 opts["tile_i"] = self.tile_i
             if self.tile_j:
                 opts["tile_j"] = self.tile_j
+        if resolved in ("pm", "p3m"):
+            for key, value in (("grid", self.pm_grid),
+                               ("cutoff_cells", self.pm_cutoff),
+                               ("capacity", self.pm_capacity),
+                               ("sr_slabs", self.pm_sr_slabs),
+                               ("sr_entries", self.pm_sr_entries)):
+                if value:
+                    opts[key] = value
         return opts
 
     def pad_multiple(self) -> int:

@@ -42,12 +42,14 @@ def euler_step(state: ParticleState, accel_fn: AccelFn,
 
 
 def make_block_fn(accel_fn: AccelFn, dt: float, block_steps: int,
-                  integrator: str = "euler"):
+                  integrator: str = "euler", env_fn=None):
     """A function advancing ``block_steps`` steps on the device and
-    returning (new_state, kinetic_energy_after_last_step)."""
+    returning (new_state, kinetic_energy_after_last_step); ``env_fn`` as
+    in ``integrators.make_block_fn``."""
     from .integrators import make_block_fn as _mk
 
-    return _mk(accel_fn, dt, block_steps, integrator=integrator)
+    return _mk(accel_fn, dt, block_steps, integrator=integrator,
+               env_fn=env_fn)
 
 
 def make_fused_block_fn(dt: float, block_steps: int, tile_i: int = 0,
@@ -96,10 +98,26 @@ def make_accel_fn(kernel_name: str, differentiable: bool = False,
     only way to differentiate through the CUDA kernels, which autograd
     cannot see.  ``backward_opts`` flow to ``grad.differentiable``
     (``backward``: 'jnp', 'pallas' or 'auto'; ``chunk``; the kernel's
-    ``tile_i``/``tile_j``)."""
+    ``tile_i``/``tile_j``).
+
+    The mesh tiers take no exact-pair VJP, which would return all-pairs
+    cotangents for a mesh forward: plain ``pm`` differentiates natively
+    through autograd; ``p3m``, or ``pm`` with a cutoff, is not
+    differentiable yet (ROADMAP.md queue 1 item 10)."""
     from ..ops import registry
 
     fn = registry.get(kernel_name)
+    if kernel_name in ("pm", "p3m"):
+        if backward_opts:
+            raise ValueError(
+                "backward_opts tune the exact-pair analytic VJP and do not "
+                f"apply to the native-AD mesh tier '{kernel_name}'")
+        if differentiable and (kernel_name == "p3m"
+                               or opts.get("cutoff_cells")):
+            from ..ops.pm import _refuse_differentiable_p3m
+
+            _refuse_differentiable_p3m()
+        return functools.partial(fn, **opts) if opts else fn
     if opts:
         fn = functools.partial(fn, **opts)
     if differentiable:

@@ -13,6 +13,8 @@ warm-up block leaves the state it was given untouched.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -30,9 +32,13 @@ def step_sizes(dt: float) -> tuple[float, float]:
 
 def advance(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
             accel_fn: AccelFn, dt: float, steps: int,
-            integrator: str = "euler") -> tuple[torch.Tensor, torch.Tensor]:
-    """``steps`` steps from (pos, vel), returned as new tensors."""
+            integrator: str = "euler", env=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` steps from (pos, vel), returned as new tensors.  With an
+    ``env``, every force evaluation is ``accel_fn(pos, mass, mesh_env=env)``."""
     dtf, half = step_sizes(dt)
+    if env is not None:
+        accel_fn = functools.partial(accel_fn, mesh_env=env)
     if integrator == "euler":
         for _ in range(steps):
             acc = accel_fn(pos, mass)
@@ -53,16 +59,22 @@ def advance(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
 
 
 def make_block_fn(accel_fn: AccelFn, dt: float, block_steps: int,
-                  integrator: str = "euler"):
+                  integrator: str = "euler", env_fn=None):
     """Sample block: advances block_steps steps on the device and returns
-    (state, kinetic_energy) with the energy as a 0-d device tensor."""
+    (state, kinetic_energy) with the energy as a 0-d device tensor.
+
+    ``env_fn(pos, mass)`` builds a per-block environment once at block
+    entry, passed to every step (and the leapfrog re-seed) as
+    ``accel_fn(pos, mass, mesh_env=env)``: the mesh solvers freeze their
+    box and kernel spectra across the block with it (ops/pm.make_mesh_env)."""
     if integrator not in INTEGRATORS:
         raise ValueError(
             f"unknown integrator {integrator!r}; options: {INTEGRATORS}")
 
     def block(state: ParticleState):
+        env = env_fn(state.pos, state.mass) if env_fn else None
         pos, vel = advance(state.pos, state.vel, state.mass, accel_fn, dt,
-                           block_steps, integrator)
+                           block_steps, integrator, env=env)
         new = ParticleState(pos=pos, vel=vel, mass=state.mass, n=state.n)
         return new, kinetic_energy(new)
 

@@ -7,6 +7,10 @@ values carry over.  Every kernel has the signature
 * ``naive``      -- broadcast tensor ops, the oracle (ops/naive.py)
 * ``pallas``     -- Kernel A, the tiled sweep (ops/tiled_kernel.py)
 * ``pallas_sym`` -- Kernel B, the pair-symmetric sweep (ops/sym_kernel.py)
+* ``pm``         -- the particle-mesh solver, O(N log N) and approximate
+  (ops/pm.py; opt-in, never chosen by ``auto``)
+* ``p3m``        -- the mesh solver with the exact short-range correction
+  (ops/pm.py with the sweep of ops/sr_kernel.py; opt-in)
 * ``auto``       -- on CUDA, ``pallas_sym`` when the padded N is a multiple
   of its block and its partials fit (sym_kernel.fits), else ``pallas``; on
   the CPU, ``naive``, as the JAX package's ``auto`` off the TPU
@@ -18,7 +22,7 @@ from typing import Callable, Dict
 
 import torch
 
-from . import naive, sym_kernel, tiled_kernel
+from . import naive, pm, sym_kernel, tiled_kernel
 
 KernelFn = Callable[..., torch.Tensor]
 
@@ -29,6 +33,8 @@ _REGISTRY: Dict[str, tuple[KernelFn, KernelFn]] = {
     # Targets x sources have no symmetry to exploit: the between form is
     # the tiled kernel, as in the JAX package.
     "pallas_sym": (sym_kernel.accelerations, tiled_kernel.accelerations_between),
+    "pm": (pm.accelerations, pm.accelerations_between),
+    "p3m": (pm.p3m_accelerations, pm.p3m_accelerations_between),
 }
 
 

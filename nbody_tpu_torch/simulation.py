@@ -18,11 +18,18 @@ and GFlop/s statistics, print the footer.
 * ``SimConfig.energy_check`` reports the total-energy (KE + PE) drift over
   the run: E0 is taken before the header and E1 after the footer, both
   outside the clock.
+* The mesh tiers (``pm``, ``p3m``, open boundary): the P3M plan is measured
+  on the initial state before the warm-up (the layout first, then
+  ``SimConfig.resolve_sr_plan``); each block freezes the mesh box and
+  kernel spectra at its entry (``pm.make_mesh_env``); after each sample
+  block a health check re-measures the overflow on the current state and
+  warns once, or under ``pm_replan`` grows the plan and rebuilds the blocks.
 
-The JAX engine's autotune, online retune, mesh, sharding, checkpoint and
-ref64 branches are not ported yet (ROADMAP.md queue 1); its watchdog
-branches, the fused block's pair budget among them, are not ported at all
-(ROADMAP.md "What is not ported").
+The JAX engine's autotune, online retune, sharding, checkpoint and ref64
+branches and its periodic mesh are not ported yet (ROADMAP.md queue 1);
+its watchdog branches, the fused block's pair budget and the mesh-step
+estimate among them, are not ported at all (ROADMAP.md "What is not
+ported").
 """
 
 from __future__ import annotations
@@ -89,6 +96,17 @@ class _DeviceRunner:
         self.accel_fn = make_accel_fn(cfg.kernel, **cfg.kernel_opts())
         self.state: Optional[ParticleState] = None
         self._blocks = {}
+        self._sr_health = False  # per-block P3M plan health check
+        self._sr_warned = False
+        self._sr_layout_prev = None  # pm layout to restore after the run
+
+    def finish(self) -> None:
+        """Restore the pm layout a forced ``pm_sr_layout`` replaced."""
+        if self._sr_layout_prev is not None:
+            from .ops import pm
+
+            pm.set_sr_layout(self._sr_layout_prev)
+            self._sr_layout_prev = None
 
     def device_name(self) -> str:
         if self.device.type == "cuda":
@@ -105,9 +123,21 @@ class _DeviceRunner:
                 )
             else:
                 self._blocks[steps] = make_block_fn(
-                    self.accel_fn, cfg.dt, steps, integrator=cfg.integrator
+                    self.accel_fn, cfg.dt, steps, integrator=cfg.integrator,
+                    env_fn=self._mesh_env_fn(),
                 )
         return self._blocks[steps]
+
+    def _mesh_env_fn(self):
+        """The per-block frozen mesh environment (pm.make_mesh_env) for the
+        mesh tiers, else None."""
+        if self.cfg.resolved_kernel() not in ("pm", "p3m"):
+            return None
+        from .ops import pm
+
+        grid, cutoff = self.cfg.mesh_params()
+        return lambda pos, mass: pm.make_mesh_env(
+            pos, mass, grid=grid, cutoff_cells=cutoff)
 
     def prepare(self) -> None:
         cfg = self.cfg
@@ -115,10 +145,89 @@ class _DeviceRunner:
             cfg.n, pad_multiple=cfg.pad_multiple(),
             distribution=cfg.distribution, seed=cfg.seed, device=self.device,
         )
+        resolved = cfg.resolved_kernel()
+        if resolved == "p3m" or (resolved == "pm" and cfg.pm_cutoff):
+            # The plan sizes static tables and the worklist from the
+            # concrete state, for the layout that will run: the layout
+            # lands first.
+            if cfg.pm_sr_layout:
+                from .ops import pm
+
+                self._sr_layout_prev = pm.set_sr_layout(cfg.pm_sr_layout)
+            cfg.resolve_sr_plan(self.state.pos, self.state.mass)
+            self._sr_health = cfg.nsteps > 0
+            self.accel_fn = make_accel_fn(cfg.kernel, **cfg.kernel_opts())
         # Warm-up: builds the kernels at first use and runs one block; the
         # block does not touch its input, so the state stays as it was.
         _, ke = self._block_for(min(cfg.sfreq, cfg.nsteps))(self.state)
         float(ke)
+
+    # Cell-overflow fraction above which the measured P3M plan is declared
+    # degraded (overflowed particles fall back to mesh-quality forces).
+    SR_HEALTH_MAX_OVERFLOW = 0.005
+
+    def check_sr_health(self) -> None:
+        """After each sample block, the P3M plan health check.  The plan was
+        measured on the initial state, but clustering evolves: check cell
+        and worklist overflow on the current state, and warn once, or under
+        ``pm_replan`` re-measure the plan, grow it (never shrink) and
+        rebuild the blocks."""
+        if not self._sr_health:
+            return
+        from .ops import pm
+
+        cfg = self.cfg
+        grid, cutoff = cfg.mesh_params()
+        pos, mass = self.state.pos, self.state.mass
+        frac = float(pm.cell_overflow_fraction(pos, mass, grid, cutoff,
+                                               cfg.pm_capacity))
+        # Dropped worklist entries lose their whole short-range term, so any
+        # is degradation.
+        entries = pm.sr_entry_overflow(
+            pos, mass, grid, cutoff, capacity=cfg.pm_capacity,
+            sr_slabs=cfg.pm_sr_slabs, sr_entries=cfg.pm_sr_entries)
+        if frac <= self.SR_HEALTH_MAX_OVERFLOW and not entries:
+            return
+        detail = f"cell overflow {frac:.1%}" + (
+            f", {entries} worklist entries dropped" if entries else "")
+        if not cfg.pm_replan:
+            if not self._sr_warned:
+                self._sr_warned = True
+                print(f"# p3m plan health: {detail} on the current state "
+                      "— the measured plan no longer fits (accuracy degrades "
+                      "toward pure PM for the overflowed pairs"
+                      + (";\n# dropped worklist entries lose their "
+                         "short-range term entirely" if entries else "")
+                      + ").  Rerun with --pm-replan to re-measure mid-run, "
+                      "or raise --pm-capacity.", file=sys.stderr)
+            return
+        plan = pm.suggest_sr_plan(pos, mass, grid, cutoff)
+        cap = max(cfg.pm_capacity, plan["capacity"])
+        if cap != plan["capacity"]:
+            # Slabs and entries measured at the capacity the rebuilt blocks
+            # will bin with.
+            plan = pm.suggest_sr_plan(pos, mass, grid, cutoff, capacity=cap)
+        grown = dict(
+            pm_capacity=max(cfg.pm_capacity, plan["capacity"]),
+            pm_sr_slabs=max(cfg.pm_sr_slabs, plan["sr_slabs"]),
+            pm_sr_entries=max(cfg.pm_sr_entries, plan["sr_entries"]))
+        if all(grown[k] == getattr(cfg, k) for k in grown):
+            if not self._sr_warned:
+                self._sr_warned = True
+                print(f"# p3m plan health: {detail}, but a re-measured plan "
+                      "is no larger than the current one — raise "
+                      "--pm-capacity explicitly if this persists.",
+                      file=sys.stderr)
+            return
+        for k, v in grown.items():
+            setattr(cfg, k, v)
+        self._sr_warned = False
+        print(f"# p3m plan health: {detail} — replanned to "
+              f"capacity={cfg.pm_capacity} slabs={cfg.pm_sr_slabs} "
+              f"entries={cfg.pm_sr_entries} (blocks rebuild on next sample "
+              "block)", file=sys.stderr)
+        self._blocks.clear()
+        self.accel_fn = make_accel_fn(cfg.kernel, **cfg.kernel_opts())
 
     def run_block(self, steps: int) -> float:
         self.state, ke = self._block_for(steps)(self.state)
@@ -133,7 +242,12 @@ class _DeviceRunner:
 
 
 def run(cfg: SimConfig, out=None, quiet: bool = False) -> RunResult:
-    return _run_prepared(_DeviceRunner(cfg), cfg, out, quiet)
+    runner = _DeviceRunner(cfg)
+    try:
+        return _run_prepared(runner, cfg, out, quiet)
+    finally:
+        # A forced SR layout applies to this run only.
+        runner.finish()
 
 
 def _run_prepared(runner: _DeviceRunner, cfg: SimConfig, out,
@@ -166,6 +280,7 @@ def _run_prepared(runner: _DeviceRunner, cfg: SimConfig, out,
             t_phys = float(np.float32(s) * np.float32(cfg.dt))
             samples.append((s, t_phys, ke, block_secs, block_gf))
             emit(reporting.stats_row(s, t_phys, ke, block_secs, block_gf), out)
+            runner.check_sr_health()
             if nf > 2:
                 av += block_gf
                 dev += block_gf * block_gf

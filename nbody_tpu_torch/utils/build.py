@@ -50,6 +50,9 @@ SIGNATURES = {
     "nbt_fused_cols": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
     # pos, mass, g, n, d_pos, d_mass, tile_i, tile_j, stream
     "nbt_force_vjp": (_P, _P, _P, _I, _P, _P, _I, _I, _P),
+    # ptab, mtab, nslots, wl_t, wl_s, e_max, bounds, rc2, fwd, react,
+    # symmetric, paired, stream
+    "nbt_sr_sweep": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
 }
 
 

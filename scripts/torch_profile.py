@@ -1,0 +1,285 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch/CUDA port (``nbody_tpu_torch``), on one
+CUDA card.
+
+    python scripts/torch_profile.py
+
+For each cell it runs the engine's sample blocks (with the per-block mesh
+env for the mesh tiers) and prints:
+
+* the wall time of one block (host clock around blocks that end in a
+  synchronize, median of 5, unprofiled) and per step;
+* the device time of one block summed over its kernels and copies
+  (``torch.profiler``) and the idle share, 1 - device time / wall time;
+* the kernels that take the most device time;
+* for the mesh cells, the device time of each stage inside the profiled
+  block (the kernels inside the device-side span of a profiler range
+  around each stage function), per step, and the rest (the forward
+  transform, the elementwise work, the box and monopoles), and every
+  transform kernel of the block, whichever stage ran it;
+* for the mesh cells, each stage of one step alone (CUDA events, mean of
+  10): the block env (box and kernel spectra), the robust box, the deposit,
+  the forward transform, the three inverse transforms, the gather, the
+  P3M pack, the worklist and the short-range kernel; and the deposit as
+  an atomic ``index_add_`` beside the port's ``index_put_`` (not used by
+  the port: its sums come in another order each run);
+* for the P3M cells, the worklist's runs (one a target slab) and the
+  short-range kernel's time in every layout, each at its own suggested
+  plan.
+
+The cells: the exact path at N=2000 and N=16384 (``auto``, and the fused
+rows block at N=16384), 50-step blocks; P3M on the Plummer sphere of the
+JAX package's gate (N=262144, seed 7, ng=128, cutoff 4), 8-step blocks;
+P3M and PM on the reference initial conditions at N=1048576, 4-step
+blocks.  Each cell is built by the engine (``simulation._DeviceRunner``:
+its state, P3M plan, mesh env and blocks).  The first line is the card's
+name and power limit.  Needs a CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Mean device milliseconds per call (CUDA events, after one warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _stage_hooks():
+    """(label, module, attribute) of the mesh step's stages, as the solver
+    calls them: each is wrapped in a profiler range for one block."""
+    from nbody_tpu_torch.ops import pm, sr_kernel
+
+    return (("block env", pm, "make_mesh_env"), ("deposit", pm, "_deposit"),
+            ("3 irfftn", pm, "_inverse"), ("gather", pm, "_gather"),
+            ("pack", pm, "_sr_pack"), ("worklist", pm, "_sr_ranges"),
+            ("sr kernel", sr_kernel, "sweep"))
+
+
+def _ranged(label: str, fn):
+    import torch
+
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(f"stage:{label}"):
+            return fn(*args, **kwargs)
+
+    return call
+
+
+def profile_block(label: str, block, state, steps: int,
+                  stages: bool = False) -> None:
+    """Wall time, device time and idle share of one block; top kernels;
+    with ``stages``, the device time of each mesh stage inside the profiled
+    block."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    block(state)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        block(state)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = statistics.median(walls)
+    hooks = _stage_hooks() if stages else ()
+    saved = [getattr(mod, attr) for _, mod, attr in hooks]
+    for (name, mod, attr), fn in zip(hooks, saved):
+        setattr(mod, attr, _ranged(name, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            block(state)
+            torch.cuda.synchronize()
+    finally:
+        for (_, mod, attr), fn in zip(hooks, saved):
+            setattr(mod, attr, fn)
+    cuda = torch.autograd.DeviceType.CUDA
+    # The stage ranges also show on the device timeline as annotations:
+    # they are spans, not kernels.
+    kernels = [e for e in prof.events() if e.device_type == cuda
+               and not e.name.startswith("stage:")]
+    busy = 1e-3 * sum(e.device_time_total for e in kernels)
+    by_name: dict = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + 1e-3 * e.device_time_total)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"{label}: block {wall:.3f} ms wall ({wall / steps:.3f} per step), "
+          f"device {busy:.3f} ms, idle share {1 - busy / wall:.3f}", flush=True)
+    for name, (n, t) in top:
+        print(f"    {t:9.3f} ms  {n:5d} x  {name[:90]}", flush=True)
+    if stages:
+        # A stage's range spans its kernels on the device timeline (one
+        # stream, so no other stage's kernel runs inside it): each kernel
+        # counts for the stage whose span holds it.
+        spans = [(e.time_range.start, e.time_range.end, e.name[6:])
+                 for e in prof.events() if e.device_type == cuda
+                 and e.name.startswith("stage:")]
+        per = {name: 0.0 for name, _, _ in hooks}
+        for k in kernels:
+            mid = 0.5 * (k.time_range.start + k.time_range.end)
+            for s0, s1, name in spans:
+                if s0 <= mid <= s1:
+                    per[name] += 1e-3 * k.device_time_total
+                    break
+        fft = 1e-3 * sum(k.device_time_total for k in kernels
+                         if "fft" in k.name)
+        print(f"{label} stages in the block (profiler, device ms per step): "
+              + ", ".join(f"{k} {v / steps:.3f}" for k, v in per.items())
+              + f", rest {(busy - sum(per.values())) / steps:.3f}; every "
+              f"transform kernel, wherever it ran {fft / steps:.3f}",
+              flush=True)
+
+
+def mesh_stages(label: str, runner) -> None:
+    """Each stage of one mesh step alone, at the step's shapes, on the
+    runner's state with its plan; for P3M, the short-range kernel in every
+    layout at that layout's own plan."""
+    import torch
+
+    from nbody_tpu_torch.ops import pm, sr_kernel
+
+    cfg = runner.cfg
+    pos, mass = runner.state.pos, runner.state.mass
+    grid, cutoff = cfg.mesh_params()
+    env_fn = runner._mesh_env_fn()
+    env = env_fn(pos, mass)
+    lo_box, hi_box = env["lo_box"], env["hi_box"]
+    span = hi_box - lo_box
+    h = (span / float(grid - 3))[:, 0]
+    inv_h = 1.0 / h[:, None]
+    lo = lo_box - h[:, None]
+    m = 2 * grid
+    rho = pm._deposit(pos, mass, lo, inv_h, grid)
+    rho_hat = torch.fft.rfftn(rho, s=(m, m, m))
+    spectra = env["spectra"][0] if cutoff else env["spectra"]
+    grids = pm._inverse([rho_hat * k for k in spectra], grid)
+
+    def deposit_index_add():
+        i0, frac = pm._cic_weights(pos, lo, inv_h, grid)
+        idx, val = [], []
+        for (ix, iy, iz), w in pm._corner_iter(i0, frac):
+            idx.append((ix * grid + iy) * grid + iz)
+            val.append(mass * w)
+        return torch.zeros(grid ** 3, device=pos.device).index_add_(
+            0, torch.cat(idx), torch.cat(val))
+
+    ms = {
+        "env": cuda_ms(lambda: env_fn(pos, mass), 3),
+        "box": cuda_ms(lambda: pm._robust_box(pos, mass)),
+        "deposit": cuda_ms(lambda: pm._deposit(pos, mass, lo, inv_h, grid)),
+        "deposit by index_add_": cuda_ms(deposit_index_add),
+        "rfftn": cuda_ms(lambda: torch.fft.rfftn(rho, s=(m, m, m))),
+        "3 irfftn": cuda_ms(lambda: pm._inverse(
+            [rho_hat * k for k in spectra], grid)),
+        "gather": cuda_ms(lambda: pm._gather(grids, pos, lo, inv_h, grid)),
+    }
+    if cutoff:
+        nc, sub = pm._cell_grid_params(grid, cutoff)
+        inc = (mass * pm._inside(pos, lo_box, hi_box)) > 0
+        cid = pm._bin_cids(pos, lo_box, span, nc, inc)
+        cap, s_max, e_max = cfg.pm_capacity, cfg.pm_sr_slabs, cfg.pm_sr_entries
+        tabs = pm._sr_pack(cid, pos, mass, nc ** 3, cap, s_max)
+        sym, paired = pm._active_sr_layout(pos.is_cuda)
+        wl_t, wl_s, n_e = pm._sr_ranges(tabs[2], tabs[3], nc, sub, e_max,
+                                        symmetric=sym, paired=paired)
+        bounds = torch.stack([torch.zeros_like(n_e), n_e.clamp(max=e_max)])
+        rc2 = pm._sr_rc2(span, nc, sub)
+        ms["pack"] = cuda_ms(lambda: pm._sr_pack(cid, pos, mass, nc ** 3, cap,
+                                                 s_max))
+        ms["worklist"] = cuda_ms(lambda: pm._sr_ranges(
+            tabs[2], tabs[3], nc, sub, e_max, symmetric=sym, paired=paired))
+        ms["sr kernel"] = cuda_ms(lambda: sr_kernel.sweep(
+            tabs[0], tabs[1], wl_t, wl_s, bounds, rc2, symmetric=sym,
+            paired=paired))
+        over = float(pm.cell_overflow_fraction(pos, mass, grid, cutoff, cap))
+        _, runs = torch.unique_consecutive(wl_t[:int(n_e)],
+                                           return_counts=True)
+        print(f"{label}: plan capacity={cap} slabs={s_max} entries={e_max}, "
+              f"{int(n_e)} entries, layout symmetric={sym} paired={paired}, "
+              f"cell overflow {over:.4f}; {runs.numel()} runs, mean "
+              f"{float(runs.float().mean()):.2f} entries, longest "
+              f"{int(runs.max())}", flush=True)
+        times = []
+        for layout, (lsym, lpaired) in pm.SR_LAYOUTS.items():
+            if layout == "xla":  # the kernel's plain layout, as "pallas"
+                continue
+            lplan = pm.suggest_sr_plan(pos, mass, grid, cutoff, layout=layout)
+            pk = pm.sr_pack_inputs(pos, mass, grid=grid, cutoff_cells=cutoff,
+                                   symmetric=lsym, paired=lpaired, **lplan)
+            lb = torch.stack([torch.zeros_like(pk["n_e"]), pk["n_e"]])
+            t = cuda_ms(lambda: sr_kernel.sweep(
+                pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"], lb, pk["rc2"],
+                symmetric=lsym, paired=lpaired), 5)
+            times.append(f"{layout} {int(pk['n_e'])} entries {t:.3f}")
+            del pk
+        print(f"{label} sr kernel by layout (ms): " + ", ".join(times),
+              flush=True)
+    print(f"{label} stages alone (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from nbody_tpu_torch import SimConfig
+    from nbody_tpu_torch.ops import pm
+    from nbody_tpu_torch.simulation import _DeviceRunner
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    for label, steps, kw in (
+            ("N=2000 auto", 50, dict(n=2000)),
+            ("N=16384 auto", 50, dict(n=16384)),
+            ("N=16384 fused rows", 50, dict(n=16384, fused=True)),
+            ("p3m plummer N=262144", 8, dict(n=262144, kernel="p3m",
+                                              distribution="plummer", seed=7)),
+            ("p3m reference N=1048576", 4, dict(n=1048576, kernel="p3m")),
+            ("pm reference N=1048576", 4, dict(n=1048576, kernel="pm"))):
+        # The engine's own blocks, plan and mesh env; prepare() runs the
+        # warm-up block.
+        runner = _DeviceRunner(SimConfig(nsteps=steps, sfreq=steps, **kw))
+        runner.prepare()
+        mesh = runner._mesh_env_fn() is not None
+        syncs = pm.host_syncs
+        try:
+            profile_block(f"{label}, {steps} steps", runner._block_for(steps),
+                          runner.state, steps, stages=mesh)
+            if mesh:
+                print(f"{label}: {(pm.host_syncs - syncs) / (7 * steps):.0f} "
+                      "host syncs a step", flush=True)
+                mesh_stages(label, runner)
+        finally:
+            runner.finish()
+        del runner
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

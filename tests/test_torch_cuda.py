@@ -10,22 +10,29 @@ there it is skipped with ``--noconftest``):
 Tolerance: the kernels sum in other orders than the plain versions, so
 they agree to fp32 summation error, bounded at 1e-5 relative norm; the
 force VJP at 2e-5, the JAX package's bound between its VJP kernel and its
-plain sweep (tests/test_grad.py).
+plain sweep (tests/test_grad.py); the P3M short-range sweep at 2e-5 of the
+largest occupied slot, as tests/test_p3m.py holds the Pallas sweep against
+the plain one, and the mesh tiers at 1e-4 relative norm against the JAX
+package's accelerations in tests/golden/torch_p3m_plummer_n16384.npz.
 """
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.init import make_state
+from nbody_tpu_torch.models import distributions
 from nbody_tpu_torch.models.gravity import make_accel_fn, make_block_fn
 from nbody_tpu_torch.models.rollout import make_rollout_fn
 from nbody_tpu_torch.ops import (
     fused_block,
     grad,
     naive,
+    pm,
+    sr_kernel,
     sym_kernel,
     tiled_kernel,
     vjp_kernel,
@@ -246,3 +253,88 @@ def test_rollout_grads_on_card(cuda_device, integrator):
         assert torch.equal(a, b)
     for a, b in zip(got, grads(backward_opts={"backward": "jnp"})):
         assert _rel(a, b) <= 1e-4
+
+
+def _sr_inputs(device, layout, n=8192, seed=3):
+    """Packed tables and worklist of a Plummer sphere at the plan suggested
+    for ``layout`` on the card."""
+    pos, _, mass = distributions.plummer(n, seed=seed)
+    p = torch.tensor(pos, device=device)
+    m = torch.tensor(mass, device=device)
+    sym, paired = pm.SR_LAYOUTS[layout]
+    plan = pm.suggest_sr_plan(p, m, 64, 4, layout=layout)
+    pk = pm.sr_pack_inputs(p, m, grid=64, cutoff_cells=4, symmetric=sym,
+                           paired=paired, **plan)
+    bounds = torch.stack([torch.zeros_like(pk["n_e"]),
+                          pk["n_e"].clamp(max=pk["e_max"])])
+    return pk, bounds, sym, paired
+
+
+@pytest.mark.parametrize("layout", sorted(pm.SR_LAYOUTS))
+def test_sr_kernel_matches_plain(cuda_device, layout):
+    pk, bounds, sym, paired = _sr_inputs(cuda_device, layout)
+    args = (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"], bounds, pk["rc2"])
+    before = sr_kernel.launches
+    got = sr_kernel.sweep(*args, symmetric=sym, paired=paired)
+    again = sr_kernel.sweep(*args, symmetric=sym, paired=paired)
+    torch.cuda.synchronize()
+    assert sr_kernel.launches == before + 2
+    want = sr_kernel.sweep_plain(*args, symmetric=sym, paired=paired)
+    occ = pk["mtab"] > 0
+    scale = float(want[:, occ].abs().max())
+    assert float((got - want)[:, occ].abs().max()) <= 2e-5 * scale
+    if sym:  # the reaction's atomics add in another order each launch
+        assert _rel(again[:, occ], got[:, occ]) <= 1e-6
+    else:
+        assert torch.equal(got, again)
+    assert bool((got[:, -pm.SLAB:] == 0).all())
+
+
+def test_sr_kernel_bounds_split(cuda_device):
+    pk, bounds, sym, paired = _sr_inputs(cuda_device, "pallas_paired_sym")
+    args = (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"])
+    full = sr_kernel.sweep(*args, bounds, pk["rc2"], symmetric=sym,
+                           paired=paired)
+    n_e = int(bounds[1])
+    per = -(-n_e // 4)
+    parts = sum(sr_kernel.sweep(
+        *args, torch.tensor([i * per, min((i + 1) * per, n_e)],
+                            dtype=torch.int32, device=cuda_device),
+        pk["rc2"], symmetric=sym, paired=paired) for i in range(4))
+    occ = pk["mtab"] > 0
+    scale = float(full[:, occ].abs().max())
+    assert float(((parts - full).abs() - 1e-6 * full.abs())[:, occ].max()) \
+        <= 2e-6 * scale
+
+
+def test_mesh_tiers_match_jax_fixture(cuda_device):
+    fx = np.load(os.path.join(GOLDEN, "torch_p3m_plummer_n16384.npz"))
+    pos, _, mass = distributions.plummer(int(fx["n"]), seed=int(fx["seed"]))
+    p = torch.tensor(pos, device=cuda_device)
+    m = torch.tensor(mass, device=cuda_device)
+    ng = int(fx["grid"])
+    a_pm = pm.accelerations(p, m, grid=ng)
+    assert _rel(a_pm.cpu(), torch.tensor(fx["pm"])) <= 1e-4
+    plan = pm.suggest_sr_plan(p, m, ng, int(fx["cutoff"]),
+                              capacity=int(fx["capacity"]))
+    before = sr_kernel.launches
+    a_p3m = pm.p3m_accelerations(p, m, grid=ng, **plan)
+    assert sr_kernel.launches == before + 1
+    assert _rel(a_p3m.cpu(), torch.tensor(fx["p3m"])) <= 1e-4
+
+
+def test_p3m_run_goes_through_the_sr_kernel(cuda_device):
+    sr_kernel.launches = tiled_kernel.launches = sym_kernel.launches = 0
+    res = run(SimConfig(n=4096, nsteps=8, sfreq=4, kernel="p3m",
+                        distribution="plummer", dt=0.01, seed=7), quiet=True)
+    assert (sr_kernel.launches, tiled_kernel.launches,
+            sym_kernel.launches) == (12, 0, 0)
+    assert all(np.isfinite(ke) and ke > 0 for _, ke in res.kenergy_trace)
+
+
+def test_sr_kernel_refuses_inputs_that_require_grad(cuda_device):
+    pk, bounds, sym, paired = _sr_inputs(cuda_device, "pallas", n=1024)
+    ptab = pk["ptab"].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="differentiable=True"):
+        sr_kernel.sweep(ptab, pk["mtab"], pk["wl_t"], pk["wl_s"], bounds,
+                        pk["rc2"])

@@ -139,7 +139,8 @@ def test_wrappers_check_inputs(fn, args, exc):
 
 
 def test_registry_auto_and_names():
-    assert registry.available() == ("naive", "pallas", "pallas_sym", "auto")
+    assert registry.available() == ("naive", "p3m", "pallas", "pallas_sym",
+                                    "pm", "auto")
     assert registry.resolve("auto", "cpu") == "naive"
     assert registry.resolve("auto", "cuda") == "pallas_sym"
     assert registry.resolve("pallas", "cpu") == "pallas"
@@ -148,7 +149,7 @@ def test_registry_auto_and_names():
     auto = registry.get("auto")(_t(pos), _t(mass), tile_i=64)
     assert torch.equal(auto, naive.accelerations(_t(pos), _t(mass)))
     with pytest.raises(KeyError, match="unknown kernel"):
-        registry.get("pm")
+        registry.get("pallas_mxu")
 
 
 def test_sym_scratch_budget():
@@ -159,7 +160,7 @@ def test_sym_scratch_budget():
 
 def test_build_layout():
     srcs = [p.name for p in build.sources()]
-    assert srcs == ["fused.cu", "sym.cu", "tiled.cu", "vjp.cu"]
+    assert srcs == ["fused.cu", "sr.cu", "sym.cu", "tiled.cu", "vjp.cu"]
     path = build.library_path()
     assert path.name == "libnbody_kernels.so"
     assert path.parent.parent == build.BUILD_DIR

@@ -147,7 +147,7 @@ def test_cli_in_process(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--pm-grid", "64"], "queue 1 items 7-10"),
+    (["--pm-box", "1.0"], "queue 1 item 9"),
     (["--shards", "4"], "queue 1 item 11"),
     (["--autotune"], "queue 1 item 12"),
     (["--precision", "bf16"], "queue 1 item 4"),

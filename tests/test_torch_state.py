@@ -102,8 +102,9 @@ def test_make_state_refuses_unported_distribution():
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(precision="bf16"), NotImplementedError, "queue 1 item 4"),
     (dict(precision="ref64"), NotImplementedError, "queue 1 item 12"),
-    (dict(kernel="p3m"), NotImplementedError, "queue 1 item 8"),
-    (dict(kernel="pm"), NotImplementedError, "queue 1 item 7"),
+    (dict(kernel="p3m", pm_boundary="periodic"), NotImplementedError,
+     "queue 1 item 9"),
+    (dict(kernel="pm", pm_box=1.0), NotImplementedError, "queue 1 item 9"),
     (dict(kernel="bogus"), ValueError, "unknown kernel"),
     (dict(platform="tpu"), ValueError, "unknown platform"),
     (dict(n=0), ValueError, "n must be"),
@@ -147,7 +148,8 @@ def test_table_byte_equal_to_jax():
 
 def test_import_leaves_jax_out():
     code = ("import sys, nbody_tpu_torch, nbody_tpu_torch.__main__; "
-            "import nbody_tpu_torch.ops.registry; "
+            "import nbody_tpu_torch.ops.registry, nbody_tpu_torch.ops.pm, "
+            "nbody_tpu_torch.ops.sr_kernel; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'nbody_tpu.'))); "
             "print(bad); sys.exit(1 if bad else 0)")
