@@ -88,6 +88,30 @@ Phases, each printing what it found; any failure exits non-zero:
 14. ``kernel="p3m"`` and ``kernel="pm"`` at N=1048576 on the reference
     initial conditions, 8 steps, sfreq 4: finite energies, ms per step and
     the short-range kernel's launches (12 and 0).
+15. The particle decomposition's kernels against their plain versions: the
+    two-sided sweep at Nt = Ns = 4096 and at 4096 x 2048, both sets
+    zero-mass padded (relative-norm error of both sides <= 1e-5, padding
+    exactly 0 on both sides, two launches bit for bit); the ring kernel at
+    N=16384 with K = 2, 3, 4, 8 (padded with zero mass to a multiple of
+    64 K) and at N=131072 with K=8, where a CTA owns several target tiles
+    (<= 1e-5 against the plain ring and against Kernel B on the whole
+    state; bit for bit over two launches).
+    Then per-call times at N=16384, K=4 (CUDA events): both kernels at the
+    shapes ``ring_sym`` and ``rdma`` give them, their plain versions, and
+    Kernels A and B on the whole state.
+16. The sharded main path: ``run(SimConfig(n=2000, nsteps=500, shards=4,
+    comm=c))`` for each comm mode, and ``ring_sym`` and ``rdma`` at
+    ``shards=3`` (no antipodal hop; N pads to 2304): every trace equals
+    the golden trace at %.5g, and the launch counters, zeroed before each
+    run, equal the counts the mode implies over 550 steps (500 and the
+    warm-up): ``allgather`` K Kernel A launches a step, ``ring`` K^2,
+    ``ring_sym`` K Kernel B and K floor((K-1)/2) (+ K/2 for even K)
+    two-sided, ``rdma`` one ring launch and nothing else.  One leapfrog run
+    per mode gives finite, positive energies.
+17. The sharded numbers: N=16384, 500 steps, ``shards=4`` in each mode and
+    ``shards=8`` for ``ring_sym`` and ``rdma``, GFLOP/s beside the
+    single-device ``auto`` figure of phase 5.  Virtual shards on one card
+    move no bytes over a link.
 
 The last lines are the card's name and power limit, a JSON object of the
 kernels with their bounds, and ``{"ok": true, "device": {...}}``.  Imports
@@ -126,6 +150,8 @@ SR_TOL = 2e-5
 MESH_TOL = 1e-4
 P3M_GATE = dict(n=262144, seed=7, grid=128, cutoff=4)  # bench.py:102-103
 N_UNIFORM = 1048576  # the suite's N=1M rows, bench.py:46-47
+COMM_MODES = ("allgather", "ring", "ring_sym", "rdma")
+RING_TILE = 64  # the ring kernel's default tile_i: shards pad to 64 K
 
 # The least time the card could take: the larger of the operations over the
 # H100 SXM's fp32 rate outside the tensor cores (NVIDIA's data sheet) and
@@ -338,6 +364,149 @@ def mesh_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
             fail(f"{kernel} N={N_UNIFORM} energies not finite and positive: "
                  f"{kes}")
     return sr
+
+
+def sharded_phases(dev, tag: str, err: dict, ms: dict, launches: dict,
+                   golden: list, gf: dict) -> None:
+    """Phases 15-17; fills ``err``, ``ms`` and ``launches``."""
+    import torch
+
+    from nbody_tpu_torch import SimConfig, make_state, run
+    from nbody_tpu_torch.ops import sym_kernel, tiled_kernel
+    from nbody_tpu_torch.parallel import make_mesh, ring_kernel
+    from nbody_tpu_torch.parallel.decompose import shard_state
+    from nbody_tpu_torch.utils.reporting import _g5
+
+    # 15. The kernels against their plain versions.
+    err["two_sided"] = err["ring"] = 0.0
+    for nt_real, nt, ns_real, ns in ((4096, 4096, 4000, 4096),
+                                     (3000, 4096, 1000, 2048)):
+        a = make_state(nt_real, pad_multiple=nt, seed=1, device=dev)
+        b = make_state(ns_real, pad_multiple=ns, seed=2, device=dev)
+        args = (a.pos, a.mass, b.pos, b.mass)
+        got = sym_kernel.accelerations_two_sided(*args)
+        again = sym_kernel.accelerations_two_sided(*args)
+        plain = sym_kernel.accelerations_two_sided_plain(*args)
+        torch.cuda.synchronize()
+        rel = [rel_err(x, y) for x, y in zip(got, plain)]
+        err["two_sided"] = max([err["two_sided"]] + [
+            float((x - y).abs().max()) for x, y in zip(got, plain)])
+        print(f"two-sided {nt} x {ns} (real {nt_real} x {ns_real}): targets "
+              f"vs plain {rel[0]:.3e}, sources {rel[1]:.3e}", flush=True)
+        if not all(torch.isfinite(x).all() for x in got):
+            fail("two-sided kernel: non-finite output")
+        if max(rel) > REL_TOL:
+            fail(f"two-sided kernel disagrees with its plain version at "
+                 f"{nt} x {ns}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"two-sided kernel: two launches at {nt} x {ns} differ")
+        if bool((got[0][:, nt_real:] != 0).any()
+                or (got[1][:, ns_real:] != 0).any()):
+            fail("two-sided kernel: padded particles got non-zero "
+                 "acceleration")
+    print("two-sided: padding exactly 0 on both sides; repeats bit for bit",
+          flush=True)
+    for n, ks in ((16384, (2, 3, 4, 8)), (131072, (8,))):
+        for k in ks:
+            st = make_state(n, pad_multiple=RING_TILE * k, device=dev)
+            sh, _ = shard_state(st, k, make_mesh(k))
+            pos, mass = list(sh.pos), list(sh.mass)
+            got = ring_kernel.ring_accelerations(pos, mass)
+            again = ring_kernel.ring_accelerations(pos, mass)
+            whole = torch.cat(got, dim=1)
+            ref = sym_kernel.accelerations(st.pos, st.mass)
+            r_b = rel_err(whole, ref)
+            plain = torch.cat(
+                ring_kernel.ring_accelerations_plain(pos, mass), dim=1)
+            r_p = rel_err(whole, plain)
+            err["ring"] = max(err["ring"], float((whole - plain).abs().max()))
+            print(f"ring N={n} (padded {st.n_padded}) K={k}: vs Kernel B "
+                  f"{r_b:.3e}, vs plain {r_p:.3e}", flush=True)
+            if not torch.isfinite(whole).all():
+                fail(f"ring kernel: non-finite output at N={n} K={k}")
+            if max(r_b, r_p) > REL_TOL:
+                fail(f"ring kernel disagrees at N={n} K={k}")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"ring kernel: two launches at N={n} K={k} differ")
+            del got, again, whole, ref, plain
+    print("ring: repeats bit for bit at every K", flush=True)
+    n, k = 16384, 4
+    st = make_state(n, device=dev)
+    sh, _ = shard_state(st, k, make_mesh(k))
+    pos, mass = list(sh.pos), list(sh.mass)
+    ts = (pos[0], mass[0], pos[1], mass[1])  # one block pair of ring_sym
+    ms["two_sided"] = time_ms(lambda: sym_kernel.accelerations_two_sided(*ts))
+    ms["two_sided_plain"] = time_ms(
+        lambda: sym_kernel.accelerations_two_sided_plain(*ts), reps=5)
+    ms["ring"] = time_ms(lambda: ring_kernel.ring_accelerations(pos, mass))
+    ms["ring_plain"] = time_ms(
+        lambda: ring_kernel.ring_accelerations_plain(pos, mass), reps=5)
+    nl = n // k
+    print(f"two-sided {nl} x {nl}: kernel {ms['two_sided']:.4f} ms, plain "
+          f"{ms['two_sided_plain']:.4f} ms per call; "
+          f"{nl * nl / ms['two_sided'] / 1e6:.1f} Gpairs/s {tag}", flush=True)
+    print(f"ring N={n} K={k}: kernel {ms['ring']:.4f} ms, plain "
+          f"{ms['ring_plain']:.4f} ms per call; {n * n / ms['ring'] / 1e6:.1f}"
+          f" Gpairs/s (N^2 model); whole state: Kernel A {ms['A']:.4f} ms, "
+          f"Kernel B {ms['B']:.4f} ms {tag}", flush=True)
+
+    # 16. The sharded main path.
+    counters = (tiled_kernel, sym_kernel, ring_kernel)
+    steps = 550  # 500 and the 50-step warm-up block
+    for comm, k in [(c, 4) for c in COMM_MODES] + [("ring_sym", 3),
+                                                   ("rdma", 3)]:
+        for mod in counters:
+            mod.launches = 0
+        sym_kernel.two_sided_launches = 0
+        res = run(SimConfig(n=2000, nsteps=500, shards=k, comm=comm),
+                  quiet=True)
+        counts = tuple(m.launches for m in counters) + (
+            sym_kernel.two_sided_launches,)
+        pairs = k * ((k - 1) // 2) + (k // 2 if k % 2 == 0 else 0)
+        want = {"allgather": (k * steps, 0, 0, 0),
+                "ring": (k * k * steps, 0, 0, 0),
+                "ring_sym": (0, k * steps, 0, pairs * steps),
+                "rdma": (0, 0, steps, 0)}[comm]
+        print(f"sharded main path shards={k} comm={comm}: tiled/sym/ring/"
+              f"two-sided launches {counts}; {res.av:.6g} +- {res.dev:.6g} "
+              f"GFLOP/s {tag}", flush=True)
+        if counts != want:
+            fail(f"shards={k} comm={comm} launches {counts} != {want}")
+        if k == 4 and comm == "ring_sym":
+            launches["two_sided"] = counts[3]
+        if k == 4 and comm == "rdma":
+            launches["ring"] = counts[2]
+        got = [(s, _g5(ke)) for s, ke in res.kenergy_trace]
+        if got != golden:
+            fail(f"shards={k} comm={comm} trace {got} != golden {golden}")
+        print(f"sharded main path shards={k} comm={comm}: all {len(golden)} "
+              "kinetic-energy rows equal ver0_n2000_s500.txt at %.5g",
+              flush=True)
+    for comm in COMM_MODES:
+        res = run(SimConfig(n=2000, nsteps=500, shards=4, comm=comm,
+                            integrator="leapfrog"), quiet=True)
+        kes = [ke for _, ke in res.kenergy_trace]
+        if len(kes) != 10 or not all(math.isfinite(x) and x > 0 for x in kes):
+            fail(f"sharded leapfrog comm={comm} energies not finite and "
+                 f"positive: {kes}")
+        print(f"sharded leapfrog shards=4 comm={comm} N=2000/500: energies "
+              f"finite and positive, {kes[0]:.5g} .. {kes[-1]:.5g}",
+              flush=True)
+
+    # 17. The numbers.
+    n = 16384
+    for comm, k in [(c, 4) for c in COMM_MODES] + [("ring_sym", 8),
+                                                   ("rdma", 8)]:
+        res = run(SimConfig(n=n, nsteps=500, shards=k, comm=comm), quiet=True)
+        kes = [ke for _, ke in res.kenergy_trace]
+        if len(kes) != 10 or not all(math.isfinite(x) and x > 0 for x in kes):
+            fail(f"N={n} shards={k} comm={comm} energies not finite and "
+                 f"positive: {kes}")
+        gf[f"{n} shards={k} {comm}"] = (res.av, res.dev)
+        print(f"N={n} 500 steps shards={k} comm={comm}: {res.av:.6g} +- "
+              f"{res.dev:.6g} GFLOP/s (29N^2+19N model; single-device auto "
+              f"{gf[f'{n} auto'][0]:.6g} +- {gf[f'{n} auto'][1]:.6g}) {tag}",
+              flush=True)
 
 
 def main() -> int:
@@ -716,6 +885,7 @@ def main() -> int:
         fail("N=16384 energy drift is not finite")
 
     sr = mesh_phases(dev, tag, err, ms, launches)
+    sharded_phases(dev, tag, err, ms, launches, golden, gf)
 
     # The bounds, from this run's inputs: the least work of each function,
     # whatever layout its kernel takes.  Kernel A and the columns block
@@ -729,6 +899,10 @@ def main() -> int:
         "rows": bound(BLOCK * OPS_SYM * n * n / 2, 52 * n),
         "columns": bound(BLOCK * OPS_SYM * n * n / 2, 52 * n),
         "vjp": bound(OPS_VJP * n * n, 44 * n),
+        # One ring_sym block pair: every cross pair once.
+        "two_sided": bound(OPS_SYM * (n // 4) ** 2, 28 * 2 * (n // 4)),
+        # The ring computes what Kernel B does: N^2/2 unordered pairs.
+        "ring": bound(OPS_SYM * n * n / 2, 28 * n),
     }
     bounds_ms["sr"] = min(
         bound(n_e * pm.SLAB * width * (OPS_SR + OPS_SR_REACTION * sym),
@@ -750,6 +924,10 @@ def main() -> int:
         ("force_vjp_kernel", "vjp.cu", "nbody_tpu/ops/grad.py:102", "vjp"),
         (f"sr_sweep_kernel (P3M short range, {sr_default} layout)",
          "sr.cu", "nbody_tpu/ops/pm.py:1630", "sr"),
+        ("two_sided_kernel+two_sided_reduce_kernel (two-sided sweep)",
+         "two_sided.cu", "nbody_tpu/ops/pallas_sym.py:211", "two_sided"),
+        ("ring_kernel (fused ring, K=4)", "ring.cu",
+         "nbody_tpu/parallel/ring_kernel.py:55", "ring"),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": f"nbody_tpu_torch/csrc/{src}",

@@ -22,6 +22,9 @@ Options:
                                    (f32; rows layout, or columns with a
                                    rectangular --tile-i/--tile-j); --kernel
                                    then sets nothing
+    --shards K --comm {allgather,ring,ring_sym,rdma}  particle decomposition
+                                   over K shards of the card (or the CPU),
+                                   driven by this one process
     --sfreq/--dt                   sample frequency and step size
     --distribution {reference,plummer,cold_sphere}  initial conditions
     --energy-check                 report total-energy (KE+PE) drift at the end
@@ -45,8 +48,6 @@ from .simulation import Simulation
 # Flags of ``python -m nbody_tpu`` that the port does not have yet.
 _NOT_PORTED = {
     "--pm-box": "queue 1 item 9 (periodic boundary)",
-    "--shards": "queue 1 item 11 (the particle decomposition)",
-    "--comm": "queue 1 item 11 (the particle decomposition)",
     "--autotune": "queue 1 item 12 (autotuning)",
     "--autotune-online": "queue 1 item 12 (autotuning)",
     "--save-state": "queue 1 item 12 (checkpoints)",
@@ -110,6 +111,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--energy-check", action="store_true",
                    help="report total-energy (KE+PE) drift at the end")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--shards", type=int, default=1)
+    p.add_argument("--comm", default="allgather",
+                   choices=["allgather", "ring", "ring_sym", "rdma"],
+                   help="sharded source exchange: all-gather, ppermute "
+                        "ring, the pair-symmetric half-ring (~half the "
+                        "compute AND hops), or the fused in-kernel ring")
     p.add_argument("--sfreq", type=int, default=50)
     p.add_argument("--dt", type=float, default=0.1)
     p.add_argument("--fused", action="store_true",
@@ -134,6 +141,7 @@ def main(argv=None) -> int:
             seed=args.seed, energy_check=args.energy_check, kernel=args.kernel,
             tile_i=args.tile_i or args.dim0, tile_j=args.tile_j or args.dim1,
             precision=args.precision, fused=args.fused,
+            shards=args.shards, comm=args.comm,
             pm_grid=args.pm_grid, pm_cutoff=args.pm_cutoff,
             pm_capacity=args.pm_capacity, pm_boundary=args.pm_boundary,
             pm_replan=args.pm_replan, pm_sr_layout=args.pm_sr_layout,

@@ -15,6 +15,8 @@ import torch
 
 from .models.distributions import DISTRIBUTIONS
 from .models.integrators import INTEGRATORS
+from .parallel.decompose import COMM_MODES, check_sharded_kernel
+from .state import device_or_card
 from .types import PRECISIONS, SUPPORTED_PRECISIONS
 
 KERNELS = ("naive", "pallas", "pallas_sym", "pm", "p3m", "auto")
@@ -67,6 +69,10 @@ class SimConfig:
     # health check finds overflow (grow-only); off = warn once
     precision: str = "f32"
     fused: bool = False  # the whole sample block in one kernel launch
+    # The particle decomposition: K shards of one card (virtual shards) or
+    # of the CPU, driven by one process (parallel/decompose.py).
+    shards: int = 1
+    comm: str = "allgather"  # allgather | ring | ring_sym | rdma
     platform: Optional[str] = None  # None = cuda; "cpu" only on request
 
     def __post_init__(self):
@@ -76,6 +82,13 @@ class SimConfig:
             raise ValueError(f"nsteps must be >= 0, got {self.nsteps}")
         if self.sfreq < 1:
             raise ValueError(f"sfreq must be >= 1, got {self.sfreq}")
+        if self.shards < 1:
+            raise ValueError(f"shards must be >= 1, got {self.shards}")
+        if self.fused and self.shards > 1:
+            raise ValueError(
+                "--fused runs the whole block in one kernel over the whole "
+                "state; it cannot be combined with --shards > 1")
+        _check("comm", self.comm, COMM_MODES)
         _check("integrator", self.integrator, INTEGRATORS)
         _check("distribution", self.distribution, tuple(DISTRIBUTIONS))
         _check("kernel", self.kernel, KERNELS)
@@ -107,6 +120,8 @@ class SimConfig:
                     "--pm-sr-layout selects the P3M short-range sweep "
                     "layout; it requires --kernel p3m (or --kernel pm with "
                     "--pm-cutoff > 0)")
+        if self.shards > 1:
+            check_sharded_kernel(self.kernel, self.comm)
         if self.pm_replan and not short_range:
             raise ValueError(
                 "--pm-replan re-measures the P3M short-range plan; it "
@@ -115,15 +130,7 @@ class SimConfig:
     def device(self) -> torch.device:
         """The device the run uses.  CUDA unless the CPU was asked for; a
         missing card raises instead of falling back to the CPU."""
-        if self.platform == "cpu":
-            return torch.device("cpu")
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; the CPU path runs only on request "
-                "(--platform cpu, SimConfig(platform='cpu') or the 'cpu' "
-                "device token)"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
+        return device_or_card("cpu" if self.platform == "cpu" else None)
 
     def resolved_kernel(self) -> str:
         """``auto`` resolved on the configured platform, before the padded
@@ -164,7 +171,10 @@ class SimConfig:
     def kernel_opts(self) -> dict:
         opts = {}
         resolved = self.resolved_kernel()
-        if resolved in ("pallas", "pallas_sym"):
+        # ring_sym and rdma run their own pair kernels (the pair-symmetric
+        # ones; the ring), whatever `kernel` resolves to: they take the tiles.
+        own_pairs = self.shards > 1 and self.comm in ("ring_sym", "rdma")
+        if resolved in ("pallas", "pallas_sym") or own_pairs:
             if self.tile_i:
                 opts["tile_i"] = self.tile_i
             if self.tile_j:
@@ -180,9 +190,10 @@ class SimConfig:
         return opts
 
     def pad_multiple(self) -> int:
-        """Particle-count padding the kernel needs: the pair-symmetric
-        kernel sweeps whole blocks (``auto`` on CUDA pads for it, so N=2000
-        becomes 2048); the tiled kernel and naive take any N.  Under
+        """Particle-count padding the kernel needs, times ``shards``: the
+        pair-symmetric kernel sweeps whole blocks (``auto`` on CUDA pads for
+        it, so N=2000 becomes 2048), and so do ``ring_sym``'s kernels on
+        every shard; the tiled kernel, the ring and naive take any N.  Under
         ``fused`` the fused block's layout sets it, whatever ``kernel``
         says: rows blocks, or columns tiles that divide N."""
         from .ops import fused_block
@@ -190,6 +201,6 @@ class SimConfig:
 
         if self.fused:
             return fused_block.pad_multiple(self.tile_i, self.tile_j)
-        if self.resolved_kernel() == "pallas_sym":
-            return self.tile_i or DEFAULT_BLOCK
-        return 1
+        sym = self.resolved_kernel() == "pallas_sym" or (
+            self.shards > 1 and self.comm == "ring_sym")
+        return (self.tile_i or DEFAULT_BLOCK if sym else 1) * self.shards

@@ -1,11 +1,14 @@
 // Shared pieces of the port's CUDA kernels: the reference's physics
-// constants, the softened inverse cube of one pair distance, and the bodies
-// of the two force sweeps.  The unfused kernels (sym.cu, tiled.cu) and the
-// fused sample blocks (fused.cu) run the same device functions, so they
-// share one copy of the pair arithmetic.
+// constants, the softened inverse cube of one pair distance, the bodies of
+// the two force sweeps and the cooperative launcher.  The unfused kernels
+// (sym.cu, tiled.cu), the fused sample blocks (fused.cu), the two-sided
+// sweep (two_sided.cu) and the ring (ring.cu) run the same device
+// functions, so they share one copy of the pair arithmetic.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace nbt {
 
@@ -54,34 +57,19 @@ __device__ __forceinline__ float4 load_body(const float* pos, const float* mass,
 // ---------------------------------------------------------------------------
 // The pair-symmetric sweep (Kernel B; see the note in sym.cu).
 
-// One unordered B x B tile pair (it <= jt), run by the B = blockDim.x
-// threads of a CTA.  Thread t owns target i = it*B + t and passes its body
-// bi = (x, y, z, G m_i); the j tile is staged in shared memory `sj` and
-// `red` is (B/32)*3*B floats of shared scratch.  Writes the i-side sum to
-// P[it][jt] and, off the diagonal, the j-side sum to P[jt][it], each (3, B)
-// in `part`, T tiles a side.  Every thread of the CTA calls it.
-__device__ __forceinline__ void sym_tile_pair(const float4* sj, float* red,
-                                              float4 bi, int it, int jt,
-                                              int T, float* part) {
+// One B x B tile pair of two different tiles, run by the B = blockDim.x
+// threads of a CTA.  Thread t owns target i of the i tile and passes its
+// body bi = (x, y, z, G m_i); the j tile is staged in shared memory `sj` and
+// `red` is (B/32)*3*B floats of shared scratch.  Writes the i-side sum
+// sum_j w d to pi and the j-side sum -sum_i w d to pj, each (3, B).  The
+// i and j tiles may come from one set (Kernel B's off-diagonal tiles) or
+// from two (the two-sided sweep).  Every thread of the CTA calls it.
+__device__ __forceinline__ void sym_tile_cross(const float4* sj, float* red,
+                                               float4 bi, float* pi,
+                                               float* pj) {
   const int B = blockDim.x, t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5, nwarps = B >> 5;
-  float* pi = part + (size_t(it) * T + jt) * 3 * B;  // P[it][jt]
   float ax = 0.f, ay = 0.f, az = 0.f;
-  if (it == jt) {  // diagonal tile: one-sided sum over all of its pairs
-    for (int k = 0; k < B; ++k) {
-      const float4 p = sj[k];
-      const float dx = p.x - bi.x, dy = p.y - bi.y, dz = p.z - bi.z;
-      const float w = (bi.w * p.w) * inv_cube(dx, dy, dz);
-      ax += w * dx;
-      ay += w * dy;
-      az += w * dz;
-    }
-    pi[t] = ax;
-    pi[B + t] = ay;
-    pi[2 * B + t] = az;
-    return;  // uniform across the CTA
-  }
-
   for (int s = 0; s < nwarps; ++s) {  // 32-wide j subtiles
     const float4* sub = sj + s * 32;
     float bx = 0.f, by = 0.f, bz = 0.f;  // j side of j = s*32 + (lane+k)%32
@@ -117,10 +105,36 @@ __device__ __forceinline__ void sym_tile_pair(const float4* sj, float* red,
   pi[t] = ax;
   pi[B + t] = ay;
   pi[2 * B + t] = az;
-  float* pj = part + (size_t(jt) * T + it) * 3 * B;  // P[jt][it]
   pj[t] = sx;
   pj[B + t] = sy;
   pj[2 * B + t] = sz;
+}
+
+// One unordered B x B tile pair (it <= jt) of one set, T tiles a side:
+// the i-side sum goes to P[it][jt] and, off the diagonal, the j-side sum to
+// P[jt][it], each (3, B) in `part`.  A diagonal tile takes a one-sided sum
+// over all of its pairs.  Arguments as for sym_tile_cross.
+__device__ __forceinline__ void sym_tile_pair(const float4* sj, float* red,
+                                              float4 bi, int it, int jt,
+                                              int T, float* part) {
+  const int B = blockDim.x, t = threadIdx.x;
+  float* pi = part + (size_t(it) * T + jt) * 3 * B;  // P[it][jt]
+  if (it == jt) {  // diagonal tile: one-sided sum over all of its pairs
+    float ax = 0.f, ay = 0.f, az = 0.f;
+    for (int k = 0; k < B; ++k) {
+      const float4 p = sj[k];
+      const float dx = p.x - bi.x, dy = p.y - bi.y, dz = p.z - bi.z;
+      const float w = (bi.w * p.w) * inv_cube(dx, dy, dz);
+      ax += w * dx;
+      ay += w * dy;
+      az += w * dz;
+    }
+    pi[t] = ax;
+    pi[B + t] = ay;
+    pi[2 * B + t] = az;
+    return;  // uniform across the CTA
+  }
+  sym_tile_cross(sj, red, bi, pi, part + (size_t(jt) * T + it) * 3 * B);
 }
 
 // a = (sum_u P[t][u]) / (G m) for body idx of tile t = idx / B, u in order;
@@ -145,14 +159,14 @@ __device__ __forceinline__ float3 sym_reduce(const float* part, float gm,
 // The source loop of a CTA of blockDim (ti, rows), ti * rows =
 // kTiledThreads: thread (tx, ty) sums, for its target (xi, yi, zi), the
 // sources ty*per .. (ty+1)*per - 1 of every tile_j-wide source tile, which
-// the CTA stages in shared memory `src` as float4.  Sources past ns are
-// staged as zero mass and add exactly nothing.  Every thread calls it.
-template <Loads L>
-__device__ __forceinline__ float3 tiled_source_loop(float4* src,
-                                                    const float* pos_s,
-                                                    const float* mass_s, int ns,
-                                                    int tile_j, float xi,
-                                                    float yi, float zi) {
+// the CTA stages in shared memory `src` as float4 (x, y, z, G m) taken from
+// body(j).  Sources past ns are staged as zero mass and add exactly
+// nothing.  Every thread calls it.
+template <class Body>
+__device__ __forceinline__ float3 tiled_source_sweep(float4* src,
+                                                     const Body& body, int ns,
+                                                     int tile_j, float xi,
+                                                     float yi, float zi) {
   const int ty = threadIdx.y, tid = ty * blockDim.x + threadIdx.x;
   const int per = tile_j / blockDim.y;
   const float4* mine = src + ty * per;
@@ -161,8 +175,7 @@ __device__ __forceinline__ float3 tiled_source_loop(float4* src,
     __syncthreads();  // every thread is done with the previous tile
     for (int k = tid; k < tile_j; k += kTiledThreads) {
       const int j = j0 + k;
-      src[k] = j < ns ? load_body<L>(pos_s, mass_s, ns, j)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      src[k] = j < ns ? body(j) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
 #pragma unroll 8
@@ -176,6 +189,19 @@ __device__ __forceinline__ float3 tiled_source_loop(float4* src,
     }
   }
   return make_float3(ax, ay, az);
+}
+
+// tiled_source_sweep over sources held as (3,ns) coordinate rows and (ns,)
+// masses.
+template <Loads L>
+__device__ __forceinline__ float3 tiled_source_loop(float4* src,
+                                                    const float* pos_s,
+                                                    const float* mass_s, int ns,
+                                                    int tile_j, float xi,
+                                                    float yi, float zi) {
+  return tiled_source_sweep(
+      src, [=](int j) { return load_body<L>(pos_s, mass_s, ns, j); }, ns,
+      tile_j, xi, yi, zi);
 }
 
 // The thread rows' partial sums added in a fixed order (deterministic); the
@@ -197,6 +223,45 @@ __device__ __forceinline__ float3 tiled_row_sum(float* part, float3 a) {
     }
   }
   return make_float3(sx, sy, sz);
+}
+
+template <typename T>
+struct Same {
+  using type = T;
+};
+
+// Launch `kernel` cooperatively on a persistent grid of `work` CTAs, or of
+// as many as the card holds at once if that is fewer, rounded down to a
+// multiple of `unit` (a kernel whose CTAs work in groups of `unit`).  The
+// arguments are converted to the kernel's own parameter types.  A card that
+// cannot take the launch returns an error; nothing falls back.  All CTAs
+// of a cooperative launch are resident at once, so they may wait on each
+// other.
+template <typename... Args>
+cudaError_t launch_persistent(void (*kernel)(Args...), int work, int unit,
+                              dim3 block, size_t smem, cudaStream_t stream,
+                              typename Same<Args>::type... args) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, block.x * block.y * block.z, smem);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  const int resident = per_sm * sms / unit * unit;
+  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const dim3 grid(std::min(work, resident));
+  void* argv[] = {static_cast<void*>(&args)...};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     grid, block, argv, smem, stream);
 }
 
 }  // namespace nbt

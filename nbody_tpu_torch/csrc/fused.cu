@@ -58,8 +58,6 @@
 // (columns) per step.
 #include <cooperative_groups.h>
 
-#include <algorithm>
-
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -179,41 +177,6 @@ fused_cols_kernel(float* pos, float* vel, const float* mass, int n,
   }
 }
 
-template <typename T>
-struct Same {
-  using type = T;
-};
-
-// Launch `kernel` cooperatively on a persistent grid of `work` CTAs, or of
-// as many as the card holds at once if that is fewer.  The arguments are
-// converted to the kernel's own parameter types.  A card that cannot take
-// the launch returns an error; nothing falls back.
-template <typename... Args>
-cudaError_t launch_persistent(void (*kernel)(Args...), int work, dim3 block,
-                              size_t smem, cudaStream_t stream,
-                              typename Same<Args>::type... args) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, block.x * block.y * block.z, smem);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const dim3 grid(std::min(work, per_sm * sms));
-  void* argv[] = {static_cast<void*>(&args)...};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                     grid, block, argv, smem, stream);
-}
-
 }  // namespace
 
 // The rows block.  pos (3,n) and vel (3,n) are stepped in place; mass (n,);
@@ -230,8 +193,8 @@ extern "C" int nbt_fused_rows(float* pos, float* vel, const float* mass, int n,
   const size_t smem =
       block * sizeof(float4) + (block / 32) * 3 * block * sizeof(float);
   const Steps st{steps, dt, half, leapfrog};
-  return static_cast<int>(launch_persistent(
-      fused_rows_kernel, T * (T + 1) / 2, dim3(block), smem,
+  return static_cast<int>(nbt::launch_persistent(
+      fused_rows_kernel, T * (T + 1) / 2, 1, dim3(block), smem,
       static_cast<cudaStream_t>(stream), pos, vel, mass, n, partials, queue,
       st));
 }
@@ -249,7 +212,7 @@ extern "C" int nbt_fused_cols(float* pos2, float* vel, const float* mass,
   const dim3 block(tile_i, nbt::kTiledThreads / tile_i);
   const size_t smem = size_t(tile_j) * sizeof(float4);
   const Steps st{steps, dt, half, leapfrog};
-  return static_cast<int>(launch_persistent(
-      fused_cols_kernel, n / tile_i, block, smem,
+  return static_cast<int>(nbt::launch_persistent(
+      fused_cols_kernel, n / tile_i, 1, block, smem,
       static_cast<cudaStream_t>(stream), pos2, vel, mass, n, tile_j, st));
 }

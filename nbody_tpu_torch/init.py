@@ -38,10 +38,11 @@ def reference_init_arrays(n: int, seed: int = 42
 
 
 def make_state(n: int, pad_multiple: int = 1, distribution: str = "reference",
-               seed: int = 42, device="cpu") -> ParticleState:
-    """A state on ``device`` padded with zero-mass particles to a multiple
-    of ``pad_multiple``.  ``distribution``: 'reference' (bit-exact reference
-    ICs, the default), 'plummer' or 'cold_sphere' (models/distributions.py);
-    an unknown name raises ``KeyError``."""
+               seed: int = 42, device=None) -> ParticleState:
+    """A state on ``device`` (None: the card, raising without one, as the
+    JAX package puts it on the accelerator) padded with zero-mass particles
+    to a multiple of ``pad_multiple``.  ``distribution``: 'reference'
+    (bit-exact reference ICs, the default), 'plummer' or 'cold_sphere'
+    (models/distributions.py); an unknown name raises ``KeyError``."""
     pos, vel, mass = make_arrays(distribution, n, seed=seed)
     return pad_state(pos, vel, mass, round_up(n, max(1, pad_multiple)), device)

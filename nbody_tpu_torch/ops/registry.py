@@ -60,11 +60,13 @@ def get(name: str) -> KernelFn:
 
 
 def get_between(name: str) -> KernelFn:
-    """Target/source kernel: fn(pos_tgt, pos_src, mass_src, **opts)."""
+    """Target/source kernel: fn(pos_tgt, pos_src, mass_src, **opts).
+    ``auto`` takes the tiled kernel's, as ``pallas_sym`` does."""
     return _lookup(name)[1]
 
 
 def _lookup(name: str):
+    name = resolve(name)
     try:
         return _REGISTRY[name]
     except KeyError:

@@ -57,6 +57,21 @@ def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
         )
 
 
+def check_tiles(tile_i: int, tile_j: int) -> tuple[int, int]:
+    """The tiles of a sweep over Kernel A's source loop (0: the defaults),
+    or a ValueError: ``tile_i`` a multiple of 32 dividing 256, ``tile_j`` a
+    multiple of 256/tile_i, at most 3072."""
+    ti = tile_i or DEFAULT_TILE_I
+    tj = tile_j or DEFAULT_TILE_J
+    if ti % 32 or THREADS % ti:
+        raise ValueError(f"tile_i={ti} must be a multiple of 32 dividing {THREADS}")
+    if tj % (THREADS // ti) or not 0 < tj <= MAX_TILE_J:
+        raise ValueError(
+            f"tile_j={tj} must be a multiple of {THREADS // ti} in (0, {MAX_TILE_J}]"
+        )
+    return ti, tj
+
+
 def accelerations_between_plain(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
                                  mass_src: torch.Tensor, chunk: int = 1024
                                  ) -> torch.Tensor:
@@ -94,14 +109,7 @@ def accelerations_between(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"tiled kernel runs on cuda or cpu, not {dev}")
     refuse_autograd("tiled kernel", pos_tgt, pos_src, mass_src)
-    ti = tile_i or DEFAULT_TILE_I
-    tj = tile_j or DEFAULT_TILE_J
-    if ti % 32 or THREADS % ti:
-        raise ValueError(f"tile_i={ti} must be a multiple of 32 dividing {THREADS}")
-    if tj % (THREADS // ti) or not 0 < tj <= MAX_TILE_J:
-        raise ValueError(
-            f"tile_j={tj} must be a multiple of {THREADS // ti} in (0, {MAX_TILE_J}]"
-        )
+    ti, tj = check_tiles(tile_i, tile_j)
     out = torch.empty((3, nt), dtype=torch.float32, device=dev)
     if nt == 0 or ns == 0:
         return out.zero_()

@@ -15,6 +15,9 @@ and GFlop/s statistics, print the footer.
 * The statistics replicate the reference's: per-block
   ``gflops*sfreq/block_seconds`` with running mean/stddev that exclude the
   first two sample blocks (ver0/GSimulation.cpp:186-203).
+* ``SimConfig.shards`` > 1 shards the state over K slots of the card (or
+  of the CPU) and runs each block through the comm mode's sharded block
+  (``parallel/decompose.py``); the energy check works on the whole state.
 * ``SimConfig.energy_check`` reports the total-energy (KE + PE) drift over
   the run: E0 is taken before the header and E1 after the footer, both
   outside the clock.
@@ -25,8 +28,9 @@ and GFlop/s statistics, print the footer.
   block a health check re-measures the overflow on the current state and
   warns once, or under ``pm_replan`` grows the plan and rebuilds the blocks.
 
-The JAX engine's autotune, online retune, sharding, checkpoint and ref64
-branches and its periodic mesh are not ported yet (ROADMAP.md queue 1);
+The JAX engine's autotune, online retune, checkpoint and ref64 branches,
+its multi-process runs and sharded mesh solve and its periodic mesh are not
+ported yet (ROADMAP.md queue 1);
 its watchdog branches, the fused block's pair budget and the mesh-step
 estimate among them, are not ported at all (ROADMAP.md "What is not
 ported").
@@ -51,7 +55,6 @@ from .models.gravity import (
     make_fused_block_fn,
     potential_energy,
 )
-from .state import ParticleState
 from .utils import reporting
 from .utils.flops import step_gflops
 from .utils.timer import WallTime
@@ -94,7 +97,9 @@ class _DeviceRunner:
         self.cfg = cfg
         self.device = cfg.device()
         self.accel_fn = make_accel_fn(cfg.kernel, **cfg.kernel_opts())
-        self.state: Optional[ParticleState] = None
+        # A ParticleState, or a ShardedState when cfg.shards > 1.
+        self.state = None
+        self.mesh = None  # the shard mesh when cfg.shards > 1
         self._blocks = {}
         self._sr_health = False  # per-block P3M plan health check
         self._sr_warned = False
@@ -116,7 +121,14 @@ class _DeviceRunner:
     def _block_for(self, steps: int):
         if steps not in self._blocks:
             cfg = self.cfg
-            if cfg.fused:
+            if self.mesh is not None:
+                from .parallel.decompose import make_sharded_block_fn
+
+                self._blocks[steps] = make_sharded_block_fn(
+                    cfg.kernel, cfg.kernel_opts(), cfg.dt, steps, self.mesh,
+                    comm=cfg.comm, integrator=cfg.integrator,
+                )
+            elif cfg.fused:
                 self._blocks[steps] = make_fused_block_fn(
                     cfg.dt, steps, tile_i=cfg.tile_i, tile_j=cfg.tile_j,
                     integrator=cfg.integrator,
@@ -157,6 +169,12 @@ class _DeviceRunner:
             cfg.resolve_sr_plan(self.state.pos, self.state.mass)
             self._sr_health = cfg.nsteps > 0
             self.accel_fn = make_accel_fn(cfg.kernel, **cfg.kernel_opts())
+        if cfg.shards > 1:
+            from .parallel.decompose import shard_state
+            from .parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(cfg.shards, [self.device] * cfg.shards)
+            self.state, _ = shard_state(self.state, cfg.shards, self.mesh)
         # Warm-up: builds the kernels at first use and runs one block; the
         # block does not touch its input, so the state stays as it was.
         _, ke = self._block_for(min(cfg.sfreq, cfg.nsteps))(self.state)
@@ -236,9 +254,14 @@ class _DeviceRunner:
         return float(ke)
 
     def total_energy(self) -> float:
-        """KE + PE of the current state (zero-mass padding adds nothing)."""
-        return float(kinetic_energy(self.state)) + float(
-            potential_energy(self.state))
+        """KE + PE of the current state (zero-mass padding adds nothing),
+        on the whole state when it is sharded."""
+        state = self.state
+        if self.mesh is not None:
+            from .parallel.decompose import unshard_state
+
+            state = unshard_state(state)
+        return float(kinetic_energy(state)) + float(potential_energy(state))
 
 
 def run(cfg: SimConfig, out=None, quiet: bool = False) -> RunResult:
@@ -293,7 +316,7 @@ def _run_prepared(runner: _DeviceRunner, cfg: SimConfig, out,
     else:
         av = dev = float("nan")
 
-    nthreads = 1
+    nthreads = cfg.shards
     emit(reporting.footer(nthreads, total, av, dev), out)
     result = RunResult(samples, total, av, dev, nthreads,
                        device=runner.device_name())
@@ -325,8 +348,9 @@ class Simulation:
 
     def init_mpi(self) -> None:
         """The reference's ``init_mpi()`` (ver5_all/GSimulation.cpp:93-115).
-        One process on one card: prints the banner and nothing more (the
-        particle decomposition is ROADMAP.md queue 1 item 11)."""
+        One process: prints the banner and nothing more.  ``--shards``
+        shards the state inside this process; the multi-process bootstrap
+        over ``torch.distributed`` is ROADMAP.md queue 1 item 11(b)."""
         self._print_banner_once()
 
     def set_number_of_particles(self, n: int) -> None:

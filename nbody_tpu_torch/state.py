@@ -30,11 +30,26 @@ def round_up(x: int, multiple: int) -> int:
     return -(-x // multiple) * multiple
 
 
+def device_or_card(device=None) -> torch.device:
+    """``device``, or the current CUDA card when it is None.  A missing card
+    raises instead of falling back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; the CPU path runs only on request "
+            "(--platform cpu, SimConfig(platform='cpu') or the 'cpu' "
+            "device token)"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def from_numpy(pos: np.ndarray, vel: np.ndarray, mass: np.ndarray, n: int,
-               device="cpu") -> ParticleState:
+               device=None) -> ParticleState:
     """Wrap host arrays, such as a JAX state fetched with ``np.asarray``,
-    as a state on ``device``.  The arrays are copied; padding beyond ``n``
-    is kept as it is."""
+    as a state on ``device`` (None: the card).  The arrays are copied;
+    padding beyond ``n`` is kept as it is."""
+    device = device_or_card(device)
 
     def put(a):
         return torch.tensor(np.asarray(a, np.float32), dtype=torch.float32,
@@ -44,9 +59,9 @@ def from_numpy(pos: np.ndarray, vel: np.ndarray, mass: np.ndarray, n: int,
 
 
 def pad_state(pos: np.ndarray, vel: np.ndarray, mass: np.ndarray,
-              n_padded: int, device="cpu") -> ParticleState:
+              n_padded: int, device=None) -> ParticleState:
     """Pad host SoA arrays to ``n_padded`` with zero-mass particles and put
-    them on ``device`` (``nbody_tpu.state.pad_state``).
+    them on ``device`` (None: the card; ``nbody_tpu.state.pad_state``).
 
     Padded particles sit on a far-away diagonal line so they never coincide
     with real particles."""

@@ -53,6 +53,12 @@ SIGNATURES = {
     # ptab, mtab, nslots, wl_t, wl_s, e_max, bounds, rc2, fwd, react,
     # symmetric, paired, stream
     "nbt_sr_sweep": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
+    # pos_t, mass_t, nt, pos_s, mass_s, ns, block, part_t, part_s, out_t,
+    # out_s, stream
+    "nbt_two_sided": (_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    # pos, mass, out, slots (host arrays of k device pointers), k, nl,
+    # flags, tile_i, tile_j, stream
+    "nbt_ring_accel": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P),
 }
 
 

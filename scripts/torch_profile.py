@@ -28,10 +28,12 @@ env for the mesh tiers) and prints:
   plan.
 
 The cells: the exact path at N=2000 and N=16384 (``auto``, and the fused
-rows block at N=16384), 50-step blocks; P3M on the Plummer sphere of the
-JAX package's gate (N=262144, seed 7, ng=128, cutoff 4), 8-step blocks;
-P3M and PM on the reference initial conditions at N=1048576, 4-step
-blocks.  Each cell is built by the engine (``simulation._DeviceRunner``:
+rows block at N=16384), 50-step blocks; the particle decomposition at
+N=2000 and N=16384 over 4 virtual shards of the card in each comm mode
+(``allgather``, ``ring``, ``ring_sym``, ``rdma``) and ``rdma`` over 3 at
+N=2000, 50-step blocks; P3M on the Plummer sphere of the JAX package's
+gate (N=262144, seed 7, ng=128, cutoff 4), 8-step blocks; P3M and PM on
+the reference initial conditions at N=1048576, 4-step blocks.  Each cell is built by the engine (``simulation._DeviceRunner``:
 its state, P3M plan, mesh env and blocks).  The first line is the card's
 name and power limit.  Needs a CUDA card; imports nothing of JAX.
 """
@@ -258,6 +260,12 @@ def main() -> int:
             ("N=2000 auto", 50, dict(n=2000)),
             ("N=16384 auto", 50, dict(n=16384)),
             ("N=16384 fused rows", 50, dict(n=16384, fused=True)),
+            *((f"N={n} shards={k} {comm}", 50, dict(n=n, shards=k,
+                                                     comm=comm))
+              for n, k, comm in (
+                  *((n, 4, c) for n in (2000, 16384)
+                    for c in ("allgather", "ring", "ring_sym", "rdma")),
+                  (2000, 3, "rdma"))),
             ("p3m plummer N=262144", 8, dict(n=262144, kernel="p3m",
                                               distribution="plummer", seed=7)),
             ("p3m reference N=1048576", 4, dict(n=1048576, kernel="p3m")),

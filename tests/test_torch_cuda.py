@@ -14,6 +14,7 @@ plain sweep (tests/test_grad.py); the P3M short-range sweep at 2e-5 of the
 largest occupied slot, as tests/test_p3m.py holds the Pallas sweep against
 the plain one, and the mesh tiers at 1e-4 relative norm against the JAX
 package's accelerations in tests/golden/torch_p3m_plummer_n16384.npz.
+The sharded modes hold the n256_s100 golden trace at %.5g.
 """
 
 import os
@@ -37,6 +38,8 @@ from nbody_tpu_torch.ops import (
     tiled_kernel,
     vjp_kernel,
 )
+from nbody_tpu_torch.parallel import make_mesh, ring_kernel
+from nbody_tpu_torch.parallel.decompose import shard_state
 from nbody_tpu_torch.simulation import run
 from nbody_tpu_torch.utils.reporting import parse_trace
 
@@ -216,6 +219,9 @@ def test_kernels_refuse_inputs_that_require_grad(cuda_device):
         lambda: sym_kernel.accelerations(pos, st.mass),
         lambda: fused_block.fused_block(pos, st.vel, st.mass, 0.1, 2),
         lambda: vjp_kernel.force_vjp(pos, st.mass, st.pos),
+        lambda: sym_kernel.accelerations_two_sided(pos, st.mass, st.pos,
+                                                   st.mass),
+        lambda: ring_kernel.ring_accelerations([pos], [st.mass]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError,
@@ -338,3 +344,60 @@ def test_sr_kernel_refuses_inputs_that_require_grad(cuda_device):
     with pytest.raises(RuntimeError, match="differentiable=True"):
         sr_kernel.sweep(ptab, pk["mtab"], pk["wl_t"], pk["wl_s"], bounds,
                         pk["rc2"])
+
+
+@pytest.mark.parametrize("nt_real,nt,ns_real,ns", [
+    (4096, 4096, 4000, 4096), (3000, 4096, 1000, 2048), (256, 256, 512, 512)])
+def test_two_sided_kernel_matches_plain(cuda_device, nt_real, nt, ns_real, ns):
+    a = make_state(nt_real, pad_multiple=nt, seed=1, device=cuda_device)
+    b = make_state(ns_real, pad_multiple=ns, seed=2, device=cuda_device)
+    args = (a.pos, a.mass, b.pos, b.mass)
+    before = sym_kernel.two_sided_launches
+    t, s = sym_kernel.accelerations_two_sided(*args)
+    t2, s2 = sym_kernel.accelerations_two_sided(*args)
+    assert sym_kernel.two_sided_launches == before + 2
+    tp, sp = sym_kernel.accelerations_two_sided_plain(*args)
+    assert _rel(t, tp) <= 1e-5 and _rel(s, sp) <= 1e-5
+    assert torch.equal(t, t2) and torch.equal(s, s2)
+    assert torch.all(t[:, nt_real:] == 0) and torch.all(s[:, ns_real:] == 0)
+
+
+@pytest.mark.parametrize("n,k", [(4096, 1), (4096, 2), (4096, 3), (4096, 4),
+                                 (4096, 8), (65536, 8)])
+def test_ring_kernel_matches_plain(cuda_device, n, k):
+    """At N=65536, K=8 the group's CTAs own several target tiles each."""
+    st = make_state(n, pad_multiple=64 * k, device=cuda_device)
+    sharded, _ = shard_state(st, k, make_mesh(k))
+    pos, mass = list(sharded.pos), list(sharded.mass)
+    before = ring_kernel.launches
+    got = ring_kernel.ring_accelerations(pos, mass)
+    again = ring_kernel.ring_accelerations(pos, mass)
+    assert ring_kernel.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    whole = torch.cat(got, dim=1)
+    assert _rel(whole, tiled_kernel.accelerations(st.pos, st.mass)) <= 1e-5
+    if n <= 4096:
+        plain = torch.cat(ring_kernel.ring_accelerations_plain(pos, mass), 1)
+        assert _rel(whole, plain) <= 1e-5
+
+
+@pytest.mark.parametrize("comm,k", [("allgather", 4), ("ring", 4),
+                                    ("ring_sym", 4), ("rdma", 4),
+                                    ("ring_sym", 3), ("rdma", 3)])
+def test_sharded_golden_trace_on_card(cuda_device, comm, k):
+    with open(os.path.join(GOLDEN, "ver0_n256_s100.txt")) as f:
+        golden = parse_trace(f.read())
+    mods = (tiled_kernel, sym_kernel, ring_kernel)
+    for mod in mods:
+        mod.launches = 0
+    sym_kernel.two_sided_launches = 0
+    res = run(SimConfig(n=256, nsteps=100, shards=k, comm=comm), quiet=True)
+    assert [(s, f"{ke:.5g}") for s, ke in res.kenergy_trace] == golden
+    counts = tuple(m.launches for m in mods) + (sym_kernel.two_sided_launches,)
+    steps = 150  # 100 and the warm-up block's 50
+    pairs = k * ((k - 1) // 2) + (k // 2 if k % 2 == 0 else 0)
+    want = {"allgather": (k * steps, 0, 0, 0),
+            "ring": (k * k * steps, 0, 0, 0),
+            "ring_sym": (0, k * steps, 0, pairs * steps),
+            "rdma": (0, 0, steps, 0)}[comm]
+    assert counts == want

@@ -56,7 +56,8 @@ def test_unknown_distribution():
 
 @pytest.mark.parametrize("name", ["plummer", "cold_sphere"])
 def test_make_state_pads_the_family(name):
-    st = make_state(100, pad_multiple=128, distribution=name, seed=5)
+    st = make_state(100, pad_multiple=128, distribution=name, seed=5,
+                    device="cpu")
     pos, vel, mass = distributions.make_arrays(name, 100, seed=5)
     assert st.n == 100 and st.pos.shape == (3, 128)
     assert np.array_equal(st.pos[:, :100].numpy(), pos)
@@ -66,12 +67,13 @@ def test_make_state_pads_the_family(name):
 
 
 def test_potential_energy_matches_jax():
-    st = make_state(2000)
+    st = make_state(2000, device="cpu")
     ours = float(potential_energy(st))
     theirs = float(jax_pe(jax_make_state(2000)))
     assert abs(ours - theirs) <= 1e-5 * abs(theirs)
     # zero-mass padding adds nothing
-    padded = float(potential_energy(make_state(2000, pad_multiple=2048)))
+    padded = float(potential_energy(make_state(2000, pad_multiple=2048,
+                                               device="cpu")))
     assert abs(padded - ours) <= 1e-6 * abs(ours)
     # chunking only regroups the sum
     assert abs(float(potential_energy(st, chunk=300)) - ours) <= 1e-6 * abs(ours)

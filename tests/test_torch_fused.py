@@ -47,7 +47,7 @@ def _seeded_state(n, seed):
     mass = (np.float32(n) * rng.random(n, dtype=np.float32)).astype(np.float32)
     jst = JaxState(pos=jnp.asarray(pos), vel=jnp.asarray(vel),
                    mass=jnp.asarray(mass), n=n)
-    return jst, from_numpy(pos, vel, mass, n)
+    return jst, from_numpy(pos, vel, mass, n, device="cpu")
 
 
 # (steps, tiling and integrator, layout the port must take)
@@ -110,7 +110,8 @@ def test_fused_zero_steps_and_padding():
     # Zero-mass padding stays exactly at rest.
     from nbody_tpu_torch.state import pad_state
 
-    pad = pad_state(st.pos.numpy(), st.vel.numpy(), st.mass.numpy(), 256)
+    pad = pad_state(st.pos.numpy(), st.vel.numpy(), st.mass.numpy(), 256,
+                    device="cpu")
     pos, vel = fused_block.fused_block(pad.pos, pad.vel, pad.mass, 0.1, 4)
     assert torch.all(vel[:, 200:] == 0.0)
     assert torch.equal(pos[:, 200:], pad.pos[:, 200:])

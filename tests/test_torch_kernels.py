@@ -110,7 +110,7 @@ def test_padded_columns_exactly_zero():
 
 
 def test_sym_reference_state_matches_jax_sym():
-    st = make_state(2000, pad_multiple=128)  # the N=2000 -> 2048 case
+    st = make_state(2000, pad_multiple=128, device="cpu")  # 2000 -> 2048
     ref = jax_sym.accelerations(jnp.asarray(st.pos.numpy()),
                                 jnp.asarray(st.mass.numpy()), block=1024,
                                 interpret=True)
@@ -160,7 +160,8 @@ def test_sym_scratch_budget():
 
 def test_build_layout():
     srcs = [p.name for p in build.sources()]
-    assert srcs == ["fused.cu", "sr.cu", "sym.cu", "tiled.cu", "vjp.cu"]
+    assert srcs == ["fused.cu", "ring.cu", "sr.cu", "sym.cu", "tiled.cu",
+                    "two_sided.cu", "vjp.cu"]
     path = build.library_path()
     assert path.name == "libnbody_kernels.so"
     assert path.parent.parent == build.BUILD_DIR

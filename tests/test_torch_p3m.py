@@ -198,7 +198,7 @@ def test_p3m_between_equals_self_and_padding():
     a_copy = pm.p3m_accelerations_between(p.clone(), p, m, grid=32,
                                           capacity=64)
     assert _rel(a_copy.numpy(), a_self.numpy()) <= 1e-4
-    st = make_state(1000, pad_multiple=256)  # zero-mass padding to 1024
+    st = make_state(1000, pad_multiple=256, device="cpu")  # padded to 1024
     full = pm.p3m_accelerations(st.pos, st.mass, grid=32, capacity=64)
     real = pm.p3m_accelerations(st.pos[:, :1000].contiguous(),
                                 st.mass[:1000].contiguous(), grid=32,

@@ -144,7 +144,7 @@ def test_pm_momentum_and_padding():
     a = pm.accelerations(_t(pos), _t(mass), grid=32).numpy()
     flux = np.abs((mass[None, :] * a).sum(axis=1))
     assert np.all(flux < 2e-6 * np.abs(mass[None, :] * a).sum())
-    st = make_state(1000, pad_multiple=256)  # zero-mass padding to 1024
+    st = make_state(1000, pad_multiple=256, device="cpu")  # padded to 1024
     full = pm.accelerations(st.pos, st.mass, grid=32)
     real = pm.accelerations(st.pos[:, :1000].contiguous(),
                             st.mass[:1000].contiguous(), grid=32)

@@ -101,7 +101,7 @@ def test_remat_changes_no_bit(integrator):
 @pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
 def test_rollout_is_the_engine_step(integrator):
     # The same step as the simulation's block, so the same bits.
-    st = make_state(100)
+    st = make_state(100, device="cpu")
     accel = make_accel_fn("naive")
     out = rollout_state(make_rollout_fn(accel, DT, 7, integrator, remat=False),
                         st)
@@ -118,7 +118,7 @@ def test_rollout_refuses_unknown_integrator():
 def test_first_order_velocity_gradient():
     # d p_x / d v_x after k Euler steps is k*dt to leading order in the
     # weak-force regime (tests/test_grad.py::test_grad_through_trajectory).
-    st = make_state(256)
+    st = make_state(256, device="cpu")
     ro = make_rollout_fn(make_accel_fn("naive", differentiable=True), DT, 5)
     vel = torch.zeros_like(st.vel, requires_grad=True)
     ro(st.pos, vel, st.mass)[0][0].sum().backward()

@@ -47,7 +47,7 @@ def _seeded_state(n, seed):
     mass = (np.float32(n) * rng.random(n, dtype=np.float32)).astype(np.float32)
     jst = JaxState(pos=jnp.asarray(pos), vel=jnp.asarray(vel),
                    mass=jnp.asarray(mass), n=n)
-    return jst, from_numpy(pos, vel, mass, n)
+    return jst, from_numpy(pos, vel, mass, n, device="cpu")
 
 
 @pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
@@ -148,7 +148,7 @@ def test_cli_in_process(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--pm-box", "1.0"], "queue 1 item 9"),
-    (["--shards", "4"], "queue 1 item 11"),
+    (["--checkpoint-every", "2"], "queue 1 item 12"),
     (["--autotune"], "queue 1 item 12"),
     (["--precision", "bf16"], "queue 1 item 4"),
     (["--save-state", "state.npz"], "queue 1 item 12"),

@@ -74,7 +74,7 @@ def test_other_seed_matches_jax_reference_distribution():
 
 def test_pad_state_matches_jax_and_round_trips():
     st_jax = jax_init.make_state(100, pad_multiple=64)
-    ours = make_state(100, pad_multiple=64)
+    ours = make_state(100, pad_multiple=64, device="cpu")
     assert ours.n == 100 and ours.n_padded == 128 == round_up(100, 64)
     for name in ("pos", "vel", "mass"):
         assert np.array_equal(getattr(ours, name).numpy(),
@@ -82,13 +82,14 @@ def test_pad_state_matches_jax_and_round_trips():
     assert torch.all(ours.mass[100:] == 0) and torch.all(ours.vel[:, 100:] == 0)
     # carry-across: the JAX state's arrays, as numpy, become the port's state
     carried = from_numpy(np.asarray(st_jax.pos), np.asarray(st_jax.vel),
-                         np.asarray(st_jax.mass), st_jax.n)
+                         np.asarray(st_jax.mass), st_jax.n, device="cpu")
     host = to_host(carried)
     pos, vel, mass = reference_init_arrays(100)
     assert host["n"] == 100
     assert np.array_equal(host["pos"], pos) and np.array_equal(host["vel"], vel)
     assert np.array_equal(host["mass"], mass)
-    again = pad_state(host["pos"], host["vel"], host["mass"], 128)
+    again = pad_state(host["pos"], host["vel"], host["mass"], 128,
+                      device="cpu")
     assert torch.equal(again.pos, carried.pos) and torch.equal(again.mass, carried.mass)
 
 
@@ -96,7 +97,7 @@ def test_make_state_refuses_unported_distribution():
     # Every family of the JAX package is ported; a name it does not have
     # is refused by name.
     with pytest.raises(KeyError, match="unknown distribution 'gaussian'"):
-        make_state(10, distribution="gaussian")
+        make_state(10, distribution="gaussian", device="cpu")
 
 
 @pytest.mark.parametrize("kw,exc,match", [
@@ -108,6 +109,12 @@ def test_make_state_refuses_unported_distribution():
     (dict(kernel="bogus"), ValueError, "unknown kernel"),
     (dict(platform="tpu"), ValueError, "unknown platform"),
     (dict(n=0), ValueError, "n must be"),
+    (dict(shards=0), ValueError, "shards must be"),
+    (dict(shards=2, fused=True), ValueError, "--fused"),
+    (dict(comm="mpi"), ValueError, "unknown comm"),
+    (dict(shards=2, kernel="p3m"), NotImplementedError, "queue 1 item 11"),
+    (dict(shards=2, kernel="pm", comm="ring"), ValueError,
+     "only --comm allgather"),
 ])
 def test_config_refuses(kw, exc, match):
     with pytest.raises(exc, match=match):
@@ -149,7 +156,8 @@ def test_table_byte_equal_to_jax():
 def test_import_leaves_jax_out():
     code = ("import sys, nbody_tpu_torch, nbody_tpu_torch.__main__; "
             "import nbody_tpu_torch.ops.registry, nbody_tpu_torch.ops.pm, "
-            "nbody_tpu_torch.ops.sr_kernel; "
+            "nbody_tpu_torch.ops.sr_kernel, nbody_tpu_torch.parallel.decompose, "
+            "nbody_tpu_torch.parallel.ring_kernel; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'nbody_tpu.'))); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -159,6 +167,6 @@ def test_import_leaves_jax_out():
 
 
 def test_state_dtype_matches_jax():
-    st = make_state(16)
+    st = make_state(16, device="cpu")
     assert st.pos.dtype == st.vel.dtype == st.mass.dtype == torch.float32
     assert np.asarray(jax_init.make_state(16).pos).dtype == jnp.float32
