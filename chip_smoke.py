@@ -112,6 +112,41 @@ Phases, each printing what it found; any failure exits non-zero:
     ``shards=8`` for ``ring_sym`` and ``rdma``, GFLOP/s beside the
     single-device ``auto`` figure of phase 5.  Virtual shards on one card
     move no bytes over a link.
+18. The scratch repair: one Kernel B call at N=1048576 (reference initial
+    conditions, block 128), whose 103 GB of partials are swept in bands
+    within 1/8 of the card's memory: prints the bands and
+    ``torch.cuda.max_memory_allocated``, must agree with Kernel A on the
+    same state within 1e-5 relative norm and repeat bit for bit.  Then
+    banded sweeps under a lowered budget against the one-band sweep, bit
+    for bit: Kernel B at N=16384 and the two-sided sweep at 4096 x 4096.
+19. ``pallas_mxu``: the mxu kernel against its plain version at N=2048,
+    N=16384 and N=2000 unpadded (<= 1e-5 relative norm), against naive and
+    a float64 sweep (L2 < 1e-4, the JAX package's bound); two launches
+    repeat bit for bit; the unpadded N=2000 sweep gives the real targets
+    exactly what the sweep padded to 2048 gives; it refuses inputs that
+    require grad; the between form at one shard's shapes of N=2000 over 4
+    shards, 500 x 2000 (``allgather``) and 500 x 500 (``ring``), within
+    1e-5 of its plain version.  ``run(SimConfig(n=2000, nsteps=500,
+    kernel="pallas_mxu"))`` must launch it 550 times and no other kernel,
+    with every kinetic-energy row within 1e-4 of the golden trace (printing
+    whether they are equal at %.5g); the same at ``shards=4`` with
+    ``allgather`` (4 launches a step) and ``ring`` (16).  N=16384 for 500
+    steps prints its GFLOP/s beside ``auto``'s, and the per-call time of
+    the kernel, its plain version and Kernel A at N=16384 (CUDA events).
+20. bf16: Kernels A and B at N=16384 and N=131072 and the two-sided sweep
+    at 4096 x 4096 with bf16-rounded deltas against their bf16 plain
+    versions (<= 1e-5), bit for bit over two launches, momentum conserved
+    in Kernel B's result, and their per-call times at N=16384;
+    ``run(SimConfig(n=131072, nsteps=100, sfreq=10, precision="bf16"))``
+    through ``auto`` (Kernel B) and ``kernel="pallas"``: each launches its
+    kernel 110 times (100 steps and the 10-step warm-up) and the other
+    kernel never, every kinetic-energy row differs from the f32 run of the
+    same configuration and lies within 1e-4 of it; GFLOP/s of both
+    precisions.  Then N=2000/500 at ``shards=4, comm="ring_sym"`` in bf16
+    beside f32: 2200 Kernel B and 3300 two-sided launches in each, no other
+    kernel, and the same gate on the kinetic-energy rows.
+
+Each phase's seconds are printed after it.
 
 The last lines are the card's name and power limit, a JSON object of the
 kernels with their bounds, and ``{"ok": true, "device": {...}}``.  Imports
@@ -165,12 +200,43 @@ OPS_SYM = 27  # per unordered pair: 3 sub, 6 for |d|^2 + eps^2, sqrt,
 OPS_VJP = 45  # csrc/vjp.cu's note
 OPS_SR = 31  # 3 sub, 5 |d|^2, eps, rsqrt, 3 clamp, 7 taper, 4 weight, 1 mass, 3 FMA
 OPS_SR_REACTION = 7  # the symmetric layouts: target mass, 3 products, 3 adds
+# The mxu kernel's function at its least work: both K=8 products of the
+# |r|^2 expansion on the tensor cores with a 3xTF32 split, 3 x (16 + 16)
+# flops a pair at the H100 SXM's TF32 rate (NVIDIA's data sheet), and the
+# rest on the fp32 pipes: the clamp, sqrt, divide, two for the cube and one
+# for G m.
+TF32_RATE = 495e12
+OPS_MXU_TENSOR = 3 * (16 + 16)
+OPS_MXU_FP32 = 6
+MXU_TOL = 1e-4  # tests/test_kernels.py:133-143, against naive and float64
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
     """(bound_ms, bound_by) for ``ops`` fp32 operations and ``nbytes``."""
     t_ops, t_bytes = ops / FP32_RATE * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_mxu(pairs: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) of the mxu function over ``pairs`` ordered
+    pairs: the largest of its tensor-core time, its fp32 time and its
+    bytes' time."""
+    t_ops = max(OPS_MXU_TENSOR * pairs / TF32_RATE,
+                OPS_MXU_FP32 * pairs / FP32_RATE) * 1e3
+    t_bytes = nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+class Laps:
+    """Prints the seconds since the last call (or since it was made)."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, phases: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {phases}: {now - self.t:.1f} s", flush=True)
+        self.t = now
 
 
 def fail(msg: str) -> None:
@@ -509,6 +575,318 @@ def sharded_phases(dev, tag: str, err: dict, ms: dict, launches: dict,
               flush=True)
 
 
+def repair_phases(dev, tag: str) -> None:
+    """Phase 18: Kernel B's and the two-sided sweep's banded partials."""
+    import torch
+
+    from nbody_tpu_torch import make_state
+    from nbody_tpu_torch.ops import sym_kernel, tiled_kernel
+
+    n, b = N_UNIFORM, sym_kernel.DEFAULT_BLOCK
+    st = make_state(n, device=dev)
+    budget = sym_kernel.device_budget(dev)
+    band = sym_kernel.sym_band(n, b, budget)
+    bands = -(-(n // b) // band)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    got = sym_kernel.accelerations(st.pos, st.mass)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    again = sym_kernel.accelerations(st.pos, st.mass)
+    ref = tiled_kernel.accelerations(st.pos, st.mass)
+    torch.cuda.synchronize()
+    rel = rel_err(got, ref)
+    print(f"sym N={n} block {b}: all partials {sym_kernel.scratch_bytes(n, b)} "
+          f"bytes; {bands} bands of {band} tiles within {budget} bytes; "
+          f"max_memory_allocated {peak} bytes ({peak - base} above the "
+          f"state); {secs:.3f} s a call; vs Kernel A {rel:.3e}; auto would "
+          f"take {'Kernel B' if sym_kernel.fits(n, b, dev) else 'Kernel A'} "
+          f"{tag}", flush=True)
+    if not torch.isfinite(got).all():
+        fail(f"sym N={n}: non-finite accelerations")
+    if rel > REL_TOL:
+        fail(f"sym N={n} disagrees with Kernel A")
+    if not torch.equal(got, again):
+        fail(f"sym N={n}: two calls differ")
+    if peak - base > budget + 3 * 4 * n:
+        fail(f"sym N={n}: {peak - base} bytes above the state, over the "
+             f"budget")
+    del st, got, again, ref
+    st = make_state(16384, device=dev)
+    one = sym_kernel.accelerations(st.pos, st.mass)
+    for r in (1, 7, 40):
+        banded = sym_kernel.accelerations(
+            st.pos, st.mass, scratch_budget=sym_kernel.band_bytes(16384, b, r))
+        if not torch.equal(banded, one):
+            fail(f"sym N=16384 in bands of {r} differs from one band")
+    a = make_state(4096, seed=1, device=dev)
+    c = make_state(4096, seed=2, device=dev)
+    args = (a.pos, a.mass, c.pos, c.mass)
+    one = sym_kernel.accelerations_two_sided(*args)
+    for r in (1, 5):
+        banded = sym_kernel.accelerations_two_sided(
+            *args, scratch_budget=24 * r * 4096)
+        if not all(torch.equal(x, y) for x, y in zip(banded, one)):
+            fail(f"two-sided 4096 x 4096 in bands of {r} differs from one "
+                 "band")
+    print("banded sweeps: Kernel B at N=16384 in bands of 1, 7 and 40 tiles "
+          "and the two-sided sweep at 4096 x 4096 in bands of 1 and 5 equal "
+          "the one-band sweeps bit for bit", flush=True)
+
+
+def mxu_phases(dev, tag: str, err: dict, ms: dict, launches: dict,
+               golden: list, gf: dict) -> None:
+    """Phase 19: ``--kernel pallas_mxu``; fills ``err``, ``ms`` and
+    ``launches``."""
+    import torch
+
+    from nbody_tpu_torch import SimConfig, make_state, run
+    from nbody_tpu_torch.ops import (
+        fused_block,
+        mxu_kernel,
+        naive,
+        sym_kernel,
+        tiled_kernel,
+        vjp_kernel,
+    )
+    from nbody_tpu_torch.parallel import ring_kernel
+    from nbody_tpu_torch.utils.reporting import _g5
+
+    err["mxu"] = 0.0
+    got = {}
+    for n, n_pad in ((2048, 2048), (16384, 16384), (2000, 2000),
+                     (2000, 2048)):
+        st = make_state(n, pad_multiple=n_pad, device=dev)
+        a = mxu_kernel.accelerations(st.pos, st.mass)
+        again = mxu_kernel.accelerations(st.pos, st.mass)
+        plain = mxu_kernel.accelerations_between_plain(st.pos, st.pos, st.mass)
+        ref = naive.accelerations(st.pos, st.mass)
+        f64 = naive.accelerations(st.pos.double(), st.mass.double())
+        torch.cuda.synchronize()
+        got[n_pad] = a
+        real = slice(0, n)
+        rp = rel_err(a[:, real], plain[:, real])
+        rn, rf = rel_err(a[:, real], ref[:, real]), rel_err(a[:, real],
+                                                           f64[:, real])
+        rpf = rel_err(plain[:, real], f64[:, real])
+        err["mxu"] = max(err["mxu"], float((a - plain)[:, real].abs().max()))
+        print(f"mxu N={n} (padded {n_pad}): vs plain {rp:.3e}; vs naive "
+              f"{rn:.3e}, vs float64 {rf:.3e} (plain vs float64 {rpf:.3e})",
+              flush=True)
+        if not torch.isfinite(a).all():
+            fail(f"mxu kernel: non-finite accelerations at N={n}")
+        if rp > REL_TOL:
+            fail(f"mxu kernel disagrees with its plain version at N={n}")
+        if max(rn, rf) >= MXU_TOL:
+            fail(f"mxu kernel: field error over {MXU_TOL} at N={n}")
+        if not torch.equal(a, again):
+            fail(f"mxu kernel: two launches at N={n} differ")
+    if not torch.equal(got[2000], got[2048][:, :2000]):
+        fail("mxu kernel: the padded sweep changed the real targets")
+    print("mxu: repeats bit for bit; unpadded N=2000 == padded to 2048 on the "
+          "real targets exactly", flush=True)
+    st = make_state(256, device=dev)
+    p = st.pos.clone().requires_grad_(True)
+    try:
+        mxu_kernel.accelerations(p, st.mass)
+    except RuntimeError as e:
+        if "differentiable=True" not in str(e):
+            raise
+    else:
+        fail("mxu kernel accepted inputs that require grad")
+    print("mxu kernel refuses inputs that require grad", flush=True)
+    # The between form at the shapes the sharded main paths give it: one
+    # 500-target shard of N=2000 against all sources (allgather) and against
+    # one source shard (ring).
+    st = make_state(2000, device=dev)
+    for ns in (2000, 500):
+        tgt = st.pos[:, 1000:1500].contiguous()
+        src, m = st.pos[:, :ns].contiguous(), st.mass[:ns].contiguous()
+        a = mxu_kernel.accelerations_between(tgt, src, m)
+        again = mxu_kernel.accelerations_between(tgt, src, m)
+        plain = mxu_kernel.accelerations_between_plain(tgt, src, m)
+        torch.cuda.synchronize()
+        rp = rel_err(a, plain)
+        err["mxu"] = max(err["mxu"], float((a - plain).abs().max()))
+        print(f"mxu between 500 x {ns}: vs plain {rp:.3e}", flush=True)
+        if not torch.isfinite(a).all():
+            fail(f"mxu between 500 x {ns}: non-finite accelerations")
+        if rp > REL_TOL:
+            fail(f"mxu between 500 x {ns} disagrees with its plain version")
+        if not torch.equal(a, again):
+            fail(f"mxu between 500 x {ns}: two launches differ")
+
+    # The main path through the mxu kernel, alone and sharded.
+    counters = (mxu_kernel, tiled_kernel, sym_kernel, fused_block, vjp_kernel,
+                ring_kernel)
+    gold = [float(ke) for _, ke in golden]
+    for shards, comm, per_step in ((1, "allgather", 1), (4, "allgather", 4),
+                                   (4, "ring", 16)):
+        for mod in counters:
+            mod.launches = 0
+        sym_kernel.two_sided_launches = 0
+        res = run(SimConfig(n=2000, nsteps=500, kernel="pallas_mxu",
+                            shards=shards, comm=comm), quiet=shards > 1,
+                  out=sys.stdout)
+        counts = tuple(m.launches for m in counters) + (
+            sym_kernel.two_sided_launches,)
+        want = (550 * per_step,) + (0,) * 6
+        kes = [ke for _, ke in res.kenergy_trace]
+        worst = max(abs(k - g) / abs(g) for k, g in zip(kes, gold))
+        same = [(s, _g5(ke)) for s, ke in res.kenergy_trace] == golden
+        label = "alone" if shards == 1 else f"shards={shards} comm={comm}"
+        print(f"mxu main path {label}: mxu/tiled/sym/fused/vjp/ring/two-sided "
+              f"launches {counts}; KE rows vs golden: largest relative "
+              f"difference {worst:.3e}, all equal at %.5g: {same}; "
+              f"{res.av:.6g} +- {res.dev:.6g} GFLOP/s {tag}", flush=True)
+        if counts != want:
+            fail(f"mxu run {label} launches {counts} != {want}")
+        if len(kes) != len(gold) or worst > MXU_TOL:
+            fail(f"mxu run {label}: KE rows over {MXU_TOL} from golden")
+        if shards == 1:
+            launches["mxu"] = counts[0]
+    n = 16384
+    res = run(SimConfig(n=n, nsteps=500, kernel="pallas_mxu"), quiet=True)
+    kes = [ke for _, ke in res.kenergy_trace]
+    if len(kes) != 10 or not all(math.isfinite(k) and k > 0 for k in kes):
+        fail(f"mxu N={n} energies not finite and positive: {kes}")
+    gf[f"{n} pallas_mxu"] = (res.av, res.dev)
+    print(f"N={n} 500 steps pallas_mxu: {res.av:.6g} +- {res.dev:.6g} GFLOP/s "
+          f"(29N^2+19N model; auto {gf[f'{n} auto'][0]:.6g} +- "
+          f"{gf[f'{n} auto'][1]:.6g}) {tag}", flush=True)
+    st = make_state(n, device=dev)
+    pos, mass = st.pos, st.mass
+    ms["mxu"] = time_ms(lambda: mxu_kernel.accelerations(pos, mass))
+    ms["mxu_plain"] = time_ms(
+        lambda: mxu_kernel.accelerations_between_plain(pos, pos, mass), reps=5)
+    ms["A_mxu_phase"] = time_ms(lambda: tiled_kernel.accelerations(pos, mass))
+    print(f"mxu N={n}: kernel {ms['mxu']:.4f} ms, plain {ms['mxu_plain']:.4f} "
+          f"ms, Kernel A {ms['A_mxu_phase']:.4f} ms per call; "
+          f"{n * n / ms['mxu'] / 1e6:.1f} Gpairs/s {tag}", flush=True)
+
+
+def bf16_gate(label: str, bf16, f32, tag: str) -> None:
+    """BASELINE.md's gate for the bf16 distance mode: every kinetic-energy
+    row of the bf16 run within 1e-4 relative of the f32 run of the same
+    configuration, and none equal to it (equal rows would mean the mode
+    was dropped)."""
+    pairs = list(zip(bf16.kenergy_trace, f32.kenergy_trace))
+    worst = max(abs(k - k32) / abs(k32) for (_, k), (_, k32) in pairs)
+    equal = sum(k == k32 for (_, k), (_, k32) in pairs)
+    print(f"bf16 {label}: KE rows {[f'{k:.7g}' for _, k in bf16.kenergy_trace]}"
+          f" vs f32 {[f'{k:.7g}' for _, k in f32.kenergy_trace]}, largest "
+          f"relative difference {worst:.3e}, {equal} rows equal; GFLOP/s bf16 "
+          f"{bf16.av:.6g} +- {bf16.dev:.6g}, f32 {f32.av:.6g} +- "
+          f"{f32.dev:.6g} {tag}", flush=True)
+    if len(pairs) != 10 or worst > 1e-4:
+        fail(f"bf16 {label}: KE over 1e-4 from f32")
+    if equal:
+        fail(f"bf16 {label}: {equal} KE rows equal the f32 run's")
+
+
+def bf16_phases(dev, tag: str, ms: dict) -> None:
+    """Phase 20: the bf16 distance mode; fills ``ms``."""
+    import torch
+
+    from nbody_tpu_torch import SimConfig, make_state, run
+    from nbody_tpu_torch.ops import (
+        fused_block,
+        mxu_kernel,
+        sym_kernel,
+        tiled_kernel,
+    )
+    from nbody_tpu_torch.parallel import ring_kernel
+
+    bf = "bfloat16"
+    a = make_state(4096, seed=1, device=dev)
+    c = make_state(4096, seed=2, device=dev)
+    ts = (a.pos, a.mass, c.pos, c.mass)
+    for n in (16384, 131072):
+        st = make_state(n, device=dev)
+        pos, mass = st.pos, st.mass
+        cases = {
+            "A": (lambda: tiled_kernel.accelerations(pos, mass, dist_dtype=bf),
+                  lambda: tiled_kernel.accelerations_between_plain(
+                      pos, pos, mass, dist_dtype=bf)),
+            "B": (lambda: sym_kernel.accelerations(pos, mass, dist_dtype=bf),
+                  lambda: sym_kernel.accelerations_plain(pos, mass,
+                                                         dist_dtype=bf)),
+        }
+        if n == 16384:
+            cases["two_sided"] = (
+                lambda: torch.cat(sym_kernel.accelerations_two_sided(
+                    *ts, dist_dtype=bf), dim=1),
+                lambda: torch.cat(sym_kernel.accelerations_two_sided_plain(
+                    *ts, dist_dtype=bf), dim=1))
+        for key, (kern, plain) in cases.items():
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            rel = rel_err(got, want)
+            shape = "4096 x 4096" if key == "two_sided" else f"N={n}"
+            if not torch.isfinite(got).all():
+                fail(f"bf16 {key} {shape}: non-finite output")
+            if rel > REL_TOL:
+                fail(f"bf16 {key} {shape} disagrees with its bf16 plain "
+                     "version")
+            if not torch.equal(got, again):
+                fail(f"bf16 {key} {shape}: two launches differ")
+            mom = ""
+            if key == "B":
+                f = got.double() * mass.double()
+                drift = float(f.sum(1).abs().max() / f.abs().sum(1).max())
+                mom = f"; momentum |sum m a| / sum |m a| {drift:.3e}"
+                if drift >= 1e-3:
+                    fail(f"bf16 Kernel B at {shape} does not conserve momentum")
+            timing = ""
+            if n == 16384:
+                ms[f"{key}_bf16"] = time_ms(kern)
+                ms[f"{key}_bf16_plain"] = time_ms(plain, reps=5)
+                timing = (f"; kernel {ms[f'{key}_bf16']:.4f} ms, plain "
+                          f"{ms[f'{key}_bf16_plain']:.4f} ms per call {tag}")
+            print(f"bf16 {key} ({shape}): vs bf16 plain {rel:.3e}, repeats "
+                  f"bit for bit{mom}{timing}", flush=True)
+            del got, again, want
+        del st, pos, mass, cases
+    n = 131072
+    for kernel, mod, other in (("auto", sym_kernel, tiled_kernel),
+                               ("pallas", tiled_kernel, sym_kernel)):
+        runs = {}
+        for precision in ("f32", "bf16"):
+            tiled_kernel.launches = sym_kernel.launches = 0
+            # sfreq 10: ten KE rows, and GFLOP/s over blocks 3..10.
+            runs[precision] = run(SimConfig(n=n, nsteps=100, sfreq=10,
+                                            kernel=kernel, precision=precision),
+                                  quiet=True)
+            if (mod.launches, other.launches) != (110, 0):
+                fail(f"N={n} {kernel} {precision}: {mod.__name__} launches "
+                     f"{mod.launches} != 110 or {other.__name__} launches "
+                     f"{other.launches} != 0")
+        bf16_gate(f"N={n} 100 steps kernel={kernel}", runs["bf16"],
+                  runs["f32"], tag)
+    # ring_sym passes the mode to both of its kernels.
+    others = (tiled_kernel, fused_block, mxu_kernel, ring_kernel)
+    runs = {}
+    for precision in ("f32", "bf16"):
+        for mod in others + (sym_kernel,):
+            mod.launches = 0
+        sym_kernel.two_sided_launches = 0
+        runs[precision] = run(SimConfig(n=2000, nsteps=500, shards=4,
+                                        comm="ring_sym", precision=precision),
+                              quiet=True)
+        counts = (sym_kernel.launches, sym_kernel.two_sided_launches) + tuple(
+            mod.launches for mod in others)
+        if counts != (2200, 3300, 0, 0, 0, 0):
+            fail(f"ring_sym {precision} N=2000/500: sym/two-sided/tiled/fused/"
+                 f"mxu/ring launches {counts} != (2200, 3300, 0, 0, 0, 0)")
+    print("bf16 ring_sym N=2000/500 shards=4: 2200 Kernel B and 3300 two-sided "
+          "launches in each precision, no other kernel", flush=True)
+    bf16_gate("N=2000/500 shards=4 comm=ring_sym", runs["bf16"], runs["f32"],
+              tag)
+
+
 def main() -> int:
     import torch
 
@@ -534,6 +912,7 @@ def main() -> int:
     from nbody_tpu_torch.utils.reporting import _g5, parse_trace
 
     # 1. The card.
+    lap = Laps()
     card = card_line()
     tag = f"[{card}]"
     dev = torch.device("cuda", 0)
@@ -542,11 +921,13 @@ def main() -> int:
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    lap("1")
 
     # 2. The build.
     path, secs = build.build(verbose=True)
     build.library()
     print(f"build: {secs:.2f} s -> {os.path.relpath(path, ROOT)}", flush=True)
+    lap("2")
 
     # 3. Kernels against their plain versions.
     err = {"A": 0.0, "B": 0.0}
@@ -580,6 +961,7 @@ def main() -> int:
                 fail("tiled kernel: padded sources changed the result")
             print(f"padding N={n}->{n_pad}: sym padded columns exactly 0, "
                   "tiled unpadded == padded exactly", flush=True)
+    lap("3")
 
     # 4. The main path through both kernels.
     with open(GOLDEN) as f:
@@ -605,6 +987,7 @@ def main() -> int:
         print(f"main path kernel={kernel}: all {len(golden)} kinetic-energy "
               "rows equal ver0_n2000_s500.txt at %.5g", flush=True)
         gf[f"2000 {kernel}"] = (res.av, res.dev)
+    lap("4")
 
     # 5. The numbers.
     res = run(SimConfig(n=16384, nsteps=500), quiet=True)
@@ -629,6 +1012,7 @@ def main() -> int:
     for name, t in ms.items():
         print(f"sweep N={n} {name}: {t:.4f} ms, {n * n / t / 1e6:.1f} "
               f"Gpairs/s (N^2 model) {tag}", flush=True)
+    lap("5")
 
     # 6. The fused blocks against their plain versions.
     for label, _, _ in FUSED:
@@ -677,6 +1061,7 @@ def main() -> int:
                   f"{float((p - want.pos).abs().max()):.3e}", flush=True)
         print(f"fused N={n}: both layouts repeat bit for bit; padded "
               "velocities exactly 0 in the rows layout", flush=True)
+    lap("6")
 
     # 7. The fused main path, through each layout.
     for label, ti, tj in FUSED:
@@ -705,6 +1090,7 @@ def main() -> int:
         fail(f"fused leapfrog energies not finite and positive: {kes}")
     print(f"fused leapfrog N=2000/500: energies finite and positive, "
           f"{kes[0]:.5g} .. {kes[-1]:.5g}", flush=True)
+    lap("7")
 
     # 8. The fused numbers.
     n = 16384
@@ -751,6 +1137,7 @@ def main() -> int:
               f"{ms[label]:.4f} ms, plain {ms[f'{label}_plain']:.4f} ms; "
               f"{BLOCK * n * n / ms[label] / 1e6:.1f} Gpairs/s (N^2 model) "
               f"{tag}", flush=True)
+    lap("8")
 
     # 9. The force VJP kernel against its plain version.
     err["vjp"] = 0.0
@@ -814,6 +1201,7 @@ def main() -> int:
     print(f"vjp N={n}: kernel {ms['vjp']:.4f} ms, plain {ms['vjp_plain']:.4f} "
           f"ms per call; {n * n / ms['vjp'] / 1e6:.1f} Gpairs/s (N^2 model) "
           f"{tag}", flush=True)
+    lap("9")
 
     # 10. The differentiable rollout at full width.
     steps = 10
@@ -861,6 +1249,7 @@ def main() -> int:
         fail(f"examples.fit_velocities 2048 10 60 exited {rc}")
     print(f"fit_velocities N=2048, 10 steps, 60 iterations: recovered {tag}",
           flush=True)
+    lap("10")
 
     # 11. --energy-check.
     res = run(SimConfig(n=2000, nsteps=500, energy_check=True), out=sys.stdout)
@@ -884,8 +1273,17 @@ def main() -> int:
     if not math.isfinite(res.energy_drift):
         fail("N=16384 energy drift is not finite")
 
+    lap("11")
     sr = mesh_phases(dev, tag, err, ms, launches)
+    lap("12-14")
     sharded_phases(dev, tag, err, ms, launches, golden, gf)
+    lap("15-17")
+    repair_phases(dev, tag)
+    lap("18")
+    mxu_phases(dev, tag, err, ms, launches, golden, gf)
+    lap("19")
+    bf16_phases(dev, tag, ms)
+    lap("20")
 
     # The bounds, from this run's inputs: the least work of each function,
     # whatever layout its kernel takes.  Kernel A and the columns block
@@ -903,6 +1301,8 @@ def main() -> int:
         "two_sided": bound(OPS_SYM * (n // 4) ** 2, 28 * 2 * (n // 4)),
         # The ring computes what Kernel B does: N^2/2 unordered pairs.
         "ring": bound(OPS_SYM * n * n / 2, 28 * n),
+        # The mxu function: N^2 ordered pairs of the |r|^2 expansion.
+        "mxu": bound_mxu(n * n, 28 * n),
     }
     bounds_ms["sr"] = min(
         bound(n_e * pm.SLAB * width * (OPS_SR + OPS_SR_REACTION * sym),
@@ -928,6 +1328,8 @@ def main() -> int:
          "two_sided.cu", "nbody_tpu/ops/pallas_sym.py:211", "two_sided"),
         ("ring_kernel (fused ring, K=4)", "ring.cu",
          "nbody_tpu/parallel/ring_kernel.py:55", "ring"),
+        ("mxu_accel_kernel (|r|^2 expansion, pallas_mxu)", "mxu.cu",
+         "nbody_tpu/ops/pallas_mxu.py:48", "mxu"),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": f"nbody_tpu_torch/csrc/{src}",

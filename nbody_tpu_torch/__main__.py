@@ -8,9 +8,14 @@ Positional-argument compatible with the reference binaries, like
 dims map onto kernel tile sizes).
 
 Options:
-    --kernel {naive,pallas,pallas_sym,pm,p3m,auto}   force kernel (auto:
-                                   the pair-symmetric CUDA kernel where it
-                                   fits; pm/p3m: the mesh tiers)
+    --kernel {naive,pallas,pallas_sym,pallas_mxu,pm,p3m,auto}  force
+                                   kernel (auto: the pair-symmetric CUDA
+                                   kernel where it fits; pallas_mxu: the
+                                   |r|^2-expansion sweep; pm/p3m: the mesh
+                                   tiers)
+    --precision {f32,bf16}         fp32 pair deltas, or rounded through bf16
+                                   (fp32 arithmetic; not with pallas_mxu,
+                                   pm, p3m, --fused, ring_sym or rdma)
     --pm-grid/--pm-cutoff/--pm-capacity  mesh points per axis, the P3M split
                                    radius in grid spacings, P3M slots a cell
     --pm-boundary open             the mesh boundary (periodic: not yet)
@@ -32,9 +37,14 @@ Options:
     --platform {cuda,cpu}          the card (default) or the CPU on request
     --json PATH                    also write the run result as JSON ('-' =
                                    stdout)
+    --profile-dir DIR              write a torch.profiler trace of the
+                                   sample blocks into DIR
+    --debug-nans                   raise FloatingPointError on a non-finite
+                                   position, velocity or energy after a block
+    --list-devices                 print the CUDA devices and the CPU, exit
 
 The JAX package's other options are refused with the ROADMAP.md item that
-will port them.
+will port them; ``--interpret`` (Pallas interpret mode) is refused for good.
 """
 
 from __future__ import annotations
@@ -59,8 +69,18 @@ _NOT_PORTED = {
 }
 
 
+# Flags of ``python -m nbody_tpu`` that the port will not have.
+_NEVER = {
+    "--interpret": 'Pallas interpret mode is not ported (ROADMAP.md "What is '
+                   'not ported"); the kernels\' plain PyTorch versions run '
+                   "with --platform cpu",
+}
+
+
 class _Refuse(argparse.Action):
     def __call__(self, parser, namespace, values, option_string=None):
+        if option_string in _NEVER:
+            parser.error(f"{option_string}: {_NEVER[option_string]}")
         parser.error(f"{option_string} is not ported to nbody_tpu_torch yet: "
                      f"ROADMAP.md {_NOT_PORTED[option_string]}")
 
@@ -82,8 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("dim0", nargs="?", type=int, default=0)
     p.add_argument("dim1", nargs="?", type=int, default=0)
     p.add_argument("--kernel", default="auto",
-                   choices=["naive", "pallas", "pallas_sym", "pm", "p3m",
-                            "auto"])
+                   choices=["naive", "pallas", "pallas_sym", "pallas_mxu",
+                            "pm", "p3m", "auto"])
     p.add_argument("--pm-grid", type=int, default=0, metavar="NG",
                    help="mesh points per axis for --kernel pm/p3m "
                         "(default 128)")
@@ -104,7 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="P3M short-range sweep layout (default "
                         "pallas_paired on the card, pallas_sym on the "
                         "CPU; xla = the kernel's plain layout)")
-    p.add_argument("--precision", default="f32")
+    p.add_argument("--precision", default="f32",
+                   help="f32, or bf16: pair deltas rounded through bf16")
     p.add_argument("--integrator", default="euler",
                    choices=["euler", "leapfrog"])
     p.add_argument("--distribution", default="reference")
@@ -126,14 +147,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--platform", default=None, choices=["cuda", "cpu"])
     p.add_argument("--json", default=None, metavar="PATH",
                    help="also write the run result as JSON ('-' = stdout)")
-    for flag in _NOT_PORTED:
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the sample blocks "
+                        "into DIR")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise on a non-finite position, velocity or energy "
+                        "after a sample block")
+    p.add_argument("--list-devices", action="store_true",
+                   help="print the CUDA devices and the CPU, then exit")
+    for flag in (*_NOT_PORTED, *_NEVER):
         p.add_argument(flag, nargs="?", action=_Refuse, help=argparse.SUPPRESS)
     return p
+
+
+def list_devices() -> None:
+    """The CUDA devices, then the CPU, one ``id: platform kind`` line each,
+    as ``python -m nbody_tpu --list-devices`` prints them."""
+    import platform
+
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        print(f"{i}: cuda {torch.cuda.get_device_name(i)}")
+    print(f"0: cpu {platform.machine() or 'cpu'}")
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.list_devices:
+        list_devices()
+        return 0
     try:
         cfg = SimConfig(
             n=args.n, nsteps=args.nsteps, dt=args.dt, sfreq=args.sfreq,
@@ -146,6 +190,7 @@ def main(argv=None) -> int:
             pm_capacity=args.pm_capacity, pm_boundary=args.pm_boundary,
             pm_replan=args.pm_replan, pm_sr_layout=args.pm_sr_layout,
             platform=args.platform or ("cpu" if args.device == "cpu" else None),
+            profile_dir=args.profile_dir, debug_nans=args.debug_nans,
         )
     except (NotImplementedError, ValueError) as e:
         parser.error(str(e))

@@ -15,19 +15,21 @@ import torch
 
 from .models.distributions import DISTRIBUTIONS
 from .models.integrators import INTEGRATORS
-from .parallel.decompose import COMM_MODES, check_sharded_kernel
+from .parallel.decompose import (
+    COMM_MODES,
+    check_sharded_dist,
+    check_sharded_kernel,
+)
 from .state import device_or_card
 from .types import PRECISIONS, SUPPORTED_PRECISIONS
 
-KERNELS = ("naive", "pallas", "pallas_sym", "pm", "p3m", "auto")
+KERNELS = ("naive", "pallas", "pallas_sym", "pallas_mxu", "pm", "p3m", "auto")
 PLATFORMS = ("cuda", "cpu")
 
 # Known to the JAX package, not ported yet: value -> ROADMAP.md item.
 _NOT_PORTED = {
-    "bf16": "queue 1 item 4 (the bf16 distance mode)",
     "ref64": "queue 1 item 12 (the ref64 host oracle)",
     "periodic": "queue 1 item 9 (periodic boundary)",
-    "pallas_mxu": "queue 1 item 13 (pallas_mxu)",
 }
 
 
@@ -51,7 +53,7 @@ class SimConfig:
     distribution: str = "reference"  # | plummer | cold_sphere
     seed: int = 42  # the reference hard-codes 42 (ver0/GSimulation.cpp:47)
     energy_check: bool = False  # report total-energy (KE+PE) drift at end
-    kernel: str = "auto"  # naive | pallas | pallas_sym | pm | p3m | auto
+    kernel: str = "auto"  # one of KERNELS (ops/registry.py)
     tile_i: int = 0  # 0 = kernel default (pallas_sym: the block size)
     tile_j: int = 0
     pm_grid: int = 0  # mesh points per axis (0 = ops/pm.DEFAULT_GRID)
@@ -67,13 +69,15 @@ class SimConfig:
     # the module default
     pm_replan: bool = False  # re-measure the P3M plan when the per-block
     # health check finds overflow (grow-only); off = warn once
-    precision: str = "f32"
+    precision: str = "f32"  # f32 | bf16 (the bf16 distance mode)
     fused: bool = False  # the whole sample block in one kernel launch
     # The particle decomposition: K shards of one card (virtual shards) or
     # of the CPU, driven by one process (parallel/decompose.py).
     shards: int = 1
     comm: str = "allgather"  # allgather | ring | ring_sym | rdma
     platform: Optional[str] = None  # None = cuda; "cpu" only on request
+    profile_dir: Optional[str] = None  # a torch.profiler trace of the blocks
+    debug_nans: bool = False  # raise on a non-finite state after each block
 
     def __post_init__(self):
         if self.n < 1:
@@ -99,6 +103,8 @@ class SimConfig:
         if self.fused and self.precision != "f32":
             raise ValueError("--fused requires f32 precision")
         _check("precision", self.precision, SUPPORTED_PRECISIONS)
+        if self.precision == "bf16":
+            self._check_bf16()
         if self.platform is not None:
             _check("platform", self.platform, PLATFORMS)
         _check("pm boundary", self.pm_boundary, ("open",))
@@ -126,6 +132,22 @@ class SimConfig:
             raise ValueError(
                 "--pm-replan re-measures the P3M short-range plan; it "
                 "requires --kernel p3m (or --kernel pm with --pm-cutoff > 0)")
+
+    def _check_bf16(self) -> None:
+        """Refuse the bf16 distance mode where no kernel of the run takes
+        it, as the JAX package does for the mesh tiers and pallas_mxu, and
+        in the sharded rdma, which the JAX package runs in f32 instead."""
+        if self.kernel in ("pm", "p3m"):
+            raise ValueError(
+                f"--kernel {self.kernel} is fp32-only; it does not support "
+                "--precision bf16 (use --kernel pallas for the bf16 "
+                "distance mode)")
+        if self.kernel == "pallas_mxu":
+            from .ops.mxu_kernel import check_fp32_distances
+
+            check_fp32_distances("bfloat16")
+        if self.shards > 1:
+            check_sharded_dist(self.comm, "bfloat16")
 
     def device(self) -> torch.device:
         """The device the run uses.  CUDA unless the CPU was asked for; a
@@ -174,7 +196,7 @@ class SimConfig:
         # ring_sym and rdma run their own pair kernels (the pair-symmetric
         # ones; the ring), whatever `kernel` resolves to: they take the tiles.
         own_pairs = self.shards > 1 and self.comm in ("ring_sym", "rdma")
-        if resolved in ("pallas", "pallas_sym") or own_pairs:
+        if resolved in ("pallas", "pallas_sym", "pallas_mxu") or own_pairs:
             if self.tile_i:
                 opts["tile_i"] = self.tile_i
             if self.tile_j:
@@ -187,15 +209,18 @@ class SimConfig:
                                ("sr_entries", self.pm_sr_entries)):
                 if value:
                     opts[key] = value
+        if self.precision == "bf16":
+            opts["dist_dtype"] = "bfloat16"
         return opts
 
     def pad_multiple(self) -> int:
         """Particle-count padding the kernel needs, times ``shards``: the
         pair-symmetric kernel sweeps whole blocks (``auto`` on CUDA pads for
         it, so N=2000 becomes 2048), and so do ``ring_sym``'s kernels on
-        every shard; the tiled kernel, the ring and naive take any N.  Under
-        ``fused`` the fused block's layout sets it, whatever ``kernel``
-        says: rows blocks, or columns tiles that divide N."""
+        every shard; the tiled kernel, the mxu kernel (which, unlike the JAX
+        package's, masks its ragged tiles), the ring and naive take any N.
+        Under ``fused`` the fused block's layout sets it, whatever
+        ``kernel`` says: rows blocks, or columns tiles that divide N."""
         from .ops import fused_block
         from .ops.sym_kernel import DEFAULT_BLOCK
 

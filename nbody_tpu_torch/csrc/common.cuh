@@ -6,6 +6,7 @@
 // functions, so they share one copy of the pair arithmetic.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -27,6 +28,25 @@ __device__ __forceinline__ float inv_cube(float dx, float dy, float dz) {
   const float d2 = dx * dx + dy * dy + dz * dz + kSoftening2;
   const float inv = 1.0f / sqrtf(d2);
   return inv * inv * inv;
+}
+
+// The pair deltas' precision, a compile-time flag of the pair arithmetic.
+// kBF16 is the JAX package's bf16 distance mode
+// (nbody_tpu/ops/pallas_kernel.py:75-87, pallas_sym.py:72-82): each delta is
+// subtracted in f32, rounded to nearest even through bf16, and the rounded
+// delta feeds both |d|^2 and the force sum; all arithmetic stays f32.
+// Rounding commutes with negation, so the pair-symmetric sweeps stay exactly
+// antisymmetric.  kF32 leaves the delta as it is, so the f32 instantiations
+// compile to the same code as before the flag.
+enum class Dist { kF32, kBF16 };
+
+template <Dist D>
+__device__ __forceinline__ float round_delta(float d) {
+  if constexpr (D == Dist::kBF16) {
+    return __bfloat162float(__float2bfloat16_rn(d));
+  } else {
+    return d;
+  }
 }
 
 // How a kernel loads positions and partials.  The unfused kernels read
@@ -64,6 +84,7 @@ __device__ __forceinline__ float4 load_body(const float* pos, const float* mass,
 // sum_j w d to pi and the j-side sum -sum_i w d to pj, each (3, B).  The
 // i and j tiles may come from one set (Kernel B's off-diagonal tiles) or
 // from two (the two-sided sweep).  Every thread of the CTA calls it.
+template <Dist D = Dist::kF32>
 __device__ __forceinline__ void sym_tile_cross(const float4* sj, float* red,
                                                float4 bi, float* pi,
                                                float* pj) {
@@ -75,7 +96,9 @@ __device__ __forceinline__ void sym_tile_cross(const float4* sj, float* red,
     float bx = 0.f, by = 0.f, bz = 0.f;  // j side of j = s*32 + (lane+k)%32
     for (int k = 0; k < 32; ++k) {
       const float4 p = sub[(lane + k) & 31];
-      const float dx = p.x - bi.x, dy = p.y - bi.y, dz = p.z - bi.z;
+      const float dx = round_delta<D>(p.x - bi.x);
+      const float dy = round_delta<D>(p.y - bi.y);
+      const float dz = round_delta<D>(p.z - bi.z);
       const float w = (bi.w * p.w) * inv_cube(dx, dy, dz);
       const float px = w * dx, py = w * dy, pz = w * dz;
       ax += px;
@@ -110,20 +133,22 @@ __device__ __forceinline__ void sym_tile_cross(const float4* sj, float* red,
   pj[2 * B + t] = sz;
 }
 
-// One unordered B x B tile pair (it <= jt) of one set, T tiles a side:
-// the i-side sum goes to P[it][jt] and, off the diagonal, the j-side sum to
-// P[jt][it], each (3, B) in `part`.  A diagonal tile takes a one-sided sum
-// over all of its pairs.  Arguments as for sym_tile_cross.
-__device__ __forceinline__ void sym_tile_pair(const float4* sj, float* red,
-                                              float4 bi, int it, int jt,
-                                              int T, float* part) {
+// One unordered B x B tile pair (it <= jt) of one set: the i-side sum goes
+// to pi and, off the diagonal, the j-side sum to pj, each (3, B).  A
+// diagonal tile takes a one-sided sum over all of its pairs.  Arguments as
+// for sym_tile_cross.
+template <Dist D = Dist::kF32>
+__device__ __forceinline__ void sym_tile_pair_at(const float4* sj, float* red,
+                                                 float4 bi, bool diagonal,
+                                                 float* pi, float* pj) {
   const int B = blockDim.x, t = threadIdx.x;
-  float* pi = part + (size_t(it) * T + jt) * 3 * B;  // P[it][jt]
-  if (it == jt) {  // diagonal tile: one-sided sum over all of its pairs
+  if (diagonal) {  // one-sided sum over all of the tile's pairs
     float ax = 0.f, ay = 0.f, az = 0.f;
     for (int k = 0; k < B; ++k) {
       const float4 p = sj[k];
-      const float dx = p.x - bi.x, dy = p.y - bi.y, dz = p.z - bi.z;
+      const float dx = round_delta<D>(p.x - bi.x);
+      const float dy = round_delta<D>(p.y - bi.y);
+      const float dz = round_delta<D>(p.z - bi.z);
       const float w = (bi.w * p.w) * inv_cube(dx, dy, dz);
       ax += w * dx;
       ay += w * dy;
@@ -134,22 +159,46 @@ __device__ __forceinline__ void sym_tile_pair(const float4* sj, float* red,
     pi[2 * B + t] = az;
     return;  // uniform across the CTA
   }
-  sym_tile_cross(sj, red, bi, pi, part + (size_t(jt) * T + it) * 3 * B);
+  sym_tile_cross<D>(sj, red, bi, pi, pj);
 }
 
-// a = (sum_u P[t][u]) / (G m) for body idx of tile t = idx / B, u in order;
-// zero mass gives exactly 0.
+// sym_tile_pair_at on the (T, T) partials `part` of one set, T tiles a
+// side: the i side to P[it][jt], the j side to P[jt][it].
+__device__ __forceinline__ void sym_tile_pair(const float4* sj, float* red,
+                                              float4 bi, int it, int jt,
+                                              int T, float* part) {
+  const int B = blockDim.x;
+  sym_tile_pair_at(sj, red, bi, it == jt,
+                   part + (size_t(it) * T + jt) * 3 * B,   // P[it][jt]
+                   part + (size_t(jt) * T + it) * 3 * B);  // P[jt][it]
+}
+
+// s + P[t][u0] + P[t][u0 + 1] + ... for `cols` columns of one coordinate,
+// one fp32 add a column in column order: the one summation order of every
+// pair-symmetric reduce (Kernel B's, banded or not, the two-sided sweep's
+// and the fused rows block's), so their results agree bit for bit.  `col`
+// points at the coordinate's lane of P[t][u0]; columns are 3 B floats apart.
+template <Loads L>
+__device__ __forceinline__ float sym_row_sum(const float* col, int cols,
+                                             int B, float s) {
+  for (int u = 0; u < cols; ++u) s += load<L>(col + size_t(u) * 3 * B);
+  return s;
+}
+
+// a = S / (G m); zero mass gives exactly 0.
+__device__ __forceinline__ float sym_divide(float s, float gm) {
+  return gm > 0.f ? s / gm : 0.f;
+}
+
+// a = (sum_u P[t][u]) / (G m) for body idx of tile t = idx / B, u in order.
 template <Loads L>
 __device__ __forceinline__ float3 sym_reduce(const float* part, float gm,
                                              int idx, int T, int B) {
   const int t = idx / B, l = idx - t * B;
   const float* row = part + size_t(t) * T * 3 * B + l;
   float a[3];
-  for (int c = 0; c < 3; ++c) {
-    float s = 0.f;
-    for (int u = 0; u < T; ++u) s += load<L>(row + (size_t(u) * 3 + c) * B);
-    a[c] = gm > 0.f ? s / gm : 0.f;
-  }
+  for (int c = 0; c < 3; ++c)
+    a[c] = sym_divide(sym_row_sum<L>(row + c * B, T, B, 0.f), gm);
   return make_float3(a[0], a[1], a[2]);
 }
 
@@ -162,7 +211,7 @@ __device__ __forceinline__ float3 sym_reduce(const float* part, float gm,
 // the CTA stages in shared memory `src` as float4 (x, y, z, G m) taken from
 // body(j).  Sources past ns are staged as zero mass and add exactly
 // nothing.  Every thread calls it.
-template <class Body>
+template <Dist D = Dist::kF32, class Body>
 __device__ __forceinline__ float3 tiled_source_sweep(float4* src,
                                                      const Body& body, int ns,
                                                      int tile_j, float xi,
@@ -181,7 +230,9 @@ __device__ __forceinline__ float3 tiled_source_sweep(float4* src,
 #pragma unroll 8
     for (int k = 0; k < per; ++k) {
       const float4 p = mine[k];
-      const float dx = p.x - xi, dy = p.y - yi, dz = p.z - zi;
+      const float dx = round_delta<D>(p.x - xi);
+      const float dy = round_delta<D>(p.y - yi);
+      const float dz = round_delta<D>(p.z - zi);
       const float w = p.w * inv_cube(dx, dy, dz);
       ax += w * dx;
       ay += w * dy;
@@ -193,13 +244,13 @@ __device__ __forceinline__ float3 tiled_source_sweep(float4* src,
 
 // tiled_source_sweep over sources held as (3,ns) coordinate rows and (ns,)
 // masses.
-template <Loads L>
+template <Loads L, Dist D = Dist::kF32>
 __device__ __forceinline__ float3 tiled_source_loop(float4* src,
                                                     const float* pos_s,
                                                     const float* mass_s, int ns,
                                                     int tile_j, float xi,
                                                     float yi, float zi) {
-  return tiled_source_sweep(
+  return tiled_source_sweep<D>(
       src, [=](int j) { return load_body<L>(pos_s, mass_s, ns, j); }, ns,
       tile_j, xi, yi, zi);
 }

@@ -1,4 +1,4 @@
-// Kernel B: the pair-symmetric self-sweep, fp32, mass-folded.
+// Kernel B: the pair-symmetric self-sweep, fp32 arithmetic, mass-folded.
 //
 // Replaces nbody_tpu/ops/pallas_sym.py::_sym_kernel (fold_mass=True).  The
 // force is antisymmetric, so each unordered B x B tile pair (it <= jt) is
@@ -18,8 +18,20 @@
 // deterministic with partials: the CTA of tile pair (it, jt) writes its
 // i-side sum to P[it][jt] and its j-side sum to P[jt][it], each (3, B), and
 // a second small kernel adds P[t][0..T-1] in a fixed order and divides.
-// The scratch is 12 N^2 / B bytes (25 MB at N=16384, B=128); the wrapper
-// allocates it and the registry's `auto` bounds it.
+//
+// Bands.  All T x T partials take 12 N^2 / B bytes (25 MB at N=16384,
+// B=128; 103 GB at N=1048576, more than the card holds), so the i tiles are
+// swept in bands of R, one launch pair a band, within a scratch budget that
+// the wrapper derives from the card.  Band [r0, r1) writes the partials of
+// its own rows, P[r0..r1-1][r0..T-1] ("rows", R x T), and the j sides its
+// pairs hand to later rows, P[r1..T-1][r0..r1-1] ("tail", (T - r1) x R):
+// 12 R (2N - R B) bytes, at most about 24 R N.  The band's reduce adds, in
+// column order, the columns r0.. that the band wrote to every row t >= r0,
+// starting from the running sum that earlier bands left in `out`; a row of
+// the band is then complete and divided.  So each row still adds
+// P[t][0], P[t][1], ..., P[t][T-1] in that order, in fp32, and a banded
+// sweep equals the one-band sweep bit for bit.  With R = T the one band's
+// rows are the whole (T, T) partials and there is no tail.
 //
 // Inside a CTA.  Thread t owns target i = it*B + t and keeps its i-side sum
 // in registers.  The j tile is staged in shared memory as float4 (x, y, z,
@@ -34,61 +46,103 @@
 // Bound.  Compute-bound like Kernel A, at half the pair evaluations: about
 // 26 flops, one IEEE sqrt, one IEEE divide and 3 shuffles per unordered
 // pair.  Device memory traffic is the 12 N^2 / B bytes of partials written
-// once and read once.
+// once and read once, whatever the bands.
 //
-// The tile-pair body and the ordered sum are the device functions
-// nbt::sym_tile_pair and nbt::sym_reduce (common.cuh), which the fused rows
-// block (fused.cu) runs too.
+// The kernels are templates on the pair deltas' precision (nbt::Dist): f32,
+// or the bf16 distance mode.
+//
+// The tile-pair body is the device function nbt::sym_tile_pair_at
+// (common.cuh), which the fused rows block (fused.cu) runs too, through
+// nbt::sym_tile_pair; every reduce adds its columns through
+// nbt::sym_row_sum, as the fused block's does, so the two agree bit for bit.
 #include "common.cuh"
 
 namespace {
 
+constexpr nbt::Loads kLoads = nbt::Loads::kFixed;
+
+// Band [r0, r0 + gridDim.y) of i tiles: CTA (x, y) takes tile pair
+// (it, jt) = (r0 + y, r0 + x), skipped unless jt >= it.  `part` holds the
+// band's rows, then its tail.
+template <nbt::Dist D>
 __global__ void sym_pairs_kernel(const float* __restrict__ pos,
-                                 const float* __restrict__ mass, int n,
+                                 const float* __restrict__ mass, int n, int r0,
                                  float* __restrict__ part) {
-  const int B = blockDim.x, T = gridDim.x;
-  const int it = blockIdx.y, jt = blockIdx.x;
+  const int B = blockDim.x, T = r0 + gridDim.x, R = gridDim.y, r1 = r0 + R;
+  const int it = r0 + blockIdx.y, jt = r0 + blockIdx.x;
   if (jt < it) return;  // each unordered tile pair once
   extern __shared__ float4 smem[];
   float4* sj = smem;                                // the j tile
   float* red = reinterpret_cast<float*>(smem + B);  // [warp][3][B]
   const int t = threadIdx.x;
-  constexpr nbt::Loads kLoads = nbt::Loads::kFixed;
   sj[t] = nbt::load_body<kLoads>(pos, mass, n, jt * B + t);
   const float4 bi = nbt::load_body<kLoads>(pos, mass, n, it * B + t);
   __syncthreads();
-  nbt::sym_tile_pair(sj, red, bi, it, jt, T, part);
+  // P[it][jt] in the rows; P[jt][it] in the rows or, past the band, the
+  // tail.  One base pointer and an offset: two pointers cost the sweep 15
+  // registers.
+  const size_t oj = jt < r1 ? size_t(jt - r0) * T + it
+                            : size_t(R) * T + size_t(jt - r1) * R + it - r0;
+  nbt::sym_tile_pair_at<D>(sj, red, bi, it == jt,
+                           part + (size_t(it - r0) * T + jt) * 3 * B,
+                           part + oj * 3 * B);
 }
 
-// a = (sum_u P[t][u]) / (G m), u in order; zero mass gives exactly 0.
+// The band's share of a = (sum_u P[t][u]) / (G m), u in order, for
+// coordinate c = blockIdx.y of the bodies of tiles t >= r0: rows of the band
+// add columns r0..T-1 and are divided; later rows add the band's columns
+// r0..r1-1 and keep the sum in `out` for the next band.  Band 0 starts each
+// sum at 0.  One thread a body and coordinate: the sums are latency-bound.
 __global__ void sym_reduce_kernel(const float* __restrict__ part,
                                   const float* __restrict__ mass, int n, int B,
-                                  float* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+                                  int r0, int r1, float* __restrict__ out) {
+  const int idx = r0 * B + blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  const float gm = mass[idx] * nbt::kG;
-  const float3 a = nbt::sym_reduce<nbt::Loads::kFixed>(part, gm, idx, n / B, B);
-  out[idx] = a.x;
-  out[n + idx] = a.y;
-  out[2 * n + idx] = a.z;
+  const int T = n / B, R = r1 - r0, t = idx / B, l = idx - t * B;
+  const int c = blockIdx.y;
+  const bool done = t < r1;
+  // The row of body idx's tile, from its first column of this band.
+  const float* row = done ? part + (size_t(t - r0) * T + r0) * 3 * B
+                          : part + (size_t(R) * T + size_t(t - r1) * R) * 3 * B;
+  float* o = out + size_t(c) * n + idx;
+  const float s = nbt::sym_row_sum<kLoads>(row + c * B + l, done ? T - r0 : R,
+                                           B, r0 == 0 ? 0.f : *o);
+  *o = done ? nbt::sym_divide(s, mass[idx] * nbt::kG) : s;
+}
+
+template <nbt::Dist D>
+int sym_accel(const float* pos, const float* mass, int n, int block, int band,
+              float* part, float* out, cudaStream_t s) {
+  const int T = n / block;
+  const size_t smem = block * sizeof(float4) + (block / 32) * 3 * block * sizeof(float);
+  for (int r0 = 0; r0 < T; r0 += band) {
+    const int r1 = std::min(T, r0 + band);
+    sym_pairs_kernel<D><<<dim3(T - r0, r1 - r0), block, smem, s>>>(
+        pos, mass, n, r0, part);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sym_reduce_kernel<<<dim3((n - r0 * block + 255) / 256, 3), 256, 0, s>>>(
+        part, mass, n, block, r0, r1, out);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
 
 // pos (3,n), mass (n,) -> out (3,n), fp32 and contiguous.  block: a
-// multiple of 32, at most 256, dividing n.  partials: 3 * n * (n / block)
-// floats of scratch.  The wrapper checks all of it.  Launches both kernels
-// on `stream` without synchronising and returns cudaGetLastError() after
-// each launch.
+// multiple of 32, at most 256, dividing n.  band: i tiles a band, 1..n/block.
+// partials: 3 * block * band * (2 * n / block - band) floats of scratch, a
+// band's rows and then its tail.  bf16: the bf16 distance mode.  The wrapper
+// checks all of it.  Launches two kernels a band on `stream` without
+// synchronising and returns cudaGetLastError() after each launch.
 extern "C" int nbt_sym_accel(const float* pos, const float* mass, int n,
-                             int block, float* partials, float* out,
-                             void* stream) {
-  const int T = n / block;
+                             int block, int band, float* partials, float* out,
+                             int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = block * sizeof(float4) + (block / 32) * 3 * block * sizeof(float);
-  sym_pairs_kernel<<<dim3(T, T), block, smem, s>>>(pos, mass, n, partials);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sym_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(partials, mass, n, block, out);
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? sym_accel<nbt::Dist::kBF16>(pos, mass, n, block, band,
+                                            partials, out, s)
+              : sym_accel<nbt::Dist::kF32>(pos, mass, n, block, band,
+                                           partials, out, s);
 }

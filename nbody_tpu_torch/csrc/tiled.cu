@@ -1,4 +1,5 @@
-// Kernel A: the tiled targets x sources force sweep, fp32.
+// Kernel A: the tiled targets x sources force sweep, fp32 arithmetic, with
+// fp32 or bf16-rounded pair deltas.
 //
 // Replaces nbody_tpu/ops/pallas_kernel.py::_nbody_kernel, which streams
 // (TILE_I, TILE_J) pair blocks through VMEM with (N,8)/(8,N) double
@@ -28,11 +29,14 @@
 //
 // The source loop and the ordered row sum are the device functions
 // nbt::tiled_source_loop and nbt::tiled_row_sum (common.cuh), which the
-// fused columns block (fused.cu) runs too.
+// fused columns block (fused.cu) runs too.  The kernel is a template on the
+// pair deltas' precision (nbt::Dist): f32, or the JAX package's bf16
+// distance mode (`dist_dtype="bfloat16"`).
 #include "common.cuh"
 
 namespace {
 
+template <nbt::Dist D>
 __global__ void __launch_bounds__(nbt::kTiledThreads)
 tiled_accel_kernel(const float* __restrict__ pos_t, int nt,
                    const float* __restrict__ pos_s,
@@ -42,7 +46,7 @@ tiled_accel_kernel(const float* __restrict__ pos_t, int nt,
   __shared__ float part[3 * nbt::kTiledThreads];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int ic = i < nt ? i : nt - 1;  // ragged edge: compute, never store
-  const float3 acc = nbt::tiled_source_loop<nbt::Loads::kFixed>(
+  const float3 acc = nbt::tiled_source_loop<nbt::Loads::kFixed, D>(
       src, pos_s, mass_s, ns, tile_j, pos_t[ic], pos_t[nt + ic],
       pos_t[2 * nt + ic]);
   const float3 a = nbt::tiled_row_sum(part, acc);
@@ -58,16 +62,22 @@ tiled_accel_kernel(const float* __restrict__ pos_t, int nt,
 // pos_t (3,nt), pos_s (3,ns), mass_s (ns,) -> out (3,nt), all fp32 and
 // contiguous.  tile_i targets per CTA: a multiple of 32 that divides 256.
 // tile_j sources per shared-memory tile: a multiple of 256/tile_i, at most
-// 3072 (48 KB).  The wrapper checks both.  Launches on `stream` without
-// synchronising and returns cudaGetLastError().
+// 3072 (48 KB).  The wrapper checks both.  bf16: the bf16 distance mode.
+// Launches on `stream` without synchronising and returns cudaGetLastError().
 extern "C" int nbt_tiled_accel(const float* pos_t, int nt, const float* pos_s,
                                const float* mass_s, int ns, float* out,
-                               int tile_i, int tile_j, void* stream) {
+                               int tile_i, int tile_j, int bf16, void* stream) {
   const dim3 block(tile_i, nbt::kTiledThreads / tile_i);
   const dim3 grid((nt + tile_i - 1) / tile_i);
   const size_t smem = size_t(tile_j) * sizeof(float4);
-  tiled_accel_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      pos_t, nt, pos_s, mass_s, ns, out, tile_j);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    tiled_accel_kernel<nbt::Dist::kBF16><<<grid, block, smem, s>>>(
+        pos_t, nt, pos_s, mass_s, ns, out, tile_j);
+  } else {
+    tiled_accel_kernel<nbt::Dist::kF32><<<grid, block, smem, s>>>(
+        pos_t, nt, pos_s, mass_s, ns, out, tile_j);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

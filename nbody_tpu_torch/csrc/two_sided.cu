@@ -18,85 +18,121 @@
 // as Kernel B's do (sym.cu): the CTA of tile pair (it, jt) writes its
 // target-side sum to P_t[it][jt] and its source-side sum to P_s[jt][it],
 // each (3, B), and a second kernel adds P_t[it][.] and P_s[jt][.] in a fixed
-// order and divides.  The scratch is 12 Nt Ns / B bytes a side (1.5 MB a
-// side at Nt = Ns = 4096, B = 128).  The CTA body is Kernel B's off-diagonal
-// tile pair (nbt::sym_tile_cross) with the i tile taken from the targets and
-// the j tile from the sources, and the ordered sum is nbt::sym_reduce, so
-// two launches on one input agree bit for bit.
+// order and divides.  The CTA body is Kernel B's off-diagonal tile pair
+// (nbt::sym_tile_cross) with the i tile taken from the targets and the j
+// tile from the sources, so two launches on one input agree bit for bit.
+//
+// Bands.  The partials take 12 Nt Ns / B bytes a side (1.5 MB a side at
+// Nt = Ns = 4096, B = 128), so the target tiles are swept in bands of R, one
+// launch pair a band, within the wrapper's scratch budget: 24 R Ns bytes.
+// A band completes its own targets (P_t of its rows, every source column)
+// and adds its R columns of P_s to every source's running sum, which waits
+// in out_s for the next band; the last band divides.  Each sum still adds
+// its columns in order, so a banded sweep equals the one-band sweep bit for
+// bit.  With R = Nt / B the layout is the one-band P_t (Tt x Ts) and
+// P_s (Ts x Tt).
 //
 // Bound.  Compute-bound like Kernel B: about 26 flops, one IEEE sqrt, one
 // IEEE divide and 3 shuffles per pair, Nt Ns pairs; device memory traffic
-// is the partials written once and read once.
+// is the partials written once and read once.  The kernel is a template on
+// the pair deltas' precision (nbt::Dist), f32 or the bf16 distance mode.
 #include "common.cuh"
 
 namespace {
 
 constexpr nbt::Loads kLoads = nbt::Loads::kFixed;
 
+// Band [r0, r0 + gridDim.y) of target tiles: CTA (x, y) takes tile pair
+// (it, jt) = (r0 + y, x).
+template <nbt::Dist D>
 __global__ void two_sided_kernel(const float* __restrict__ pos_t,
                                  const float* __restrict__ mass_t, int nt,
                                  const float* __restrict__ pos_s,
                                  const float* __restrict__ mass_s, int ns,
-                                 float* __restrict__ part_t,
+                                 int r0, float* __restrict__ part_t,
                                  float* __restrict__ part_s) {
-  const int B = blockDim.x, Tt = gridDim.y, Ts = gridDim.x;
-  const int it = blockIdx.y, jt = blockIdx.x, t = threadIdx.x;
+  const int B = blockDim.x, R = gridDim.y, Ts = gridDim.x;
+  const int r = blockIdx.y, it = r0 + r, jt = blockIdx.x, t = threadIdx.x;
   extern __shared__ float4 smem[];
   float4* sj = smem;                                // the source tile
   float* red = reinterpret_cast<float*>(smem + B);  // [warp][3][B]
   sj[t] = nbt::load_body<kLoads>(pos_s, mass_s, ns, jt * B + t);
   const float4 bi = nbt::load_body<kLoads>(pos_t, mass_t, nt, it * B + t);
   __syncthreads();
-  nbt::sym_tile_cross(sj, red, bi, part_t + (size_t(it) * Ts + jt) * 3 * B,
-                      part_s + (size_t(jt) * Tt + it) * 3 * B);
+  nbt::sym_tile_cross<D>(sj, red, bi, part_t + (size_t(r) * Ts + jt) * 3 * B,
+                         part_s + (size_t(jt) * R + r) * 3 * B);
 }
 
-// Targets first, then sources: a = (sum_u P[t][u]) / (G m), u in order.
+// The band's share of a = (sum_u P[t][u]) / (G m), u in order, for
+// coordinate c = blockIdx.y: the band's targets first (complete: every
+// source column), then every source, whose running sum over the band's R
+// columns waits in out_s until the last band divides it.  One thread a body
+// and coordinate: the sums are latency-bound.
 __global__ void two_sided_reduce_kernel(
     const float* __restrict__ part_t, const float* __restrict__ mass_t, int nt,
     const float* __restrict__ part_s, const float* __restrict__ mass_s, int ns,
-    int B, float* __restrict__ out_t, float* __restrict__ out_s) {
+    int B, int r0, int r1, float* __restrict__ out_t,
+    float* __restrict__ out_s) {
+  const int R = r1 - r0, band_n = R * B, Ts = ns / B, c = blockIdx.y;
   int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const float* part = part_t;
-  const float* mass = mass_t;
-  float* out = out_t;
-  int n = nt, cols = ns / B;
-  if (idx >= nt) {
-    idx -= nt;
-    part = part_s;
-    mass = mass_s;
-    out = out_s;
-    n = ns;
-    cols = nt / B;
+  if (idx < band_n) {
+    const int tgt = r0 * B + idx, r = idx / B, l = idx - r * B;
+    const float s = nbt::sym_row_sum<kLoads>(
+        part_t + size_t(r) * Ts * 3 * B + c * B + l, Ts, B, 0.f);
+    out_t[size_t(c) * nt + tgt] = nbt::sym_divide(s, mass_t[tgt] * nbt::kG);
+    return;
   }
-  if (idx >= n) return;
-  const float gm = mass[idx] * nbt::kG;
-  const float3 a = nbt::sym_reduce<kLoads>(part, gm, idx, cols, B);
-  out[idx] = a.x;
-  out[n + idx] = a.y;
-  out[2 * n + idx] = a.z;
+  idx -= band_n;
+  if (idx >= ns) return;
+  const int jt = idx / B, l = idx - jt * B;
+  float* o = out_s + size_t(c) * ns + idx;
+  const float s = nbt::sym_row_sum<kLoads>(
+      part_s + size_t(jt) * R * 3 * B + c * B + l, R, B, r0 == 0 ? 0.f : *o);
+  *o = r1 * B == nt ? nbt::sym_divide(s, mass_s[idx] * nbt::kG) : s;
+}
+
+template <nbt::Dist D>
+int two_sided(const float* pos_t, const float* mass_t, int nt,
+              const float* pos_s, const float* mass_s, int ns, int block,
+              int band, float* part_t, float* part_s, float* out_t,
+              float* out_s, cudaStream_t s) {
+  const int Tt = nt / block;
+  const size_t smem =
+      block * sizeof(float4) + (block / 32) * 3 * block * sizeof(float);
+  for (int r0 = 0; r0 < Tt; r0 += band) {
+    const int r1 = std::min(Tt, r0 + band);
+    two_sided_kernel<D><<<dim3(ns / block, r1 - r0), block, smem, s>>>(
+        pos_t, mass_t, nt, pos_s, mass_s, ns, r0, part_t, part_s);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    two_sided_reduce_kernel<<<dim3(((r1 - r0) * block + ns + 255) / 256, 3),
+                              256, 0, s>>>(part_t, mass_t, nt, part_s, mass_s,
+                                           ns, block, r0, r1, out_t, out_s);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
 
 // pos_t (3,nt), mass_t (nt,), pos_s (3,ns), mass_s (ns,) -> out_t (3,nt),
 // out_s (3,ns), fp32 and contiguous.  block: a multiple of 32, at most 256,
-// dividing nt and ns.  part_t: 3 * nt * (ns / block) floats of scratch,
-// part_s: 3 * ns * (nt / block).  The wrapper checks all of it.  Launches
-// both kernels on `stream` without synchronising and returns
-// cudaGetLastError() after each launch.
+// dividing nt and ns.  band: target tiles a band, 1..nt/block.  part_t and
+// part_s: 3 * block * band * (ns / block) floats of scratch each.  bf16: the
+// bf16 distance mode.  The wrapper checks all of it.  Launches two kernels
+// a band on `stream` without synchronising and returns cudaGetLastError()
+// after each launch.
 extern "C" int nbt_two_sided(const float* pos_t, const float* mass_t, int nt,
                              const float* pos_s, const float* mass_s, int ns,
-                             int block, float* part_t, float* part_s,
-                             float* out_t, float* out_s, void* stream) {
+                             int block, int band, float* part_t, float* part_s,
+                             float* out_t, float* out_s, int bf16,
+                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem =
-      block * sizeof(float4) + (block / 32) * 3 * block * sizeof(float);
-  two_sided_kernel<<<dim3(ns / block, nt / block), block, smem, s>>>(
-      pos_t, mass_t, nt, pos_s, mass_s, ns, part_t, part_s);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  two_sided_reduce_kernel<<<(nt + ns + 255) / 256, 256, 0, s>>>(
-      part_t, mass_t, nt, part_s, mass_s, ns, block, out_t, out_s);
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? two_sided<nbt::Dist::kBF16>(pos_t, mass_t, nt, pos_s, mass_s,
+                                            ns, block, band, part_t, part_s,
+                                            out_t, out_s, s)
+              : two_sided<nbt::Dist::kF32>(pos_t, mass_t, nt, pos_s, mass_s,
+                                           ns, block, band, part_t, part_s,
+                                           out_t, out_s, s);
 }

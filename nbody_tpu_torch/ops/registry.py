@@ -7,6 +7,8 @@ values carry over.  Every kernel has the signature
 * ``naive``      -- broadcast tensor ops, the oracle (ops/naive.py)
 * ``pallas``     -- Kernel A, the tiled sweep (ops/tiled_kernel.py)
 * ``pallas_sym`` -- Kernel B, the pair-symmetric sweep (ops/sym_kernel.py)
+* ``pallas_mxu`` -- the |r|^2-expansion sweep (ops/mxu_kernel.py; opt-in,
+  never chosen by ``auto``; fp32 distances only)
 * ``pm``         -- the particle-mesh solver, O(N log N) and approximate
   (ops/pm.py; opt-in, never chosen by ``auto``)
 * ``p3m``        -- the mesh solver with the exact short-range correction
@@ -22,7 +24,7 @@ from typing import Callable, Dict
 
 import torch
 
-from . import naive, pm, sym_kernel, tiled_kernel
+from . import mxu_kernel, naive, pm, sym_kernel, tiled_kernel
 
 KernelFn = Callable[..., torch.Tensor]
 
@@ -33,6 +35,7 @@ _REGISTRY: Dict[str, tuple[KernelFn, KernelFn]] = {
     # Targets x sources have no symmetry to exploit: the between form is
     # the tiled kernel, as in the JAX package.
     "pallas_sym": (sym_kernel.accelerations, tiled_kernel.accelerations_between),
+    "pallas_mxu": (mxu_kernel.accelerations, mxu_kernel.accelerations_between),
     "pm": (pm.accelerations, pm.accelerations_between),
     "p3m": (pm.p3m_accelerations, pm.p3m_accelerations_between),
 }

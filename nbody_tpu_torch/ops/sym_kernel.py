@@ -1,41 +1,58 @@
 """Kernel B: the pair-symmetric self-sweep (``csrc/sym.cu``).
 
 Replaces ``nbody_tpu/ops/pallas_sym.py::_sym_kernel`` with
-``fold_mass=True``, f32 only.  Each unordered B x B tile pair is computed
-once with the mass-folded weight w = (G m_i)(G m_j)/(d^2+eps^2)^{3/2};
-diagonal tiles take a one-sided sum; a = S / (G m), zero mass giving 0.
+``fold_mass=True`` and its ``dist_dtype`` (f32, or the bf16 distance mode).
+Each unordered B x B tile pair is computed once with the mass-folded weight
+w = (G m_i)(G m_j)/(d^2+eps^2)^{3/2}; diagonal tiles take a one-sided sum;
+a = S / (G m), zero mass giving 0.
 
 On Hopper the CTAs run in no order, so the j-side reaction is kept in
 deterministic per-tile-pair partials, P[it][jt] and P[jt][it], which a
-second kernel adds in a fixed order (see the note in ``csrc/sym.cu``).
-The partials take ``scratch_bytes(n, block)`` = 12 N^2 / B bytes of device
-memory; ``fits`` bounds them by a share of the card's memory, and the
-registry's ``auto`` takes the tiled kernel above it.  The TPU's VMEM cap
-(``max_sym_n``) does not carry over.
+second kernel adds in a fixed order (see the note in ``csrc/sym.cu``).  All
+of them take ``scratch_bytes(n, block)`` = 12 N^2 / B bytes, more than the
+card holds at N=1048576.  So the i tiles are swept in bands (``sym_band``):
+a band of R tiles takes 12 R (2N - R B) bytes, within a scratch budget of
+SCRATCH_SHARE of the device's memory (``device_budget``), and a banded
+sweep equals the one-band sweep bit for bit.  Where even a one-tile band
+does not fit, a ValueError names ``--kernel pallas``.  ``fits`` says whether
+all the partials fit at once; the registry's ``auto`` takes the tiled
+kernel where they do not.  The TPU's VMEM cap (``max_sym_n``) does not carry
+over.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs ``accelerations_plain``, the same tile-pair algorithm in plain
-PyTorch, so the CPU tests exercise the mass-folded math and the partials.
+it runs ``accelerations_plain``, the same banded tile-pair algorithm in
+plain PyTorch, so the CPU tests exercise the mass-folded math, the partials
+and the bands.
 
 ``accelerations_two_sided`` is the targets x sources form
 (``csrc/two_sided.cu``, replacing ``pallas_sym.py::_two_sided_kernel``):
 each pair once, the action on the targets and the reaction on the sources,
-each divided by its own G m.  The pair-symmetric half ring of the particle
+each divided by its own G m, in bands of target tiles as well
+(``two_sided_band``).  The pair-symmetric half ring of the particle
 decomposition (``parallel/decompose.py``, comm ``ring_sym``) runs it.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..types import G_NEWTON, SOFTENING_SQUARED
 from ..utils import build
-from .tiled_kernel import check_input, refuse_autograd
+from .tiled_kernel import (
+    check_dist_dtype,
+    check_input,
+    refuse_autograd,
+    round_deltas,
+)
 
 DEFAULT_BLOCK = 128
 MAX_BLOCK = 256  # 8 warps of j-side partials fill 24 KB of shared memory
-# ``auto`` takes this kernel while its partials fit this share of the card.
+# The partials' budget, as a share of the device's memory; ``auto`` takes
+# this kernel while all of its partials fit it.
 SCRATCH_SHARE = 1 / 8
+MAX_BAND = 65535  # a band is the launch grid's y extent
 
 # Kernel launches on CUDA tensors (Kernel B; the two-sided kernel);
 # chip_smoke.py zeroes and reads them.
@@ -49,50 +66,115 @@ def scratch_bytes(n: int, block: int) -> int:
 
 
 def fits(n: int, block: int, device: torch.device) -> bool:
-    """Whether the CUDA kernel takes this shape and its partials stay
-    within SCRATCH_SHARE of the card's memory."""
+    """Whether the CUDA kernel takes this shape and all of its partials
+    stay within SCRATCH_SHARE of the card's memory (one band)."""
     if block % 32 or block > MAX_BLOCK or n % block:
         return False
     total = torch.cuda.get_device_properties(device).total_memory
     return scratch_bytes(n, block) <= SCRATCH_SHARE * total
 
 
+def device_budget(device: torch.device) -> int:
+    """Bytes of partials a sweep may take on ``device``: SCRATCH_SHARE of
+    the card's memory, or of the host's for the plain versions."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return int(SCRATCH_SHARE * total)
+
+
+def band_bytes(n: int, block: int, band: int) -> int:
+    """Bytes of a Kernel B band of ``band`` i tiles: its rows of partials
+    (band x T) and the tail it hands to later rows ((T - band) x band)."""
+    t_count = n // block
+    return 12 * block * band * (2 * t_count - band)
+
+
+def _too_big(what: str, need: int, budget: int) -> ValueError:
+    return ValueError(
+        f"{what}: a band of one tile needs {need} bytes of partials, more "
+        f"than the scratch budget of {budget} bytes (use --kernel pallas)")
+
+
+def sym_band(n: int, block: int, budget: int) -> int:
+    """The most i tiles a Kernel B band takes within ``budget`` bytes:
+    the whole sweep (n / block) where all the partials fit, else the
+    largest R with band_bytes(n, block, R) <= budget; a ValueError naming
+    ``--kernel pallas`` where not even one tile fits."""
+    t_count = n // block
+    if band_bytes(n, block, 1) > budget:
+        raise _too_big(f"pallas_sym at N={n}, block={block}",
+                       band_bytes(n, block, 1), budget)
+    lo, hi = 1, min(t_count, MAX_BAND)  # band_bytes rises with the band
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if band_bytes(n, block, mid) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 def accelerations_plain(pos: torch.Tensor, mass: torch.Tensor,
-                        block: int = DEFAULT_BLOCK) -> torch.Tensor:
-    """The kernel's algorithm in plain PyTorch: for each i tile, the
-    diagonal tile and every later tile in one broadcast block, written into
-    the same (T, T, 3, B) partials, then the ordered sum and the divide."""
+                        block: int = DEFAULT_BLOCK, dist_dtype: str = "float32",
+                        scratch_budget: int = 0) -> torch.Tensor:
+    """The kernel's algorithm in plain PyTorch, bands and all: for each i
+    tile of a band, the diagonal tile and every later tile in one broadcast
+    block, written into the band's rows and tail of partials; then each
+    row's running sum adds the band's columns in order, and the divide.
+    ``scratch_budget``: bytes of partials (0: ``device_budget``)."""
     n = pos.shape[1]
     b = min(block, n)
     if n % b:
         raise ValueError(f"N={n} must be divisible by block={b}")
+    bf16 = check_dist_dtype(dist_dtype)
     t_count = n // b
+    band = sym_band(n, b, scratch_budget or device_budget(pos.device))
     gm = mass * G_NEWTON
-    part = torch.empty((t_count, t_count, 3, b), dtype=pos.dtype,
-                       device=pos.device)
-    for it in range(t_count):
-        i0 = it * b
-        d = pos[:, None, i0:] - pos[:, i0:i0 + b, None]  # (3, B, N - i0)
-        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
-        inv = 1.0 / torch.sqrt(d2)
-        w = (gm[i0:i0 + b, None] * gm[None, i0:]) * (inv * inv * inv)
-        p = (d * w).reshape(3, b, t_count - it, b)  # [c, i, jt - it, j]
-        part[it, it:] = p.sum(dim=3).permute(2, 0, 1)  # i side: P[it][jt]
-        # j side of the off-diagonal tiles: P[jt][it] = -sum_i w d
-        part[it + 1:, it] = -p[:, :, 1:].sum(dim=1).permute(1, 0, 2)
-    s = part.sum(dim=1).permute(1, 0, 2).reshape(3, n)
-    return _divide(s, gm)
+    kw = dict(dtype=pos.dtype, device=pos.device)
+    rows = torch.empty((band, t_count, 3, b), **kw)  # P[r0 + r][u]
+    tail = torch.empty((t_count - band, band, 3, b), **kw)  # P[r1 + t][r0 + r]
+    s = torch.zeros((t_count, 3, b), **kw)  # each row's running sum
+    for r0 in range(0, t_count, band):
+        r1 = min(t_count, r0 + band)
+        for it in range(r0, r1):
+            i0 = it * b
+            d = round_deltas(pos[:, None, i0:] - pos[:, i0:i0 + b, None],
+                             bf16)  # (3, B, N - i0)
+            d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
+            inv = 1.0 / torch.sqrt(d2)
+            w = (gm[i0:i0 + b, None] * gm[None, i0:]) * (inv * inv * inv)
+            p = (d * w).reshape(3, b, t_count - it, b)  # [c, i, jt - it, j]
+            rows[it - r0, it:] = p.sum(dim=3).permute(2, 0, 1)  # P[it][jt]
+            # j side of the off-diagonal tiles: P[jt][it] = -sum_i w d, into
+            # the band's rows for jt < r1, else into its tail.
+            jside = -p[:, :, 1:].sum(dim=1).permute(1, 0, 2)
+            k = r1 - it - 1
+            rows[it - r0 + 1:r1 - r0, it] = jside[:k]
+            tail[:t_count - r1, it - r0] = jside[k:]
+        for u in range(r0, t_count):  # the band's rows: columns r0.. in order
+            s[r0:r1] = s[r0:r1] + rows[:r1 - r0, u]
+        for c in range(r1 - r0):  # later rows: the band's columns in order
+            s[r1:] = s[r1:] + tail[:t_count - r1, c]
+    return _divide(s.permute(1, 0, 2).reshape(3, n), gm)
 
 
 def accelerations(pos: torch.Tensor, mass: torch.Tensor, block: int = 0,
-                  tile_i: int = 0, tile_j: int = 0) -> torch.Tensor:
+                  tile_i: int = 0, tile_j: int = 0,
+                  dist_dtype: str = "float32",
+                  scratch_budget: int = 0) -> torch.Tensor:
     """All-pairs self-accelerations via the pair-symmetric sweep.
     pos (3, N), mass (N,) -> (3, N) fp32.  N must be divisible by the block
     (``block``, else ``tile_i``, else DEFAULT_BLOCK); on CUDA the block is
     a multiple of 32, at most 256.  ``tile_j`` is accepted for
-    registry-option uniformity and unused."""
+    registry-option uniformity and unused.  ``dist_dtype``: "float32" or
+    "bfloat16".  ``scratch_budget``: bytes of partials, which set the bands
+    (0: ``device_budget``)."""
     global launches
     del tile_j
+    bf16 = check_dist_dtype(dist_dtype)
     dev = pos.device
     n = pos.shape[1]
     check_input("pos", pos, (3, n), dev)
@@ -101,19 +183,21 @@ def accelerations(pos: torch.Tensor, mass: torch.Tensor, block: int = 0,
     if n % b:
         raise ValueError(f"N={n} must be divisible by block={b}")
     if dev.type == "cpu":
-        return accelerations_plain(pos, mass, b)
+        return accelerations_plain(pos, mass, b, dist_dtype, scratch_budget)
     if dev.type != "cuda":
         raise ValueError(f"sym kernel runs on cuda or cpu, not {dev}")
     refuse_autograd("sym kernel", pos, mass)
     if b % 32 or b > MAX_BLOCK:
         raise ValueError(f"block={b} must be a multiple of 32, at most {MAX_BLOCK}")
-    part = torch.empty(scratch_bytes(n, b) // 4, dtype=torch.float32, device=dev)
+    band = sym_band(n, b, scratch_budget or device_budget(dev))
+    part = torch.empty(band_bytes(n, b, band) // 4, dtype=torch.float32,
+                       device=dev)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.nbt_sym_accel(
-            pos.data_ptr(), mass.data_ptr(), n, b, part.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            pos.data_ptr(), mass.data_ptr(), n, b, band, part.data_ptr(),
+            out.data_ptr(), int(bf16), torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, "nbt_sym_accel")
     launches += 1
@@ -136,43 +220,72 @@ def two_sided_block(nt: int, ns: int, block: int = 0) -> int:
     return b
 
 
+def two_sided_band(nt: int, ns: int, block: int, budget: int) -> int:
+    """The most target tiles a two-sided band takes within ``budget``
+    bytes (24 R Ns for R tiles: both sides' partials), or a ValueError
+    naming ``--kernel pallas`` where not even one tile fits."""
+    per_tile = 24 * block * (ns // block)
+    if per_tile > budget:
+        raise _too_big(f"two-sided sweep at Nt={nt}, Ns={ns}, block={block}",
+                       per_tile, budget)
+    return min(nt // block, budget // per_tile, MAX_BAND)
+
+
 def accelerations_two_sided_plain(pos_t: torch.Tensor, mass_t: torch.Tensor,
                                   pos_s: torch.Tensor, mass_s: torch.Tensor,
-                                  block: int = DEFAULT_BLOCK
+                                  block: int = DEFAULT_BLOCK,
+                                  dist_dtype: str = "float32",
+                                  scratch_budget: int = 0
                                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The two-sided kernel's algorithm in plain PyTorch: for each target
-    tile, every source tile in one broadcast block, written into the target
-    partials P_t[it][jt] and the source partials P_s[jt][it], then the
-    ordered sums and the divides."""
+    """The two-sided kernel's algorithm in plain PyTorch, bands and all:
+    for each target tile of a band, every source tile in one broadcast
+    block, written into the band's target partials P_t[it][jt] and source
+    partials P_s[jt][it]; then the band's targets are summed in column
+    order, the sources' running sums add the band's columns in order, and
+    each side is divided."""
     nt, ns = pos_t.shape[1], pos_s.shape[1]
     b = two_sided_block(nt, ns, block)
+    bf16 = check_dist_dtype(dist_dtype)
     tt, ts = nt // b, ns // b
+    band = two_sided_band(nt, ns, b, scratch_budget or device_budget(pos_t.device))
     gm_t, gm_s = mass_t * G_NEWTON, mass_s * G_NEWTON
-    part_t = torch.empty((tt, ts, 3, b), dtype=pos_t.dtype, device=pos_t.device)
-    part_s = torch.empty((ts, tt, 3, b), dtype=pos_t.dtype, device=pos_t.device)
-    for it in range(tt):
-        i0 = it * b
-        d = pos_s[:, None, :] - pos_t[:, i0:i0 + b, None]  # (3, B, Ns)
-        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
-        inv = 1.0 / torch.sqrt(d2)
-        w = (gm_t[i0:i0 + b, None] * gm_s[None, :]) * (inv * inv * inv)
-        p = (d * w).reshape(3, b, ts, b)  # [c, i, jt, j]
-        part_t[it] = p.sum(dim=3).permute(2, 0, 1)  # P_t[it][jt]
-        part_s[:, it] = -p.sum(dim=1).permute(1, 0, 2)  # P_s[jt][it]
-    s_t = part_t.sum(dim=1).permute(1, 0, 2).reshape(3, nt)
-    s_s = part_s.sum(dim=1).permute(1, 0, 2).reshape(3, ns)
-    return _divide(s_t, gm_t), _divide(s_s, gm_s)
+    kw = dict(dtype=pos_t.dtype, device=pos_t.device)
+    part_t = torch.empty((band, ts, 3, b), **kw)
+    part_s = torch.empty((ts, band, 3, b), **kw)
+    s_t = torch.zeros((tt, 3, b), **kw)
+    s_s = torch.zeros((ts, 3, b), **kw)
+    for r0 in range(0, tt, band):
+        r1 = min(tt, r0 + band)
+        for it in range(r0, r1):
+            i0 = it * b
+            d = round_deltas(pos_s[:, None, :] - pos_t[:, i0:i0 + b, None],
+                             bf16)  # (3, B, Ns)
+            d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
+            inv = 1.0 / torch.sqrt(d2)
+            w = (gm_t[i0:i0 + b, None] * gm_s[None, :]) * (inv * inv * inv)
+            p = (d * w).reshape(3, b, ts, b)  # [c, i, jt, j]
+            part_t[it - r0] = p.sum(dim=3).permute(2, 0, 1)  # P_t[it][jt]
+            part_s[:, it - r0] = -p.sum(dim=1).permute(1, 0, 2)  # P_s[jt][it]
+        for u in range(ts):
+            s_t[r0:r1] = s_t[r0:r1] + part_t[:r1 - r0, u]
+        for c in range(r1 - r0):
+            s_s = s_s + part_s[:, c]
+    return (_divide(s_t.permute(1, 0, 2).reshape(3, nt), gm_t),
+            _divide(s_s.permute(1, 0, 2).reshape(3, ns), gm_s))
 
 
 def accelerations_two_sided(pos_t: torch.Tensor, mass_t: torch.Tensor,
                             pos_s: torch.Tensor, mass_s: torch.Tensor,
-                            block: int = 0
+                            block: int = 0, dist_dtype: str = "float32",
+                            scratch_budget: int = 0
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Action and reaction of one targets x sources sweep: (acc_t (3,Nt),
     acc_s (3,Ns)) fp32, every cross pair computed once, mass-folded.  Nt
     and Ns must be divisible by the block (``block``, else DEFAULT_BLOCK,
-    at most min(Nt, Ns)); on CUDA it is a multiple of 32, at most 256."""
+    at most min(Nt, Ns)); on CUDA it is a multiple of 32, at most 256.
+    ``dist_dtype`` and ``scratch_budget`` as for ``accelerations``."""
     global two_sided_launches
+    bf16 = check_dist_dtype(dist_dtype)
     dev = pos_t.device
     nt, ns = pos_t.shape[1], pos_s.shape[1]
     check_input("pos_t", pos_t, (3, nt), dev)
@@ -181,13 +294,15 @@ def accelerations_two_sided(pos_t: torch.Tensor, mass_t: torch.Tensor,
     check_input("mass_s", mass_s, (ns,), dev)
     b = two_sided_block(nt, ns, block)
     if dev.type == "cpu":
-        return accelerations_two_sided_plain(pos_t, mass_t, pos_s, mass_s, b)
+        return accelerations_two_sided_plain(pos_t, mass_t, pos_s, mass_s, b,
+                                             dist_dtype, scratch_budget)
     if dev.type != "cuda":
         raise ValueError(f"two-sided kernel runs on cuda or cpu, not {dev}")
     refuse_autograd("two-sided kernel", pos_t, mass_t, pos_s, mass_s)
     if b % 32 or b > MAX_BLOCK:
         raise ValueError(f"block={b} must be a multiple of 32, at most {MAX_BLOCK}")
-    n_part = 3 * nt * (ns // b)  # each side holds as many partials
+    band = two_sided_band(nt, ns, b, scratch_budget or device_budget(dev))
+    n_part = 3 * b * band * (ns // b)  # each side holds as many partials
     part = torch.empty(2 * n_part, dtype=torch.float32, device=dev)
     out_t = torch.empty((3, nt), dtype=torch.float32, device=dev)
     out_s = torch.empty((3, ns), dtype=torch.float32, device=dev)
@@ -195,9 +310,9 @@ def accelerations_two_sided(pos_t: torch.Tensor, mass_t: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.nbt_two_sided(
             pos_t.data_ptr(), mass_t.data_ptr(), nt, pos_s.data_ptr(),
-            mass_s.data_ptr(), ns, b, part.data_ptr(),
+            mass_s.data_ptr(), ns, b, band, part.data_ptr(),
             part[n_part:].data_ptr(), out_t.data_ptr(), out_s.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            int(bf16), torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, "nbt_two_sided")
     two_sided_launches += 1

@@ -1,9 +1,11 @@
 """Kernel A: the tiled targets x sources force sweep (``csrc/tiled.cu``).
 
-Replaces ``nbody_tpu/ops/pallas_kernel.py::_nbody_kernel``, f32 only (the
-bf16 deltas are ROADMAP.md queue 1 item 4).  The public functions keep the
-JAX package's layout: ``accelerations_between(pos_tgt (3,Nt), pos_src
-(3,Ns), mass_src (Ns,)) -> (3,Nt)`` and ``accelerations(pos, mass)``.
+Replaces ``nbody_tpu/ops/pallas_kernel.py::_nbody_kernel``, with its
+``dist_dtype``: ``"float32"``, or ``"bfloat16"``, the bf16 distance mode
+(each pair delta subtracted in f32 and rounded through bf16, all arithmetic
+f32).  The public functions keep the JAX package's layout:
+``accelerations_between(pos_tgt (3,Nt), pos_src (3,Ns), mass_src (Ns,)) ->
+(3,Nt)`` and ``accelerations(pos, mass)``.
 
 On a CUDA tensor the wrapper launches the hand-written kernel or raises; on
 a CPU tensor it runs ``accelerations_between_plain``, the same function in
@@ -57,31 +59,51 @@ def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
         )
 
 
-def check_tiles(tile_i: int, tile_j: int) -> tuple[int, int]:
+def check_tiles(tile_i: int, tile_j: int,
+                max_tile_j: int = MAX_TILE_J) -> tuple[int, int]:
     """The tiles of a sweep over Kernel A's source loop (0: the defaults),
     or a ValueError: ``tile_i`` a multiple of 32 dividing 256, ``tile_j`` a
-    multiple of 256/tile_i, at most 3072."""
+    multiple of 256/tile_i, at most ``max_tile_j``."""
     ti = tile_i or DEFAULT_TILE_I
     tj = tile_j or DEFAULT_TILE_J
     if ti % 32 or THREADS % ti:
         raise ValueError(f"tile_i={ti} must be a multiple of 32 dividing {THREADS}")
-    if tj % (THREADS // ti) or not 0 < tj <= MAX_TILE_J:
+    if tj % (THREADS // ti) or not 0 < tj <= max_tile_j:
         raise ValueError(
-            f"tile_j={tj} must be a multiple of {THREADS // ti} in (0, {MAX_TILE_J}]"
+            f"tile_j={tj} must be a multiple of {THREADS // ti} in (0, {max_tile_j}]"
         )
     return ti, tj
 
 
+DIST_DTYPES = ("float32", "bfloat16")
+
+
+def check_dist_dtype(dist_dtype: str) -> bool:
+    """Whether ``dist_dtype`` is the bf16 distance mode; raises on a name
+    the kernels do not take."""
+    if dist_dtype not in DIST_DTYPES:
+        raise ValueError(f"unknown dist_dtype {dist_dtype!r}; options: {DIST_DTYPES}")
+    return dist_dtype == "bfloat16"
+
+
+def round_deltas(d: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The bf16 distance mode's rounding of f32 pair deltas: to nearest even
+    through bf16 and back (as ``jnp.astype`` and ``__float2bfloat16_rn``)."""
+    return d.to(torch.bfloat16).float() if bf16 else d
+
+
 def accelerations_between_plain(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
-                                 mass_src: torch.Tensor, chunk: int = 1024
-                                 ) -> torch.Tensor:
+                                 mass_src: torch.Tensor, chunk: int = 1024,
+                                 dist_dtype: str = "float32") -> torch.Tensor:
     """The kernel's function in plain PyTorch: broadcast pair blocks over
     chunks of targets, with the kernel's ``1 / sqrt`` (IEEE) instead of
     ``rsqrt``.  The kernel's tiles do not change the function."""
+    bf16 = check_dist_dtype(dist_dtype)
     gm = mass_src * G_NEWTON
     out = []
     for c0 in range(0, pos_tgt.shape[1], chunk):
-        d = pos_src[:, None, :] - pos_tgt[:, c0:c0 + chunk, None]  # (3, C, Ns)
+        d = round_deltas(pos_src[:, None, :] - pos_tgt[:, c0:c0 + chunk, None],
+                         bf16)  # (3, C, Ns)
         d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
         inv = 1.0 / torch.sqrt(d2)
         w = gm[None, :] * (inv * inv * inv)
@@ -91,21 +113,24 @@ def accelerations_between_plain(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
 
 def accelerations_between(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
                           mass_src: torch.Tensor, tile_i: int = 0,
-                          tile_j: int = 0) -> torch.Tensor:
+                          tile_j: int = 0, dist_dtype: str = "float32"
+                          ) -> torch.Tensor:
     """Accelerations of targets due to sources.
     pos_tgt (3, Nt), pos_src (3, Ns), mass_src (Ns,) -> (3, Nt) fp32.
 
     ``tile_i``: targets per CTA, a multiple of 32 dividing 256 (default 64).
     ``tile_j``: sources per shared-memory tile, a multiple of 256/tile_i,
-    at most 3072 (default 256)."""
+    at most 3072 (default 256).  ``dist_dtype``: "float32" or "bfloat16"."""
     global launches
+    bf16 = check_dist_dtype(dist_dtype)
     dev = pos_tgt.device
     nt, ns = pos_tgt.shape[1], pos_src.shape[1]
     check_input("pos_tgt", pos_tgt, (3, nt), dev)
     check_input("pos_src", pos_src, (3, ns), dev)
     check_input("mass_src", mass_src, (ns,), dev)
     if dev.type == "cpu":
-        return accelerations_between_plain(pos_tgt, pos_src, mass_src)
+        return accelerations_between_plain(pos_tgt, pos_src, mass_src,
+                                           dist_dtype=dist_dtype)
     if dev.type != "cuda":
         raise ValueError(f"tiled kernel runs on cuda or cpu, not {dev}")
     refuse_autograd("tiled kernel", pos_tgt, pos_src, mass_src)
@@ -117,7 +142,8 @@ def accelerations_between(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.nbt_tiled_accel(
             pos_tgt.data_ptr(), nt, pos_src.data_ptr(), mass_src.data_ptr(),
-            ns, out.data_ptr(), ti, tj, torch.cuda.current_stream().cuda_stream,
+            ns, out.data_ptr(), ti, tj, int(bf16),
+            torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, "nbt_tiled_accel")
     launches += 1
@@ -125,6 +151,7 @@ def accelerations_between(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
 
 
 def accelerations(pos: torch.Tensor, mass: torch.Tensor, tile_i: int = 0,
-                  tile_j: int = 0) -> torch.Tensor:
+                  tile_j: int = 0, dist_dtype: str = "float32") -> torch.Tensor:
     """All-pairs self-accelerations. pos (3,N), mass (N,) -> (3,N)."""
-    return accelerations_between(pos, pos, mass, tile_i=tile_i, tile_j=tile_j)
+    return accelerations_between(pos, pos, mass, tile_i=tile_i, tile_j=tile_j,
+                                 dist_dtype=dist_dtype)

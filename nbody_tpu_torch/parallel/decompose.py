@@ -199,20 +199,32 @@ def check_sharded_kernel(kernel_name: str, comm: str) -> None:
         "is not ported yet: ROADMAP.md queue 1 item 11(b)")
 
 
+def check_sharded_dist(comm: str, dist_dtype: str) -> None:
+    """Raise for the bf16 distance mode in ``rdma``, whose ring kernel runs
+    fp32 only (the JAX package's drops the mode silently, as its
+    ``ring_sym`` does); ``allgather`` and ``ring`` pass it to the between
+    form, ``ring_sym`` to both pair-symmetric kernels."""
+    if comm == "rdma" and dist_dtype != "float32":
+        raise ValueError(f"--comm {comm} runs fp32 kernels only; --precision "
+                         "bf16 needs --comm allgather, ring or ring_sym")
+
+
 def _accel_fn(kernel_name: str, kernel_opts: dict, mesh: Mesh, comm: str):
     """The comm mode's force function over the shard lists."""
     check_sharded_kernel(kernel_name, comm)
+    check_sharded_dist(comm, kernel_opts.get("dist_dtype", "float32"))
     if comm == "rdma":
         ropts = {key: v for key, v in kernel_opts.items()
                  if key in ("tile_i", "tile_j")}
         return lambda pos, mass: ring_accelerations(pos, mass, **ropts)
     if comm == "ring_sym":
         # The pair-symmetric kernels make the mode: the kernel name sets
-        # nothing but the block (tile_i).
-        blk = kernel_opts.get("tile_i", 0)
-        self_fn = functools.partial(sym_kernel.accelerations, block=blk)
+        # nothing but the block (tile_i) and the distance mode.
+        sym_opts = dict(block=kernel_opts.get("tile_i", 0),
+                        dist_dtype=kernel_opts.get("dist_dtype", "float32"))
+        self_fn = functools.partial(sym_kernel.accelerations, **sym_opts)
         two_sided_fn = functools.partial(sym_kernel.accelerations_two_sided,
-                                         block=blk)
+                                         **sym_opts)
         return lambda pos, mass: _accel_ring_sym(pos, mass, mesh, self_fn,
                                                  two_sided_fn)
     if comm not in _BETWEEN_MODES:

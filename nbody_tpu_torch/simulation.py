@@ -21,6 +21,12 @@ and GFlop/s statistics, print the footer.
 * ``SimConfig.energy_check`` reports the total-energy (KE + PE) drift over
   the run: E0 is taken before the header and E1 after the footer, both
   outside the clock.
+* ``SimConfig.profile_dir`` writes a ``torch.profiler`` trace of the
+  sample blocks (CPU and, on the card, CUDA activity) into the directory,
+  as the JAX engine's ``jax.profiler.trace``; ``SimConfig.debug_nans``
+  raises ``FloatingPointError`` when a sample block ends with a non-finite
+  position, velocity or kinetic energy, checked where the host reads the
+  energy.
 * The mesh tiers (``pm``, ``p3m``, open boundary): the P3M plan is measured
   on the initial state before the warm-up (the layout first, then
   ``SimConfig.resolve_sr_plan``); each block freezes the mesh box and
@@ -38,8 +44,10 @@ ported").
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import os
 import sys
 from typing import List, Optional, Tuple
 
@@ -253,6 +261,36 @@ class _DeviceRunner:
         # sync per sample block.
         return float(ke)
 
+    def check_finite(self, ke: float, step: int) -> None:
+        """``--debug-nans``: raise if the block ending at ``step`` left a
+        non-finite position, velocity or kinetic energy."""
+        state = self.state
+        for name, xs in (("position", state.pos), ("velocity", state.vel)):
+            for x in xs if isinstance(xs, tuple) else (xs,):
+                if not bool(torch.isfinite(x).all()):
+                    raise FloatingPointError(
+                        f"--debug-nans: non-finite {name} after step {step}")
+        if not math.isfinite(ke):
+            raise FloatingPointError(
+                f"--debug-nans: non-finite kinetic energy {ke} after step "
+                f"{step}")
+
+    def profile(self):
+        """A ``torch.profiler`` context over the sample blocks that writes
+        its trace into ``SimConfig.profile_dir`` on exit, or a null
+        context."""
+        if not self.cfg.profile_dir:
+            return contextlib.nullcontext()
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir, "trace.json")
+        return profile(activities=acts,
+                       on_trace_ready=lambda p: p.export_chrome_trace(path))
+
     def total_energy(self) -> float:
         """KE + PE of the current state (zero-mass padding adds nothing),
         on the whole state when it is sharded."""
@@ -288,26 +326,30 @@ def _run_prepared(runner: _DeviceRunner, cfg: SimConfig, out,
     dev = 0.0
     nf = 0
 
-    t0 = timer.start()
-    s = 0
-    while s < cfg.nsteps:
-        steps = min(cfg.sfreq, cfg.nsteps - s)
-        b0 = timer.start()
-        ke = runner.run_block(steps)
-        b1 = timer.stop()
-        s += steps
-        if steps == cfg.sfreq and s % cfg.sfreq == 0:
-            nf += 1
-            block_secs = b1 - b0
-            block_gf = gflops * cfg.sfreq / block_secs
-            t_phys = float(np.float32(s) * np.float32(cfg.dt))
-            samples.append((s, t_phys, ke, block_secs, block_gf))
-            emit(reporting.stats_row(s, t_phys, ke, block_secs, block_gf), out)
-            runner.check_sr_health()
-            if nf > 2:
-                av += block_gf
-                dev += block_gf * block_gf
-    t1 = timer.stop()
+    with runner.profile():
+        t0 = timer.start()
+        s = 0
+        while s < cfg.nsteps:
+            steps = min(cfg.sfreq, cfg.nsteps - s)
+            b0 = timer.start()
+            ke = runner.run_block(steps)
+            b1 = timer.stop()
+            s += steps
+            if cfg.debug_nans:
+                runner.check_finite(ke, s)
+            if steps == cfg.sfreq and s % cfg.sfreq == 0:
+                nf += 1
+                block_secs = b1 - b0
+                block_gf = gflops * cfg.sfreq / block_secs
+                t_phys = float(np.float32(s) * np.float32(cfg.dt))
+                samples.append((s, t_phys, ke, block_secs, block_gf))
+                emit(reporting.stats_row(s, t_phys, ke, block_secs, block_gf),
+                     out)
+                runner.check_sr_health()
+                if nf > 2:
+                    av += block_gf
+                    dev += block_gf * block_gf
+        t1 = timer.stop()
 
     total = t1 - t0
     if nf > 2:

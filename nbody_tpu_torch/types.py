@@ -2,8 +2,9 @@
 
 The constants are the reference's (ver0/GSimulation.cpp:114-116), as in
 ``nbody_tpu.types``.  The JAX package offers three force precisions; the
-port carries the names so configurations read the same, but only ``f32``
-(fp32 deltas and fp32 accumulation) runs so far.
+port runs ``f32`` (fp32 deltas and fp32 accumulation) and ``bf16`` (the
+bf16 distance mode: deltas subtracted in fp32 and rounded through bf16,
+fp32 arithmetic); ``ref64``, the host oracle, is not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +13,6 @@ from __future__ import annotations
 SOFTENING_SQUARED = 1e-3
 G_NEWTON = 6.67259e-11
 
-# Precision modes of the JAX package; the port accepts only "f32" so far.
+# Precision modes of the JAX package, and those the port runs.
 PRECISIONS = ("f32", "bf16", "ref64")
-SUPPORTED_PRECISIONS = ("f32",)
+SUPPORTED_PRECISIONS = ("f32", "bf16")

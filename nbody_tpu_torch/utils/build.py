@@ -39,10 +39,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C function -> argument types; every function returns a cudaError_t as int.
 SIGNATURES = {
-    # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, stream
-    "nbt_tiled_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _P),
-    # pos, mass, n, block, partials, out, stream
-    "nbt_sym_accel": (_P, _P, _I, _I, _P, _P, _P),
+    # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, bf16, stream
+    "nbt_tiled_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P),
+    # pos, mass, n, block, band, partials, out, bf16, stream
+    "nbt_sym_accel": (_P, _P, _I, _I, _I, _P, _P, _I, _P),
     # pos, vel, mass, n, block, partials, queue, steps, dt, half, leapfrog,
     # stream
     "nbt_fused_rows": (_P, _P, _P, _I, _I, _P, _P, _I, _F, _F, _I, _P),
@@ -53,12 +53,14 @@ SIGNATURES = {
     # ptab, mtab, nslots, wl_t, wl_s, e_max, bounds, rc2, fwd, react,
     # symmetric, paired, stream
     "nbt_sr_sweep": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
-    # pos_t, mass_t, nt, pos_s, mass_s, ns, block, part_t, part_s, out_t,
-    # out_s, stream
-    "nbt_two_sided": (_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    # pos_t, mass_t, nt, pos_s, mass_s, ns, block, band, part_t, part_s,
+    # out_t, out_s, bf16, stream
+    "nbt_two_sided": (_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P),
     # pos, mass, out, slots (host arrays of k device pointers), k, nl,
     # flags, tile_i, tile_j, stream
     "nbt_ring_accel": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P),
+    # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, stream
+    "nbt_mxu_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _P),
 }
 
 

@@ -28,13 +28,17 @@ env for the mesh tiers) and prints:
   plan.
 
 The cells: the exact path at N=2000 and N=16384 (``auto``, and the fused
-rows block at N=16384), 50-step blocks; the particle decomposition at
+rows block at N=16384), 50-step blocks; ``pallas_mxu`` and ``auto`` in
+bf16 at N=16384, 50-step blocks; ``auto`` in bf16 at N=131072, 10-step
+blocks; ``pallas_sym`` at N=1048576, whose partials run in bands, one-step
+blocks; the particle decomposition at
 N=2000 and N=16384 over 4 virtual shards of the card in each comm mode
 (``allgather``, ``ring``, ``ring_sym``, ``rdma``) and ``rdma`` over 3 at
 N=2000, 50-step blocks; P3M on the Plummer sphere of the JAX package's
 gate (N=262144, seed 7, ng=128, cutoff 4), 8-step blocks; P3M and PM on
-the reference initial conditions at N=1048576, 4-step blocks.  Each cell is built by the engine (``simulation._DeviceRunner``:
-its state, P3M plan, mesh env and blocks).  The first line is the card's
+the reference initial conditions at N=1048576, 4-step blocks.  Each cell
+is built by the engine (``simulation._DeviceRunner``: its state, P3M plan,
+mesh env and blocks).  The first line is the card's
 name and power limit.  Needs a CUDA card; imports nothing of JAX.
 """
 
@@ -260,6 +264,10 @@ def main() -> int:
             ("N=2000 auto", 50, dict(n=2000)),
             ("N=16384 auto", 50, dict(n=16384)),
             ("N=16384 fused rows", 50, dict(n=16384, fused=True)),
+            ("N=16384 pallas_mxu", 50, dict(n=16384, kernel="pallas_mxu")),
+            ("N=16384 auto bf16", 50, dict(n=16384, precision="bf16")),
+            ("N=131072 auto bf16", 10, dict(n=131072, precision="bf16")),
+            ("N=1048576 pallas_sym", 1, dict(n=1048576, kernel="pallas_sym")),
             *((f"N={n} shards={k} {comm}", 50, dict(n=n, shards=k,
                                                      comm=comm))
               for n, k, comm in (

@@ -14,9 +14,14 @@ plain sweep (tests/test_grad.py); the P3M short-range sweep at 2e-5 of the
 largest occupied slot, as tests/test_p3m.py holds the Pallas sweep against
 the plain one, and the mesh tiers at 1e-4 relative norm against the JAX
 package's accelerations in tests/golden/torch_p3m_plummer_n16384.npz.
-The sharded modes hold the n256_s100 golden trace at %.5g.
+The sharded modes hold the n256_s100 golden trace at %.5g.  The mxu kernel
+and the bf16 distance mode hold the same 1e-5 against their plain versions
+(the mxu kernel's d2 and w equal its plain version's bit for bit; its sums
+are short per-tile partials), and a banded pair-symmetric or two-sided sweep
+equals the one-band sweep bit for bit.
 """
 
+import json
 import os
 
 import numpy as np
@@ -31,6 +36,7 @@ from nbody_tpu_torch.models.rollout import make_rollout_fn
 from nbody_tpu_torch.ops import (
     fused_block,
     grad,
+    mxu_kernel,
     naive,
     pm,
     sr_kernel,
@@ -222,6 +228,7 @@ def test_kernels_refuse_inputs_that_require_grad(cuda_device):
         lambda: sym_kernel.accelerations_two_sided(pos, st.mass, st.pos,
                                                    st.mass),
         lambda: ring_kernel.ring_accelerations([pos], [st.mass]),
+        lambda: mxu_kernel.accelerations(pos, st.mass),
     ]
     for call in calls:
         with pytest.raises(RuntimeError,
@@ -401,3 +408,124 @@ def test_sharded_golden_trace_on_card(cuda_device, comm, k):
             "ring_sym": (0, k * steps, 0, pairs * steps),
             "rdma": (0, 0, steps, 0)}[comm]
     assert counts == want
+
+
+@pytest.mark.parametrize("tiles", [(0, 0), (32, 512), (128, 2048), (256, 8)])
+@pytest.mark.parametrize("n,n_pad", [(2048, 2048), (2000, 2048), (3001, 3001),
+                                     (300, 384)])
+def test_mxu_kernel_matches_plain(cuda_device, n, n_pad, tiles):
+    """At N <= 512 the expansion's own error against float64 is above 1e-5
+    (tests/test_torch_mxu.py), so there two fp32 implementations agree to
+    5e-5; from N=2000 on the kernel holds 1e-5 against its plain version."""
+    st = make_state(n, pad_multiple=n_pad, device=cuda_device)
+    before = mxu_kernel.launches
+    got = mxu_kernel.accelerations(st.pos, st.mass, *tiles)
+    again = mxu_kernel.accelerations(st.pos, st.mass, *tiles)
+    torch.cuda.synchronize()
+    assert mxu_kernel.launches == before + 2
+    assert torch.equal(got, again)
+    plain = mxu_kernel.accelerations_between_plain(st.pos, st.pos, st.mass)
+    assert _rel(got[:, :n], plain[:, :n]) <= (1e-5 if n >= 2000 else 5e-5)
+    f64 = naive.accelerations(st.pos.double(), st.mass.double())
+    assert _rel(got[:, :n], f64[:, :n]) < 1e-4
+    assert torch.isfinite(got).all()
+    if n_pad > n:  # padded sources add exactly nothing
+        real = [t.contiguous() for t in (st.pos[:, :n], st.mass[:n])]
+        assert torch.equal(mxu_kernel.accelerations(*real, *tiles), got[:, :n])
+
+
+@pytest.mark.parametrize("nt,ns", [(500, 2000), (500, 500)])
+def test_mxu_between_matches_plain(cuda_device, nt, ns):
+    """The between form at one shard's shapes of N=2000 over 4 shards:
+    allgather's 500 x 2000 and ring's 500 x 500."""
+    st = make_state(2000, device=cuda_device)
+    tgt = st.pos[:, 1000:1000 + nt].contiguous()
+    src, m = st.pos[:, :ns].contiguous(), st.mass[:ns].contiguous()
+    got = mxu_kernel.accelerations_between(tgt, src, m)
+    assert torch.equal(got, mxu_kernel.accelerations_between(tgt, src, m))
+    plain = mxu_kernel.accelerations_between_plain(tgt, src, m)
+    assert _rel(got, plain) <= 1e-5
+
+
+def test_mxu_kernel_bad_tiles_and_bf16(cuda_device):
+    st = make_state(512, device=cuda_device)
+    with pytest.raises(ValueError, match="tile_j"):
+        mxu_kernel.accelerations(st.pos, st.mass, tile_j=3072)
+    with pytest.raises(ValueError, match="fp32 distances"):
+        mxu_kernel.accelerations(st.pos, st.mass, dist_dtype="bfloat16")
+
+
+def test_mxu_run_on_card(cuda_device):
+    mxu_kernel.launches = tiled_kernel.launches = sym_kernel.launches = 0
+    res = run(SimConfig(n=256, nsteps=100, kernel="pallas_mxu"), quiet=True)
+    assert (mxu_kernel.launches, tiled_kernel.launches,
+            sym_kernel.launches) == (150, 0, 0)
+    ref = run(SimConfig(n=256, nsteps=100, kernel="pallas"), quiet=True)
+    for (_, ke), (_, want) in zip(res.kenergy_trace, ref.kenergy_trace):
+        assert abs(ke - want) <= 1e-4 * abs(want)
+
+
+@pytest.mark.parametrize("n,n_pad", [(2048, 2048), (2000, 2048)])
+def test_bf16_kernels_match_plain(cuda_device, n, n_pad):
+    bf = "bfloat16"
+    st = make_state(n, pad_multiple=n_pad, device=cuda_device)
+    a = tiled_kernel.accelerations(st.pos, st.mass, dist_dtype=bf)
+    b = sym_kernel.accelerations(st.pos, st.mass, dist_dtype=bf)
+    torch.cuda.synchronize()
+    assert torch.equal(a, tiled_kernel.accelerations(st.pos, st.mass,
+                                                     dist_dtype=bf))
+    assert torch.equal(b, sym_kernel.accelerations(st.pos, st.mass,
+                                                   dist_dtype=bf))
+    assert _rel(a, tiled_kernel.accelerations_between_plain(
+        st.pos, st.pos, st.mass, dist_dtype=bf)) <= 1e-5
+    assert _rel(b, sym_kernel.accelerations_plain(st.pos, st.mass,
+                                                  dist_dtype=bf)) <= 1e-5
+    assert not torch.equal(b, sym_kernel.accelerations(st.pos, st.mass))
+    half = n_pad // 2
+    args = (st.pos[:, :half].contiguous(), st.mass[:half].contiguous(),
+            st.pos[:, half:].contiguous(), st.mass[half:].contiguous())
+    got = sym_kernel.accelerations_two_sided(*args, dist_dtype=bf)
+    want = sym_kernel.accelerations_two_sided_plain(*args, dist_dtype=bf)
+    assert all(_rel(x, y) <= 1e-5 for x, y in zip(got, want))
+
+
+def test_bf16_ring_sym_run_on_card(cuda_device):
+    """ring_sym in bf16: Kernel B and the two-sided sweep launch in the mode
+    (K and K floor((K-1)/2) + K/2 a step), and the trace stays within 1e-4
+    of the f32 run without equalling it."""
+    kes = {}
+    for precision in ("f32", "bf16"):
+        sym_kernel.launches = sym_kernel.two_sided_launches = 0
+        tiled_kernel.launches = 0
+        res = run(SimConfig(n=256, nsteps=100, shards=4, comm="ring_sym",
+                            precision=precision), quiet=True)
+        assert (sym_kernel.launches, sym_kernel.two_sided_launches,
+                tiled_kernel.launches) == (4 * 150, 6 * 150, 0)
+        kes[precision] = [ke for _, ke in res.kenergy_trace]
+    assert kes["bf16"] != kes["f32"]
+    for ke, ke32 in zip(kes["bf16"], kes["f32"]):
+        assert abs(ke - ke32) <= 1e-4 * abs(ke32)
+
+
+def test_banded_sweeps_equal_one_band(cuda_device):
+    st = make_state(4096, device=cuda_device)
+    one = sym_kernel.accelerations(st.pos, st.mass)
+    for bands in (1, 5, 13):
+        budget = sym_kernel.band_bytes(4096, 128, bands)
+        assert torch.equal(sym_kernel.accelerations(
+            st.pos, st.mass, scratch_budget=budget), one)
+    args = (st.pos[:, :2048].contiguous(), st.mass[:2048].contiguous(),
+            st.pos[:, 2048:].contiguous(), st.mass[2048:].contiguous())
+    one = sym_kernel.accelerations_two_sided(*args)
+    banded = sym_kernel.accelerations_two_sided(*args,
+                                                scratch_budget=24 * 3 * 2048)
+    assert all(torch.equal(a, b) for a, b in zip(banded, one))
+
+
+def test_profile_dir_traces_the_card(cuda_device, tmp_path):
+    """--profile-dir on the card: the trace holds the blocks' kernels."""
+    run(SimConfig(n=256, nsteps=100, profile_dir=str(tmp_path),
+                  debug_nans=True), quiet=True)
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    assert any("sym_pairs_kernel" in name for name in names)

@@ -27,7 +27,7 @@ from nbody_tpu.ops import naive as jax_naive
 from nbody_tpu.ops import pallas_kernel as jax_pallas
 from nbody_tpu.ops import pallas_sym as jax_sym
 from nbody_tpu_torch.init import make_state
-from nbody_tpu_torch.ops import naive, registry, sym_kernel, tiled_kernel
+from nbody_tpu_torch.ops import mxu_kernel, naive, registry, sym_kernel, tiled_kernel
 from nbody_tpu_torch.utils import build
 
 torch.set_num_threads(2)
@@ -139,8 +139,8 @@ def test_wrappers_check_inputs(fn, args, exc):
 
 
 def test_registry_auto_and_names():
-    assert registry.available() == ("naive", "p3m", "pallas", "pallas_sym",
-                                    "pm", "auto")
+    assert registry.available() == ("naive", "p3m", "pallas", "pallas_mxu",
+                                    "pallas_sym", "pm", "auto")
     assert registry.resolve("auto", "cpu") == "naive"
     assert registry.resolve("auto", "cuda") == "pallas_sym"
     assert registry.resolve("pallas", "cpu") == "pallas"
@@ -148,20 +148,77 @@ def test_registry_auto_and_names():
     pos, mass = _particles(128, 5)
     auto = registry.get("auto")(_t(pos), _t(mass), tile_i=64)
     assert torch.equal(auto, naive.accelerations(_t(pos), _t(mass)))
+    assert registry.get("pallas_mxu") is mxu_kernel.accelerations
     with pytest.raises(KeyError, match="unknown kernel"):
-        registry.get("pallas_mxu")
+        registry.get("pallas_fft")
 
 
 def test_sym_scratch_budget():
     # 12 N^2 / B bytes of partials: 25 MB at N=16384, B=128.
     assert sym_kernel.scratch_bytes(16384, 128) == 12 * 16384 * 16384 // 128
     assert sym_kernel.scratch_bytes(2048, 128) == 3 * 2048 * 16 * 4
+    # One band holds all of them; a band of R tiles takes 12 R (2N - R B).
+    assert sym_kernel.band_bytes(16384, 128, 128) == sym_kernel.scratch_bytes(
+        16384, 128)
+    assert sym_kernel.band_bytes(2048, 128, 1) == 12 * 128 * 31
+
+
+def test_sym_bands_at_a_million():
+    # N=1048576, B=128 on an 80 GB card: the partials (103 GB) take 21 bands
+    # of about 400 tiles within a budget of 1/8 of the card's memory.
+    n, b, budget = 1048576, 128, int(80e9 * sym_kernel.SCRATCH_SHARE)
+    assert sym_kernel.scratch_bytes(n, b) > 80e9
+    band = sym_kernel.sym_band(n, b, budget)
+    assert sym_kernel.band_bytes(n, b, band) <= budget
+    assert sym_kernel.band_bytes(n, b, band + 1) > budget
+    assert -(-(n // b) // band) == 21 and 380 <= band <= 420
+    # Everything fits: one band.
+    assert sym_kernel.sym_band(16384, 128, budget) == 128
+    # Not even one tile: a ValueError that names the tiled kernel.
+    with pytest.raises(ValueError, match="--kernel pallas"):
+        sym_kernel.sym_band(n, b, sym_kernel.band_bytes(n, b, 1) - 1)
+    with pytest.raises(ValueError, match="--kernel pallas"):
+        sym_kernel.two_sided_band(4096, n, b, 24 * n - 1)  # 24 Ns a tile
+    assert sym_kernel.two_sided_band(4096, 4096, 128, 24 * 4096 * 5) == 5
+
+
+@pytest.mark.parametrize("n,block,bands", [(512, 64, 3), (768, 128, 1),
+                                           (768, 128, 2), (2000, 80, 7)])
+def test_banded_sym_equals_one_band(n, block, bands):
+    """The plain Kernel B under a tiny scratch budget sweeps its i tiles in
+    bands; each row still adds its partials in column order, so the result
+    equals the one-band sweep bit for bit, in both distance modes."""
+    pos, mass = _particles(n, 30 + n, pad_to=n + (-n) % block)
+    for dist in ("float32", "bfloat16"):
+        one = sym_kernel.accelerations(_t(pos), _t(mass), block=block,
+                                       dist_dtype=dist)
+        budget = sym_kernel.band_bytes(pos.shape[1], block, bands)
+        assert sym_kernel.sym_band(pos.shape[1], block, budget) == bands
+        banded = sym_kernel.accelerations(_t(pos), _t(mass), block=block,
+                                          dist_dtype=dist,
+                                          scratch_budget=budget)
+        assert torch.equal(banded, one)
+
+
+@pytest.mark.parametrize("nt,ns,block,bands", [(512, 256, 64, 3),
+                                               (256, 384, 128, 1)])
+def test_banded_two_sided_equals_one_band(nt, ns, block, bands):
+    pt, mt = _particles(nt, 40)
+    ps, ms = _particles(ns, 41)
+    args = (_t(pt), _t(mt), _t(ps), _t(ms))
+    one = sym_kernel.accelerations_two_sided(*args, block=block)
+    budget = 24 * bands * ns
+    banded = sym_kernel.accelerations_two_sided(*args, block=block,
+                                                scratch_budget=budget)
+    assert all(torch.equal(a, b) for a, b in zip(banded, one))
+    want_t = naive.accelerations_between(*args[:1], *args[2:])
+    assert _rel(banded[0].numpy(), want_t.numpy()) <= 5e-6
 
 
 def test_build_layout():
     srcs = [p.name for p in build.sources()]
-    assert srcs == ["fused.cu", "ring.cu", "sr.cu", "sym.cu", "tiled.cu",
-                    "two_sided.cu", "vjp.cu"]
+    assert srcs == ["fused.cu", "mxu.cu", "ring.cu", "sr.cu", "sym.cu",
+                    "tiled.cu", "two_sided.cu", "vjp.cu"]
     path = build.library_path()
     assert path.name == "libnbody_kernels.so"
     assert path.parent.parent == build.BUILD_DIR

@@ -150,7 +150,8 @@ def test_cli_in_process(tmp_path, capsys):
     (["--pm-box", "1.0"], "queue 1 item 9"),
     (["--checkpoint-every", "2"], "queue 1 item 12"),
     (["--autotune"], "queue 1 item 12"),
-    (["--precision", "bf16"], "queue 1 item 4"),
+    (["--precision", "bf16", "--shards", "4", "--comm", "rdma"],
+     "--comm rdma runs fp32"),
     (["--save-state", "state.npz"], "queue 1 item 12"),
 ])
 def test_cli_refuses_unported(argv, match, capsys):
@@ -158,6 +159,48 @@ def test_cli_refuses_unported(argv, match, capsys):
         main(["64", "50", "--platform", "cpu", *argv])
     assert e.value.code == 2
     assert match in capsys.readouterr().err
+
+
+def test_cli_interpret_is_refused(capsys):
+    with pytest.raises(SystemExit) as e:
+        main(["64", "50", "--platform", "cpu", "--interpret"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "What is not ported" in err and "--platform cpu" in err
+    assert "unrecognized arguments" not in err
+
+
+def test_cli_list_devices(capsys):
+    assert main(["--list-devices"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    cuda = [ln for ln in lines if ": cuda " in ln]
+    assert len(cuda) == torch.cuda.device_count()
+    assert lines[-1].startswith("0: cpu ") and len(lines) == len(cuda) + 1
+
+
+def test_cli_profile_dir(tmp_path, capsys):
+    prof = tmp_path / "prof"
+    assert main(["64", "100", "--platform", "cpu", "--profile-dir",
+                 str(prof)]) == 0
+    # The profiler watches the blocks and changes nothing they compute.
+    ref = run(SimConfig(n=64, nsteps=100, platform="cpu"), quiet=True)
+    assert parse_trace(capsys.readouterr().out) == [
+        (s, f"{ke:.5g}") for s, ke in ref.kenergy_trace]
+    trace = json.loads((prof / "trace.json").read_text())
+    assert trace["traceEvents"]
+
+
+def test_debug_nans(capsys):
+    # A finite run passes the check; a state that turns non-finite raises.
+    assert main(["64", "50", "--platform", "cpu", "--debug-nans"]) == 0
+    capsys.readouterr()
+    cfg = SimConfig(n=64, nsteps=100, platform="cpu", debug_nans=True,
+                    dt=float("inf"))
+    with pytest.raises(FloatingPointError, match="non-finite position"):
+        run(cfg, quiet=True)
+    cfg.debug_nans = False
+    res = run(cfg, quiet=True)  # without the check the run goes on
+    assert not all(np.isfinite(ke) for _, ke in res.kenergy_trace)
 
 
 def test_cli_subprocess_golden(golden_dir):

@@ -101,7 +101,7 @@ def test_make_state_refuses_unported_distribution():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(precision="bf16"), NotImplementedError, "queue 1 item 4"),
+    (dict(precision="bf16", kernel="pm"), ValueError, "fp32-only"),
     (dict(precision="ref64"), NotImplementedError, "queue 1 item 12"),
     (dict(kernel="p3m", pm_boundary="periodic"), NotImplementedError,
      "queue 1 item 9"),
