@@ -10,6 +10,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace nbt {
 
@@ -21,13 +22,35 @@ constexpr float kG = 6.67259e-11f;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kTiledThreads = 256;  // threads of a tiled-sweep CTA
 
-// 1 / (|d|^2 + eps^2)^{3/2}.  1.0f / sqrtf is IEEE-rounded under nvcc's
-// default -prec-div=true -prec-sqrt=true (no --use_fast_math); rsqrtf is
-// approximate and is not used.
+// 1 / (|d|^2 + eps^2)^{3/2} with 1.0f / sqrtf, IEEE-rounded under nvcc's
+// default -prec-div=true -prec-sqrt=true (no --use_fast_math): two
+// refinement sequences with a slow-path branch each.  Only the kernels not
+// yet redesigned use it: Kernel B, the two-sided sweep and the fused rows
+// block (sym_tile_cross, sym_tile_pair_at).  The tiled sweep takes
+// rsqrt_cube, the mxu kernel rsqrt_approx.
 __device__ __forceinline__ float inv_cube(float dx, float dy, float dz) {
   const float d2 = dx * dx + dy * dy + dz * dz + kSoftening2;
   const float inv = 1.0f / sqrtf(d2);
   return inv * inv * inv;
+}
+
+// 1 / sqrt(d2) for d2 >= eps^2 from the SFU alone: rsqrt.approx, within a
+// few ulp (.ftz changes nothing, since d2 is never subnormal).  One MUFU op,
+// no branch.
+__device__ __forceinline__ float rsqrt_approx(float d2) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(d2));
+  return y;
+}
+
+// d2^{-3/2} for d2 >= eps^2: rsqrt_approx, one Newton step
+// y (3 - d2 y^2) / 2, which leaves it within about an ulp of 1 / sqrt, then
+// the cube.  One MUFU op and six FP32 ops, with no branch.
+__device__ __forceinline__ float rsqrt_cube(float d2) {
+  float y = rsqrt_approx(d2);
+  const float h = 0.5f * d2;
+  y = y * fmaf(-h * y, y, 1.5f);
+  return y * y * y;
 }
 
 // The pair deltas' precision, a compile-time flag of the pair arithmetic.
@@ -205,72 +228,138 @@ __device__ __forceinline__ float3 sym_reduce(const float* part, float gm,
 // ---------------------------------------------------------------------------
 // The tiled targets x sources sweep (Kernel A; see the note in tiled.cu).
 
-// The source loop of a CTA of blockDim (ti, rows), ti * rows =
-// kTiledThreads: thread (tx, ty) sums, for its target (xi, yi, zi), the
-// sources ty*per .. (ty+1)*per - 1 of every tile_j-wide source tile, which
-// the CTA stages in shared memory `src` as float4 (x, y, z, G m) taken from
-// body(j).  Sources past ns are staged as zero mass and add exactly
-// nothing.  Every thread calls it.
-template <Dist D = Dist::kF32, class Body>
-__device__ __forceinline__ float3 tiled_source_sweep(float4* src,
-                                                     const Body& body, int ns,
-                                                     int tile_j, float xi,
-                                                     float yi, float zi) {
-  const int ty = threadIdx.y, tid = ty * blockDim.x + threadIdx.x;
-  const int per = tile_j / blockDim.y;
-  const float4* mine = src + ty * per;
-  float ax = 0.f, ay = 0.f, az = 0.f;
+// Most targets a thread of the tiled sweep owns (R).  Each broadcast read of
+// a source from shared memory then feeds R pairs instead of one, and the R
+// independent sums give the scheduler work between the SFU's results.
+// scripts/sweep_shapes.py --targets measures R = 1, 2, 4: 2 is the best
+// over the shapes of Kernel A, the ring and the fused columns block
+// (PERF.md).
+constexpr int kMaxTargets = 2;
+
+// R at tile_i x tile_j: the largest power of two up to kMaxTargets that
+// keeps a warp's 32 lanes on 32 targets of one thread row (so a source read
+// stays a broadcast) and splits tile_j evenly among the rows.  R = 1 is the
+// rule the wrappers check, so every tile they accept has an R.
+inline int tiled_targets(int tile_i, int tile_j) {
+  for (int r = kMaxTargets; r > 1; r /= 2)
+    if (tile_i % (32 * r) == 0 && tile_j % (kTiledThreads * r / tile_i) == 0)
+      return r;
+  return 1;
+}
+
+// f(std::integral_constant<int, R>{}) at R = tiled_targets(tile_i, tile_j):
+// a launcher's pick among its kernel's instantiations, of which only those
+// up to kMaxTargets are built.
+template <class F>
+auto with_targets(int tile_i, int tile_j, F&& f) {
+  const int r = tiled_targets(tile_i, tile_j);
+  if constexpr (kMaxTargets >= 4) {
+    if (r == 4) return f(std::integral_constant<int, 4>{});
+  }
+  if constexpr (kMaxTargets >= 2) {
+    if (r == 2) return f(std::integral_constant<int, 2>{});
+  }
+  return f(std::integral_constant<int, 1>{});
+}
+
+// Thread threadIdx.x of a 1-D CTA of kTiledThreads threads that sweeps
+// tile_i targets, R a thread: column tx of cols = tile_i / R and row ty of
+// rows = kTiledThreads / cols.  Its targets are the CTA's target(0..R-1) =
+// tx, tx + cols, ..., so the R loads of a warp are each coalesced; its
+// sources are row ty's share of every source tile.
+template <int R>
+struct TiledThread {
+  int cols, rows, tx, ty;
+  __device__ explicit TiledThread(int tile_i)
+      : cols(tile_i / R),
+        rows(kTiledThreads / cols),
+        tx(int(threadIdx.x) % cols),
+        ty(int(threadIdx.x) / cols) {}
+  __device__ int target(int r) const { return tx + r * cols; }
+};
+
+// The source loop of a tiled-sweep CTA: thread th sums into acc[r], for each
+// of its targets t[r] = (x, y, z), the sources ty*per .. (ty+1)*per - 1 of
+// every tile_j-wide source tile, which the CTA stages in shared memory `src`
+// as float4 (x, y, z, G m) taken from body(j).  Sources past ns are staged
+// as zero mass and add exactly nothing.  Per pair: the deltas (round_delta),
+// |d|^2 + eps^2, rsqrt_cube, w = G m_j d2^{-3/2} and three FMAs; a warp's
+// lanes read one source at a time (a broadcast), which feeds R pairs each.
+// Every thread calls it.
+template <int R, Dist D, class Body>
+__device__ __forceinline__ void tiled_source_sweep(float4* src,
+                                                   const Body& body, int ns,
+                                                   int tile_j,
+                                                   const TiledThread<R>& th,
+                                                   const float3 (&t)[R],
+                                                   float3 (&acc)[R]) {
+  const int per = tile_j / th.rows;
+  const float4* mine = src + th.ty * per;
+  float ax[R], ay[R], az[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) ax[r] = ay[r] = az[r] = 0.f;
   for (int j0 = 0; j0 < ns; j0 += tile_j) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int k = tid; k < tile_j; k += kTiledThreads) {
+    for (int k = threadIdx.x; k < tile_j; k += kTiledThreads) {
       const int j = j0 + k;
       src[k] = j < ns ? body(j) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
-#pragma unroll 8
+#pragma unroll (8 / R)
     for (int k = 0; k < per; ++k) {
       const float4 p = mine[k];
-      const float dx = round_delta<D>(p.x - xi);
-      const float dy = round_delta<D>(p.y - yi);
-      const float dz = round_delta<D>(p.z - zi);
-      const float w = p.w * inv_cube(dx, dy, dz);
-      ax += w * dx;
-      ay += w * dy;
-      az += w * dz;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float dx = round_delta<D>(p.x - t[r].x);
+        const float dy = round_delta<D>(p.y - t[r].y);
+        const float dz = round_delta<D>(p.z - t[r].z);
+        const float w =
+            p.w * rsqrt_cube(dx * dx + dy * dy + dz * dz + kSoftening2);
+        ax[r] += w * dx;
+        ay[r] += w * dy;
+        az[r] += w * dz;
+      }
     }
   }
-  return make_float3(ax, ay, az);
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = make_float3(ax[r], ay[r], az[r]);
 }
 
 // tiled_source_sweep over sources held as (3,ns) coordinate rows and (ns,)
 // masses.
-template <Loads L, Dist D = Dist::kF32>
-__device__ __forceinline__ float3 tiled_source_loop(float4* src,
-                                                    const float* pos_s,
-                                                    const float* mass_s, int ns,
-                                                    int tile_j, float xi,
-                                                    float yi, float zi) {
-  return tiled_source_sweep<D>(
+template <Loads L, int R, Dist D = Dist::kF32>
+__device__ __forceinline__ void tiled_source_loop(
+    float4* src, const float* pos_s, const float* mass_s, int ns, int tile_j,
+    const TiledThread<R>& th, const float3 (&t)[R], float3 (&acc)[R]) {
+  tiled_source_sweep<R, D>(
       src, [=](int j) { return load_body<L>(pos_s, mass_s, ns, j); }, ns,
-      tile_j, xi, yi, zi);
+      tile_j, th, t, acc);
 }
 
-// The thread rows' partial sums added in a fixed order (deterministic); the
-// thread of row 0 gets its target's total.  part: 3 * kTiledThreads floats
-// of shared memory.  Every thread calls it.
-__device__ __forceinline__ float3 tiled_row_sum(float* part, float3 a) {
-  const int ti = blockDim.x, tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * ti + tx;
-  part[tid] = a.x;
-  part[kTiledThreads + tid] = a.y;
-  part[2 * kTiledThreads + tid] = a.z;
+// The rows' partial sums of every target added in row order (deterministic):
+// thread threadIdx.x < tile_i gets the total of the CTA's target
+// threadIdx.x, the others zeros.  part: 3 * kTiledThreads * R floats of
+// shared memory.  Every thread calls it.
+template <int R>
+__device__ __forceinline__ float3 tiled_row_sum(float* part,
+                                                const TiledThread<R>& th,
+                                                const float3 (&a)[R]) {
+  const int ti = th.cols * R, plane = th.rows * ti;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int c = th.ty * ti + th.target(r);
+    part[c] = a[r].x;
+    part[plane + c] = a[r].y;
+    part[2 * plane + c] = a[r].z;
+  }
   __syncthreads();
   float sx = 0.f, sy = 0.f, sz = 0.f;
-  if (ty == 0) {
-    for (int r = 0; r < int(blockDim.y); ++r) {
-      sx += part[r * ti + tx];
-      sy += part[kTiledThreads + r * ti + tx];
-      sz += part[2 * kTiledThreads + r * ti + tx];
+  const int i = threadIdx.x;
+  if (i < ti) {
+    for (int row = 0; row < th.rows; ++row) {
+      sx += part[row * ti + i];
+      sy += part[plane + row * ti + i];
+      sz += part[2 * plane + row * ti + i];
     }
   }
   return make_float3(sx, sy, sz);

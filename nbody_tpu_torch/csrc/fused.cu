@@ -29,11 +29,13 @@
 //      (nbt::sym_reduce), and steps.  Positions are updated in place: in
 //      phase 2 a thread reads no position but its own.
 // Columns kernel, per sweep (one barrier): each CTA owns target tiles of
-// tile_i and sweeps every source through Kernel A's shared-memory float4
-// staging (nbt::tiled_source_loop).  Positions ping-pong between two (3,n)
-// buffers, so a CTA writes its new positions while the others still read
-// the old ones.  The (N,8)/(8,N) layouts and the per-step transpose of the
-// TPU kernel are lane artifacts and are not copied.
+// tile_i and sweeps every source through Kernel A's source loop
+// (nbt::tiled_source_loop: shared-memory float4 staging, R targets a
+// thread, rsqrt_cube), so an Euler block equals the unfused block over
+// Kernel A at the same tiles bit for bit.  Positions ping-pong between two
+// (3,n) buffers, so a CTA writes its new positions while the others still
+// read the old ones.  The (N,8)/(8,N) layouts and the per-step transpose of
+// the TPU kernel are lane artifacts and are not copied.
 //
 // The update.  Euler: v += a dt, then p += v dt.  Leapfrog KDK carries the
 // acceleration: one seed sweep, then per step a half kick, a drift, a sweep
@@ -53,7 +55,8 @@
 // grid-stride assignment is the same in every sweep.  No thread returns
 // before a barrier.
 //
-// Bound.  At large N, the pair loop, as in Kernels B and A.  A grid barrier
+// Bound.  At large N, the pair loop, as in Kernels B (rows) and A
+// (columns).  A grid barrier
 // costs 1-4 us on an H100 (measured with %globaltimer): 2 (rows) or 1
 // (columns) per step.
 #include <cooperative_groups.h>
@@ -154,24 +157,34 @@ __global__ void fused_rows_kernel(float* pos, float* vel, const float* mass,
   }
 }
 
+template <int R>
 __global__ void __launch_bounds__(nbt::kTiledThreads)
 fused_cols_kernel(float* pos, float* vel, const float* mass, int n,
-                  int tile_j, Steps st) {
+                  int tile_i, int tile_j, Steps st) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 src[];  // tile_j sources: x, y, z, G*m
-  __shared__ float part[3 * nbt::kTiledThreads];
-  const int ti = blockDim.x, tiles = n / ti;
+  __shared__ float part[3 * nbt::kTiledThreads * R];
+  const nbt::TiledThread<R> th(tile_i);
+  const int tiles = n / tile_i;
   const int sweeps = st.steps + st.leapfrog;
   for (int s = 0; s < sweeps; ++s) {
     const float* p_in = pos + size_t(s & 1) * 3 * n;
     float* p_out = pos + size_t((s + 1) & 1) * 3 * n;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int i = tile * ti + threadIdx.x;
-      const float3 acc = nbt::tiled_source_loop<kLoads>(
-          src, p_in, mass, n, tile_j, nbt::load<kLoads>(p_in + i),
-          nbt::load<kLoads>(p_in + n + i), nbt::load<kLoads>(p_in + 2 * n + i));
-      const float3 a = nbt::tiled_row_sum(part, acc);
-      if (threadIdx.y == 0) advance_body(p_in, p_out, vel, n, i, a, s, st);
+      float3 t[R], acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = tile * tile_i + th.target(r);
+        t[r] = make_float3(nbt::load<kLoads>(p_in + i),
+                           nbt::load<kLoads>(p_in + n + i),
+                           nbt::load<kLoads>(p_in + 2 * n + i));
+      }
+      nbt::tiled_source_loop<kLoads, R>(src, p_in, mass, n, tile_j, th, t,
+                                        acc);
+      const float3 a = nbt::tiled_row_sum(part, th, acc);
+      if (int(threadIdx.x) < tile_i)
+        advance_body(p_in, p_out, vel, n, tile * tile_i + threadIdx.x, a, s,
+                     st);
     }
     grid.sync();  // every new position is written; the old buffer is free
   }
@@ -209,10 +222,12 @@ extern "C" int nbt_fused_cols(float* pos2, float* vel, const float* mass,
                               int n, int tile_i, int tile_j, int steps,
                               float dt, float half, int leapfrog,
                               void* stream) {
-  const dim3 block(tile_i, nbt::kTiledThreads / tile_i);
   const size_t smem = size_t(tile_j) * sizeof(float4);
   const Steps st{steps, dt, half, leapfrog};
-  return static_cast<int>(nbt::launch_persistent(
-      fused_cols_kernel, n / tile_i, 1, block, smem,
-      static_cast<cudaStream_t>(stream), pos2, vel, mass, n, tile_j, st));
+  return static_cast<int>(nbt::with_targets(tile_i, tile_j, [&](auto r) {
+    return nbt::launch_persistent(
+        fused_cols_kernel<decltype(r)::value>, n / tile_i, 1,
+        dim3(nbt::kTiledThreads), smem, static_cast<cudaStream_t>(stream), pos2,
+        vel, mass, n, tile_i, tile_j, st);
+  }));
 }

@@ -25,8 +25,9 @@
 //          until the right neighbour has swept that slot at hop h - 1
 //          (free[right][h - 1] = g, the WAR guard).  Then every CTA sweeps
 //          the in-hand slot for its target tiles (nbt::tiled_source_sweep,
-//          Kernel A's shared-memory staging), adds one to free[k][h] (when a
-//          writer will wait for it), and waits until its next slot is whole
+//          Kernel A's source loop: shared-memory staging, R targets a
+//          thread, rsqrt_cube), adds one to free[k][h] (when a writer will
+//          wait for it), and waits until its next slot is whole
 //          (recv[k][h] = g).
 //
 // Flags are counters in device memory, one per shard and hop, zeroed on the
@@ -50,11 +51,11 @@
 // runs over the hops in order and within a hop over the thread rows in
 // order, so two launches agree bit for bit.
 //
-// Bound and cost.  The sweep is Kernel A's: compute-bound, N^2 ordered pairs
-// in all.  On one card the slot copies move (K - 1) N * 16 bytes per call
-// that a direct read of the owner's block would not: 0.8 MB at N = 16384,
-// K = 4.  They stay, because they are what a multi-card ring sends over
-// NVLink.
+// Bound and cost.  The sweep is Kernel A's (see tiled.cu): compute-bound,
+// N^2 ordered pairs in all, about 17 FP32 operations and one SFU op each.
+// On one card the slot copies move (K - 1) N * 16 bytes per call that a
+// direct read of the owner's block would not: 0.8 MB at N = 16384, K = 4.
+// They stay, because they are what a multi-card ring sends over NVLink.
 #include "common.cuh"
 
 namespace {
@@ -119,20 +120,23 @@ __device__ __forceinline__ void cta_wait(const unsigned* flag,
   __syncthreads();
 }
 
+template <int R>
 __global__ void __launch_bounds__(nbt::kTiledThreads)
-ring_kernel(RingTables tab, int K, int nl, int tile_j, unsigned* flags) {
+ring_kernel(RingTables tab, int K, int nl, int tile_i, int tile_j,
+            unsigned* flags) {
   extern __shared__ float4 src[];  // tile_j sources: x, y, z, G*m
-  __shared__ float part[3 * nbt::kTiledThreads];
+  __shared__ float part[3 * nbt::kTiledThreads * R];
   const int g = gridDim.x / K;  // CTAs a group
-  const int k = blockIdx.x / g, r = blockIdx.x - k * g;
+  const int k = blockIdx.x / g, c = blockIdx.x - k * g;
   const int right = (k + 1) % K, left = (k + K - 1) % K;
   unsigned* ready = flags;                // [K]
   unsigned* recv = flags + K;             // [K][K]: shard, hop
   unsigned* freed = flags + K + K * K;    // [K][K]
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int ti = blockDim.x, tiles = (nl + ti - 1) / ti;
-  const int first = r * nbt::kTiledThreads + tid;  // the group's copy split
+  const int tid = threadIdx.x;
+  const int tiles = (nl + tile_i - 1) / tile_i;
+  const int first = c * nbt::kTiledThreads + tid;  // the group's copy split
   const int stride = g * nbt::kTiledThreads;
+  const nbt::TiledThread<R> th(tile_i);
   // Each table entry is read once, here: a dynamic index into kernel
   // parameters would otherwise go through local memory.
   const float* pos = tab.pos[k];
@@ -164,14 +168,20 @@ ring_kernel(RingTables tab, int K, int nl, int tile_j, unsigned* flags) {
         __stcg(dst + j, __ldcg(in_hand + j));
       cta_signal(&recv[right * K + h]);
     }
-    for (int tile = r; tile < tiles; tile += g) {
-      const int i = tile * ti + threadIdx.x;
-      const int ic = i < nl ? i : nl - 1;  // ragged edge: compute, never store
-      const float3 p = nbt::tiled_source_sweep(
-          src, [=](int j) { return __ldcg(in_hand + j); }, nl, tile_j,
-          pos[ic], pos[nl + ic], pos[2 * nl + ic]);
-      const float3 s = nbt::tiled_row_sum(part, p);
-      if (threadIdx.y == 0 && i < nl) {
+    for (int tile = c; tile < tiles; tile += g) {
+      float3 t[R], p[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        // ragged edge: compute, never store
+        const int i = min(tile * tile_i + th.target(r), nl - 1);
+        t[r] = make_float3(pos[i], pos[nl + i], pos[2 * nl + i]);
+      }
+      nbt::tiled_source_sweep<R, nbt::Dist::kF32>(
+          src, [=](int j) { return __ldcg(in_hand + j); }, nl, tile_j, th, t,
+          p);
+      const float3 s = nbt::tiled_row_sum(part, th, p);
+      const int i = tile * tile_i + tid;
+      if (tid < tile_i && i < nl) {
         if (one_tile) {
           acc = h ? make_float3(acc.x + s.x, acc.y + s.y, acc.z + s.z) : s;
         } else {
@@ -185,8 +195,8 @@ ring_kernel(RingTables tab, int K, int nl, int tile_j, unsigned* flags) {
     if (h + 1 < K - 1) cta_signal(&freed[k * K + h]);
     if (h < K - 1) cta_wait(&recv[k * K + h], g);
   }
-  const int i = r * ti + threadIdx.x;
-  if (one_tile && threadIdx.y == 0 && i < nl) {
+  const int i = c * tile_i + tid;
+  if (one_tile && tid < tile_i && i < nl) {
     out[i] = acc.x;
     out[nl + i] = acc.y;
     out[2 * nl + i] = acc.z;
@@ -220,8 +230,10 @@ extern "C" int nbt_ring_accel(const float* const* pos, const float* const* mass,
       cudaMemsetAsync(flags, 0, (k + 2 * k * k) * sizeof(unsigned), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (nl + tile_i - 1) / tile_i;
-  const dim3 block(tile_i, nbt::kTiledThreads / tile_i);
-  return static_cast<int>(nbt::launch_persistent(
-      ring_kernel, k * tiles, k, block, size_t(tile_j) * sizeof(float4), s,
-      tab, k, nl, tile_j, flags));
+  return static_cast<int>(nbt::with_targets(tile_i, tile_j, [&](auto r) {
+    return nbt::launch_persistent(
+        ring_kernel<decltype(r)::value>, k * tiles, k,
+        dim3(nbt::kTiledThreads), size_t(tile_j) * sizeof(float4), s, tab, k,
+        nl, tile_i, tile_j, flags);
+  }));
 }

@@ -10,17 +10,23 @@ f32).  The public functions keep the JAX package's layout:
 On a CUDA tensor the wrapper launches the hand-written kernel or raises; on
 a CPU tensor it runs ``accelerations_between_plain``, the same function in
 plain PyTorch.  The kernel masks its ragged edges, so Nt and Ns need no
-padding.  Design and bound: see the note at the top of ``csrc/tiled.cu``.
+padding.  Its inverse cube is ``rsqrt`` with one Newton step, within about
+an ulp of the plain version's IEEE ``1 / sqrt``, so the two agree to fp32
+rounding, not bit for bit.  Design and bound: see the note at the top of
+``csrc/tiled.cu``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..types import G_NEWTON, SOFTENING_SQUARED
 from ..utils import build
 
-DEFAULT_TILE_I = 64  # targets per CTA (256 threads: 4 rows of 64)
+DEFAULT_TILE_I = 64  # targets per CTA (256 threads: 8 rows of 32, 2 each)
+SMALL_TILE_I = 32  # where DEFAULT_TILE_I leaves SMs without a CTA
 DEFAULT_TILE_J = 256  # sources per shared-memory tile
 THREADS = 256
 MAX_TILE_J = 3072  # 48 KB of float4 sources
@@ -59,20 +65,35 @@ def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
         )
 
 
-def check_tiles(tile_i: int, tile_j: int,
-                max_tile_j: int = MAX_TILE_J) -> tuple[int, int]:
+def check_tiles(tile_i: int, tile_j: int) -> tuple[int, int]:
     """The tiles of a sweep over Kernel A's source loop (0: the defaults),
     or a ValueError: ``tile_i`` a multiple of 32 dividing 256, ``tile_j`` a
-    multiple of 256/tile_i, at most ``max_tile_j``."""
+    multiple of 256/tile_i, at most ``MAX_TILE_J``."""
     ti = tile_i or DEFAULT_TILE_I
     tj = tile_j or DEFAULT_TILE_J
     if ti % 32 or THREADS % ti:
         raise ValueError(f"tile_i={ti} must be a multiple of 32 dividing {THREADS}")
-    if tj % (THREADS // ti) or not 0 < tj <= max_tile_j:
+    if tj % (THREADS // ti) or not 0 < tj <= MAX_TILE_J:
         raise ValueError(
-            f"tile_j={tj} must be a multiple of {THREADS // ti} in (0, {max_tile_j}]"
+            f"tile_j={tj} must be a multiple of {THREADS // ti} in "
+            f"(0, {MAX_TILE_J}]"
         )
     return ti, tj
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def default_tile_i(nt: int, device: torch.device) -> int:
+    """The targets a CTA of Kernel A takes where the caller names none:
+    ``DEFAULT_TILE_I``, or ``SMALL_TILE_I`` where ``DEFAULT_TILE_I`` would
+    give fewer CTAs than the card has SMs (one shard's 4096 targets: 64
+    CTAs on 132 SMs)."""
+    if -(-nt // DEFAULT_TILE_I) >= _sm_count(device):
+        return DEFAULT_TILE_I
+    return SMALL_TILE_I
 
 
 DIST_DTYPES = ("float32", "bfloat16")
@@ -96,8 +117,9 @@ def accelerations_between_plain(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
                                  mass_src: torch.Tensor, chunk: int = 1024,
                                  dist_dtype: str = "float32") -> torch.Tensor:
     """The kernel's function in plain PyTorch: broadcast pair blocks over
-    chunks of targets, with the kernel's ``1 / sqrt`` (IEEE) instead of
-    ``rsqrt``.  The kernel's tiles do not change the function."""
+    chunks of targets, with IEEE ``1 / sqrt`` (the kernel's rsqrt and Newton
+    step are within about an ulp of it).  The kernel's tiles do not change
+    the function."""
     bf16 = check_dist_dtype(dist_dtype)
     gm = mass_src * G_NEWTON
     out = []
@@ -118,9 +140,10 @@ def accelerations_between(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
     """Accelerations of targets due to sources.
     pos_tgt (3, Nt), pos_src (3, Ns), mass_src (Ns,) -> (3, Nt) fp32.
 
-    ``tile_i``: targets per CTA, a multiple of 32 dividing 256 (default 64).
-    ``tile_j``: sources per shared-memory tile, a multiple of 256/tile_i,
-    at most 3072 (default 256).  ``dist_dtype``: "float32" or "bfloat16"."""
+    ``tile_i``: targets per CTA, a multiple of 32 dividing 256 (default
+    ``default_tile_i``: 64, or 32 where 64 leaves SMs idle).  ``tile_j``:
+    sources per shared-memory tile, a multiple of 256/tile_i, at most 3072
+    (default 256).  ``dist_dtype``: "float32" or "bfloat16"."""
     global launches
     bf16 = check_dist_dtype(dist_dtype)
     dev = pos_tgt.device
@@ -134,7 +157,7 @@ def accelerations_between(pos_tgt: torch.Tensor, pos_src: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"tiled kernel runs on cuda or cpu, not {dev}")
     refuse_autograd("tiled kernel", pos_tgt, pos_src, mass_src)
-    ti, tj = check_tiles(tile_i, tile_j)
+    ti, tj = check_tiles(tile_i or default_tile_i(nt, dev), tile_j)
     out = torch.empty((3, nt), dtype=torch.float32, device=dev)
     if nt == 0 or ns == 0:
         return out.zero_()

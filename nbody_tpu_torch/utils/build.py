@@ -12,8 +12,10 @@ a plain C interface (no PyTorch headers, so the build takes seconds):
 The library lands under ``build/`` beside the package, in a directory named
 by a hash of the sources and flags, so an edited source builds anew and an
 unchanged one loads at once.  There is no fast-math flag: ``1.0f/sqrtf`` is
-IEEE-rounded under nvcc's default ``-prec-div``/``-prec-sqrt``.  A missing
-``nvcc`` raises; nothing falls back.
+IEEE-rounded under nvcc's default ``-prec-div``/``-prec-sqrt`` where a kernel
+asks for it, and the tiled sweep and the mxu kernel take ``rsqrt.approx``
+with a Newton step by name (``nbt::rsqrt_cube``).  A missing ``nvcc``
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -37,10 +39,13 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C function -> argument types; every function returns a cudaError_t as int.
+# C function -> argument types; every function returns an int, a
+# cudaError_t but for nbt_tiled_targets.
 SIGNATURES = {
     # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, bf16, stream
     "nbt_tiled_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P),
+    # tile_i, tile_j -> the targets a thread of the tiled sweep owns
+    "nbt_tiled_targets": (_I, _I),
     # pos, mass, n, block, band, partials, out, bf16, stream
     "nbt_sym_accel": (_P, _P, _I, _I, _I, _P, _P, _I, _P),
     # pos, vel, mass, n, block, partials, queue, steps, dt, half, leapfrog,

@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch/CUDA port (``nbody_tpu_torch``), on one
 CUDA card.
 
-    python scripts/torch_profile.py
+    python scripts/torch_profile.py [CELL ...]
 
 For each cell it runs the engine's sample blocks (with the per-block mesh
 env for the mesh tiers) and prints:
@@ -28,7 +28,8 @@ env for the mesh tiers) and prints:
   plan.
 
 The cells: the exact path at N=2000 and N=16384 (``auto``, and the fused
-rows block at N=16384), 50-step blocks; ``pallas_mxu`` and ``auto`` in
+rows and columns blocks at N=16384, the columns at tiles 64 x 256), 50-step
+blocks; ``pallas_mxu`` and ``auto`` in
 bf16 at N=16384, 50-step blocks; ``auto`` in bf16 at N=131072, 10-step
 blocks; ``pallas_sym`` at N=1048576, whose partials run in bands, one-step
 blocks; the particle decomposition at
@@ -39,7 +40,9 @@ gate (N=262144, seed 7, ng=128, cutoff 4), 8-step blocks; P3M and PM on
 the reference initial conditions at N=1048576, 4-step blocks.  Each cell
 is built by the engine (``simulation._DeviceRunner``: its state, P3M plan,
 mesh env and blocks).  The first line is the card's
-name and power limit.  Needs a CUDA card; imports nothing of JAX.
+name and power limit.  With CELL arguments it runs only the cells whose
+label contains one of them (``"16384 pallas_mxu" "shards=4"``).  Needs a
+CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -264,6 +267,8 @@ def main() -> int:
             ("N=2000 auto", 50, dict(n=2000)),
             ("N=16384 auto", 50, dict(n=16384)),
             ("N=16384 fused rows", 50, dict(n=16384, fused=True)),
+            ("N=16384 fused columns", 50, dict(n=16384, fused=True, tile_i=64,
+                                                tile_j=256)),
             ("N=16384 pallas_mxu", 50, dict(n=16384, kernel="pallas_mxu")),
             ("N=16384 auto bf16", 50, dict(n=16384, precision="bf16")),
             ("N=131072 auto bf16", 10, dict(n=131072, precision="bf16")),
@@ -278,6 +283,8 @@ def main() -> int:
                                               distribution="plummer", seed=7)),
             ("p3m reference N=1048576", 4, dict(n=1048576, kernel="p3m")),
             ("pm reference N=1048576", 4, dict(n=1048576, kernel="pm"))):
+        if sys.argv[1:] and not any(c in label for c in sys.argv[1:]):
+            continue
         # The engine's own blocks, plan and mesh env; prepare() runs the
         # warm-up block.
         runner = _DeviceRunner(SimConfig(nsteps=steps, sfreq=steps, **kw))

@@ -16,9 +16,13 @@ the plain one, and the mesh tiers at 1e-4 relative norm against the JAX
 package's accelerations in tests/golden/torch_p3m_plummer_n16384.npz.
 The sharded modes hold the n256_s100 golden trace at %.5g.  The mxu kernel
 and the bf16 distance mode hold the same 1e-5 against their plain versions
-(the mxu kernel's d2 and w equal its plain version's bit for bit; its sums
-are short per-tile partials), and a banded pair-symmetric or two-sided sweep
-equals the one-band sweep bit for bit.
+(the mxu kernel rounds d2 as its plain version does, and sums its 3xTF32
+tensor-core products in chunks of 64 sources into a compensated running
+sum; below N=2000 the expansion's own error allows 5e-5), and a banded
+pair-symmetric or two-sided sweep equals the one-band sweep bit for bit.
+Kernel A, the fused columns block and the ring run one source loop
+(``nbt::tiled_source_sweep``), so an Euler columns block equals the
+unfused block over Kernel A bit for bit.
 """
 
 import json
@@ -88,6 +92,30 @@ def test_tiled_kernel_ragged_between(cuda_device):
     for tiles in [(64, 256), (32, 512), (256, 96)]:
         got = tiled_kernel.accelerations_between(pt, ps, ms, *tiles)
         assert _rel(got, plain) <= 1e-5, tiles
+
+
+# (tile_i, tile_j): the defaults, and tiles that give a thread of the tiled
+# sweep 1, 2 or more targets (nbt::tiled_targets).
+TILED_TILES = [(0, 0), (32, 256), (64, 256), (128, 64), (256, 96)]
+
+
+@pytest.mark.parametrize("tiles", TILED_TILES)
+@pytest.mark.parametrize("nt,ns", [(300, 300), (1000, 1000), (2000, 2000),
+                                   (500, 2000), (500, 500)])
+def test_tiled_kernel_ragged_shapes(cuda_device, nt, ns, tiles):
+    """Counts that are no multiple of the tiles, at the shapes the main
+    paths give Kernel A (one of 4 shards of N=2000 against all sources and
+    against one shard): within 1e-5 of the plain version, two launches bit
+    for bit."""
+    st = make_state(2000, device=cuda_device)
+    lo = 0 if nt == ns else 1000
+    tgt = st.pos[:, lo:lo + nt].contiguous()
+    src, m = st.pos[:, :ns].contiguous(), st.mass[:ns].contiguous()
+    got = tiled_kernel.accelerations_between(tgt, src, m, *tiles)
+    assert torch.equal(got, tiled_kernel.accelerations_between(tgt, src, m,
+                                                               *tiles))
+    plain = tiled_kernel.accelerations_between_plain(tgt, src, m)
+    assert _rel(got, plain) <= 1e-5
 
 
 def test_wrappers_raise_on_bad_tiles(cuda_device):
@@ -161,6 +189,19 @@ def test_fused_euler_rows_is_unfused_sym_block(cuda_device):
     st = make_state(2000, pad_multiple=128, device=cuda_device)
     pos, vel = fused_block.fused_block(st.pos, st.vel, st.mass, 0.1, 10)
     blk = make_block_fn(make_accel_fn("pallas_sym", tile_i=128), 0.1, 10)
+    want, _ = blk(st)
+    assert torch.equal(pos, want.pos) and torch.equal(vel, want.vel)
+
+
+def test_fused_euler_columns_is_unfused_tiled_block(cuda_device):
+    """The columns kernel runs Kernel A's source loop and the unfused
+    update's rounding, so an Euler block equals the unfused block over
+    Kernel A at the same tiles bit for bit."""
+    st = make_state(2000, pad_multiple=256, device=cuda_device)
+    pos, vel = fused_block.fused_block(st.pos, st.vel, st.mass, 0.1, 10, 64,
+                                       256)
+    blk = make_block_fn(make_accel_fn("pallas", tile_i=64, tile_j=256), 0.1,
+                        10)
     want, _ = blk(st)
     assert torch.equal(pos, want.pos) and torch.equal(vel, want.vel)
 
@@ -410,9 +451,12 @@ def test_sharded_golden_trace_on_card(cuda_device, comm, k):
     assert counts == want
 
 
-@pytest.mark.parametrize("tiles", [(0, 0), (32, 512), (128, 2048), (256, 8)])
+# (tile_i, tile_j): the defaults; 8 warps splitting each source tile; 4 warps
+# of targets; 8 warps of targets at the largest and the smallest tile_j.
+@pytest.mark.parametrize("tiles", [(0, 0), (16, 512), (64, 256), (128, 2048),
+                                   (128, 8)])
 @pytest.mark.parametrize("n,n_pad", [(2048, 2048), (2000, 2048), (3001, 3001),
-                                     (300, 384)])
+                                     (1000, 1000), (300, 384)])
 def test_mxu_kernel_matches_plain(cuda_device, n, n_pad, tiles):
     """At N <= 512 the expansion's own error against float64 is above 1e-5
     (tests/test_torch_mxu.py), so there two fp32 implementations agree to
@@ -451,6 +495,8 @@ def test_mxu_kernel_bad_tiles_and_bf16(cuda_device):
     st = make_state(512, device=cuda_device)
     with pytest.raises(ValueError, match="tile_j"):
         mxu_kernel.accelerations(st.pos, st.mass, tile_j=3072)
+    with pytest.raises(ValueError, match="tile_i"):
+        mxu_kernel.accelerations(st.pos, st.mass, tile_i=256)
     with pytest.raises(ValueError, match="fp32 distances"):
         mxu_kernel.accelerations(st.pos, st.mass, dist_dtype="bfloat16")
 

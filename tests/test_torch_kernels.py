@@ -12,7 +12,10 @@ tests/test_torch_cuda.py and chip_smoke.py.
 Tolerances: the sweeps sum in other orders than the Pallas kernels, so they
 agree to fp32 summation error, stated as a relative-norm bound (5e-6 for
 the kernels, 1e-6 for the naive broadcast, which differs only in the order
-of its one reduction).
+of its one reduction).  The tiled sweep's inverse cube on the card
+(``nbt::rsqrt_cube``: rsqrt.approx, one Newton step) is emulated here at
+the approximation's documented worst error, and held to 1e-6 of the IEEE
+plain sweep.
 """
 
 import os
@@ -28,6 +31,7 @@ from nbody_tpu.ops import pallas_kernel as jax_pallas
 from nbody_tpu.ops import pallas_sym as jax_sym
 from nbody_tpu_torch.init import make_state
 from nbody_tpu_torch.ops import mxu_kernel, naive, registry, sym_kernel, tiled_kernel
+from nbody_tpu_torch.types import G_NEWTON, SOFTENING_SQUARED
 from nbody_tpu_torch.utils import build
 
 torch.set_num_threads(2)
@@ -94,6 +98,41 @@ def test_plain_sym_matches_pallas_sym_interpret(n):
     assert sym_kernel.launches == before
     assert torch.equal(wrapped, plain)
     assert _rel(plain.numpy(), ref) <= 5e-6
+
+
+def rsqrt_cube_emulated(d2, ulps: int) -> np.ndarray:
+    """``nbt::rsqrt_cube`` (csrc/common.cuh) on the CPU, with its
+    rsqrt.approx taken ``ulps`` units in the last place off the correctly
+    rounded 1/sqrt (CUDA documents at most 2): the Newton step
+    y * fmaf(-(0.5 d2) y, y, 1.5), then y * y * y, each fp32 operation
+    rounded as the card rounds it."""
+    d2 = np.asarray(d2, np.float32)
+    y = (1.0 / np.sqrt(d2.astype(np.float64))).astype(np.float32)
+    y = (y.view(np.int32) + np.int32(ulps)).view(np.float32)
+    hy = (np.float32(0.5) * d2) * y
+    y = y * (-hy.astype(np.float64) * y + 1.5).astype(np.float32)
+    return (y * y) * y
+
+
+@pytest.mark.parametrize("ulps", [-2, 2])
+def test_rsqrt_newton_sweep_matches_ieee(ulps):
+    """Kernel A's loop takes d2^{-3/2} as rsqrt and one Newton step instead
+    of IEEE 1 / sqrt: at the approximation's worst error, the N=2000
+    reference-IC forces stay within 1e-6 of the IEEE plain sweep, and the
+    step takes out most of the approximation's own error."""
+    st = make_state(2000, device="cpu")
+    pos, mass = st.pos.numpy(), st.mass.numpy()
+    d = pos[:, None, :] - pos[:, :, None]  # (3, targets, sources)
+    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + np.float32(SOFTENING_SQUARED)
+    gm = mass * np.float32(G_NEWTON)
+    plain = tiled_kernel.accelerations_between_plain(st.pos, st.pos,
+                                                     st.mass).numpy()
+    got = (d * (gm[None, :] * rsqrt_cube_emulated(d2, ulps))).sum(axis=2)
+    y = (1.0 / np.sqrt(d2.astype(np.float64))).astype(np.float32)
+    y = (y.view(np.int32) + np.int32(ulps)).view(np.float32)
+    raw = (d * (gm[None, :] * ((y * y) * y))).sum(axis=2)  # no Newton step
+    assert _rel(got, plain) <= 1e-6
+    assert _rel(got, plain) * 3 < _rel(raw, plain)
 
 
 def test_padded_columns_exactly_zero():
