@@ -16,6 +16,11 @@ Phases, each printing what it found; any failure exits non-zero:
    at counts that are no multiple of its tiles, N=300, 1000 and 2000
    unpadded and one of 4 shards of N=2000 against all sources (500 x 2000)
    and against one shard (500 x 500): <= 1e-5, two launches bit for bit.
+   Then the pair-symmetric kernel at shapes that give a lane each number
+   of targets R its launcher picks (R = 1 at block 32, 2 at 64 and 128:
+   N=2048, 8192, 16384 in blocks of 128, N=16384 in blocks of 64, N=4096
+   in blocks of 32, each zero-mass padded): <= 1e-5, bit for bit over two
+   launches, padding exactly 0, and every R seen.
 4. The main path: ``run(SimConfig(n=2000, nsteps=500))`` with ``auto``
    (must launch the pair-symmetric kernel and not the tiled one) and with
    ``kernel="pallas"`` (the tiled kernel); both kinetic-energy traces must
@@ -44,9 +49,10 @@ Phases, each printing what it found; any failure exits non-zero:
    the rows kernel 11 times and the unfused kernels never.  At N=16384,
    where the rows kernel's CTAs each take many of the 8256 tile pairs,
    one 50-step Euler block of each layout is held against its plain
-   version (relative-norm error <= 1e-5) and must repeat bit for bit;
-   then the per-block time of each fused kernel and of its plain version
-   (CUDA events).
+   version (relative-norm error <= 1e-5) and must repeat bit for bit, and
+   the rows block must equal the unfused block over Kernel B bit for bit
+   (both at block 128, R = 2); then the per-block time of each fused
+   kernel and of its plain version (CUDA events).
 9. The force VJP kernel against its plain version, at N=2048, N=16384 and
    N=2000 unpadded, with the cotangent g = naive accelerations * 1e20:
    relative-norm error of d_pos and d_mass <= 2e-5 (printed beside both
@@ -93,16 +99,21 @@ Phases, each printing what it found; any failure exits non-zero:
     initial conditions, 8 steps, sfreq 4: finite energies, ms per step and
     the short-range kernel's launches (12 and 0).
 15. The particle decomposition's kernels against their plain versions: the
-    two-sided sweep at Nt = Ns = 4096 and at 4096 x 2048, both sets
-    zero-mass padded (relative-norm error of both sides <= 1e-5, padding
-    exactly 0 on both sides, two launches bit for bit); the ring kernel at
+    two-sided sweep at Nt = Ns = 4096 and at 4096 x 2048, and at shapes
+    from 512 x 512 to 16384 x 8192 in blocks of 128 (R = 2) and 1024 x 512
+    in blocks of 32 (R = 1), both sets zero-mass padded (relative-norm
+    error of both sides <= 1e-5, padding exactly 0 on both sides, two
+    launches bit for bit, every R seen); the ring kernel at
     N=16384 with K = 2, 3, 4, 8 (padded with zero mass to a multiple of
     64 K) and at N=131072 with K=8, where a CTA owns several target tiles
     (<= 1e-5 against the plain ring and against Kernel B on the whole
     state; bit for bit over two launches).
     Then per-call times at N=16384, K=4 (CUDA events): both kernels at the
     shapes ``ring_sym`` and ``rdma`` give them, their plain versions, and
-    Kernels A and B on the whole state.
+    Kernels A and B on the whole state; the two-sided sweep's wrapper call
+    takes longer on the host than its kernels on the card, so the device
+    time of 20 calls captured in a CUDA graph and replayed is printed
+    beside it (``device_ms`` of its ``kernels`` row).
 16. The sharded main path: ``run(SimConfig(n=2000, nsteps=500, shards=4,
     comm=c))`` for each comm mode, and ``ring_sym`` and ``rdma`` at
     ``shards=3`` (no antipodal hop; N pads to 2304): every trace equals
@@ -143,7 +154,8 @@ Phases, each printing what it found; any failure exits non-zero:
 20. bf16: Kernels A and B at N=16384 and N=131072 and the two-sided sweep
     at 4096 x 4096 with bf16-rounded deltas against their bf16 plain
     versions (<= 1e-5), bit for bit over two launches, momentum conserved
-    in Kernel B's result, and their per-call times at N=16384;
+    in Kernel B's result, and their per-call times at N=16384 (the
+    two-sided sweep's device time beside, as in phase 15);
     ``run(SimConfig(n=131072, nsteps=100, sfreq=10, precision="bf16"))``
     through ``auto`` (Kernel B) and ``kernel="pallas"``: each launches its
     kernel 110 times (100 steps and the 10-step warm-up) and the other
@@ -193,6 +205,14 @@ MESH_TOL = 1e-4
 P3M_GATE = dict(n=262144, seed=7, grid=128, cutoff=4)  # bench.py:102-103
 N_UNIFORM = 1048576  # the suite's N=1M rows, bench.py:46-47
 COMM_MODES = ("allgather", "ring", "ring_sym", "rdma")
+# Shapes that give the pair-symmetric tile body each R its launchers pick
+# (nbt::sym_targets: 2 where the block is a multiple of 64, else 1): Kernel
+# B at (N, block), the two-sided sweep at (Nt, Ns, block), each zero-mass
+# padded from a few bodies fewer.
+SYM_SHAPES = ((2048, 128), (8192, 128), (16384, 128), (16384, 64),
+              (4096, 32))
+TWO_SIDED_SHAPES = ((512, 512, 128), (4096, 2048, 128), (4096, 4096, 128),
+                    (16384, 8192, 128), (1024, 512, 32))
 RING_TILE = 64  # the ring kernel's default tile_i: shards pad to 64 K
 
 # The least time the card could take: the larger of the operations over the
@@ -273,8 +293,9 @@ def rel_err(got, ref) -> float:
 
 
 def time_ms(fn, reps: int = TIME_REPS) -> float:
-    """Mean device milliseconds per call, from CUDA events around ``reps``
-    calls after one warm-up call."""
+    """Mean milliseconds per call, from CUDA events around ``reps`` calls
+    after one warm-up call: the card's time, or the host's where its
+    wrapper calls take longer than their kernels."""
     import torch
 
     fn()
@@ -284,6 +305,39 @@ def time_ms(fn, reps: int = TIME_REPS) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def every_targets() -> set:
+    """Every R a launcher of the pair-symmetric tile body picks, over the
+    blocks its wrappers take."""
+    from nbody_tpu_torch.ops import sym_kernel
+
+    return {sym_kernel.lane_targets(b)
+            for b in range(32, sym_kernel.MAX_BLOCK + 1, 32)}
+
+
+def device_ms(fn, reps: int = TIME_REPS) -> float:
+    """Mean device milliseconds per call with the host out of the way:
+    ``reps`` calls captured in one CUDA graph after one warm-up call, the
+    graph replayed between CUDA events (for a kernel whose wrapper call
+    takes longer on the host than the kernel on the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
@@ -454,22 +508,29 @@ def sharded_phases(dev, tag: str, err: dict, ms: dict, launches: dict,
     from nbody_tpu_torch.parallel.decompose import shard_state
     from nbody_tpu_torch.utils.reporting import _g5
 
-    # 15. The kernels against their plain versions.
+    # 15. The kernels against their plain versions, the two-sided sweep at
+    # every R its launcher picks.
     err["two_sided"] = err["ring"] = 0.0
-    for nt_real, nt, ns_real, ns in ((4096, 4096, 4000, 4096),
-                                     (3000, 4096, 1000, 2048)):
+    seen = set()
+    shapes = ((4096, 4096, 4000, 4096, 128), (3000, 4096, 1000, 2048, 128))
+    shapes += tuple((nt - 40, nt, ns - 24, ns, blk)
+                    for nt, ns, blk in TWO_SIDED_SHAPES)
+    for nt_real, nt, ns_real, ns, blk in shapes:
+        r = sym_kernel.lane_targets(blk)
+        seen.add(r)
         a = make_state(nt_real, pad_multiple=nt, seed=1, device=dev)
         b = make_state(ns_real, pad_multiple=ns, seed=2, device=dev)
         args = (a.pos, a.mass, b.pos, b.mass)
-        got = sym_kernel.accelerations_two_sided(*args)
-        again = sym_kernel.accelerations_two_sided(*args)
-        plain = sym_kernel.accelerations_two_sided_plain(*args)
+        got = sym_kernel.accelerations_two_sided(*args, block=blk)
+        again = sym_kernel.accelerations_two_sided(*args, block=blk)
+        plain = sym_kernel.accelerations_two_sided_plain(*args, block=blk)
         torch.cuda.synchronize()
         rel = [rel_err(x, y) for x, y in zip(got, plain)]
         err["two_sided"] = max([err["two_sided"]] + [
             float((x - y).abs().max()) for x, y in zip(got, plain)])
-        print(f"two-sided {nt} x {ns} (real {nt_real} x {ns_real}): targets "
-              f"vs plain {rel[0]:.3e}, sources {rel[1]:.3e}", flush=True)
+        print(f"two-sided {nt} x {ns} (real {nt_real} x {ns_real}), block "
+              f"{blk}, R = {r}: targets vs plain {rel[0]:.3e}, sources "
+              f"{rel[1]:.3e}", flush=True)
         if not all(torch.isfinite(x).all() for x in got):
             fail("two-sided kernel: non-finite output")
         if max(rel) > REL_TOL:
@@ -481,8 +542,11 @@ def sharded_phases(dev, tag: str, err: dict, ms: dict, launches: dict,
                 or (got[1][:, ns_real:] != 0).any()):
             fail("two-sided kernel: padded particles got non-zero "
                  "acceleration")
-    print("two-sided: padding exactly 0 on both sides; repeats bit for bit",
-          flush=True)
+    if seen != every_targets():
+        fail(f"two-sided kernel: R {sorted(seen)} seen, not every R of "
+             f"{sorted(every_targets())}")
+    print(f"two-sided: every R of {sorted(seen)}; padding exactly 0 on both "
+          "sides; repeats bit for bit", flush=True)
     for n, ks in ((16384, (2, 3, 4, 8)), (131072, (8,))):
         for k in ks:
             st = make_state(n, pad_multiple=RING_TILE * k, device=dev)
@@ -512,15 +576,20 @@ def sharded_phases(dev, tag: str, err: dict, ms: dict, launches: dict,
     sh, _ = shard_state(st, k, make_mesh(k))
     pos, mass = list(sh.pos), list(sh.mass)
     ts = (pos[0], mass[0], pos[1], mass[1])  # one block pair of ring_sym
+    # A wrapper call, as for every kernel; its Python takes longer than its
+    # kernels here, so the device time of its two kernels goes beside it.
     ms["two_sided"] = time_ms(lambda: sym_kernel.accelerations_two_sided(*ts))
+    ms["two_sided_device"] = device_ms(
+        lambda: sym_kernel.accelerations_two_sided(*ts))
     ms["two_sided_plain"] = time_ms(
         lambda: sym_kernel.accelerations_two_sided_plain(*ts), reps=5)
     ms["ring"] = time_ms(lambda: ring_kernel.ring_accelerations(pos, mass))
     ms["ring_plain"] = time_ms(
         lambda: ring_kernel.ring_accelerations_plain(pos, mass), reps=5)
     nl = n // k
-    print(f"two-sided {nl} x {nl}: kernel {ms['two_sided']:.4f} ms, plain "
-          f"{ms['two_sided_plain']:.4f} ms per call; "
+    print(f"two-sided {nl} x {nl}: kernel {ms['two_sided']:.4f} ms a "
+          f"wrapper call, {ms['two_sided_device']:.4f} ms on the card (CUDA "
+          f"graph), plain {ms['two_sided_plain']:.4f} ms per call; "
           f"{nl * nl / ms['two_sided'] / 1e6:.1f} Gpairs/s {tag}", flush=True)
     print(f"ring N={n} K={k}: kernel {ms['ring']:.4f} ms, plain "
           f"{ms['ring_plain']:.4f} ms per call; {n * n / ms['ring'] / 1e6:.1f}"
@@ -864,6 +933,12 @@ def bf16_phases(dev, tag: str, ms: dict) -> None:
                 ms[f"{key}_bf16_plain"] = time_ms(plain, reps=5)
                 timing = (f"; kernel {ms[f'{key}_bf16']:.4f} ms, plain "
                           f"{ms[f'{key}_bf16_plain']:.4f} ms per call {tag}")
+                if key == "two_sided":  # its call's Python outlasts its kernels
+                    ms["two_sided_bf16_device"] = device_ms(
+                        lambda: sym_kernel.accelerations_two_sided(
+                            *ts, dist_dtype=bf))
+                    timing += (f"; {ms['two_sided_bf16_device']:.4f} ms on "
+                               "the card (CUDA graph)")
             print(f"bf16 {key} ({shape}): vs bf16 plain {rel:.3e}, repeats "
                   f"bit for bit{mom}{timing}", flush=True)
             del got, again, want
@@ -1004,6 +1079,33 @@ def main() -> int:
         if not torch.equal(a, again):
             fail(f"tiled kernel: two launches at {nt} x {ns} differ")
     print("tiled: ragged and shard shapes repeat bit for bit", flush=True)
+    # Kernel B at every R its launcher picks (nbt::sym_targets: R from the
+    # block), zero-mass padded.
+    seen = set()
+    for n, block in SYM_SHAPES:
+        r = sym_kernel.lane_targets(block)
+        seen.add(r)
+        st = make_state(n - 24, pad_multiple=block, device=dev)
+        b = sym_kernel.accelerations(st.pos, st.mass, block=block)
+        again = sym_kernel.accelerations(st.pos, st.mass, block=block)
+        plain = sym_kernel.accelerations_plain(st.pos, st.mass, block)
+        torch.cuda.synchronize()
+        rb = rel_err(b, plain)
+        err["B"] = max(err["B"], float((b - plain).abs().max()))
+        print(f"sym N={n} (real {n - 24}) block {block}: R = {r} targets a "
+              f"lane, vs plain {rb:.3e}", flush=True)
+        if not torch.isfinite(b).all() or rb > REL_TOL:
+            fail(f"sym kernel disagrees with its plain version at N={n}, "
+                 f"block {block}")
+        if not torch.equal(b, again):
+            fail(f"sym kernel: two launches at N={n}, block {block} differ")
+        if bool((b[:, n - 24:] != 0).any()):
+            fail(f"sym kernel: padding got non-zero acceleration at N={n}")
+    if seen != every_targets():
+        fail(f"sym kernel: R {sorted(seen)} seen, not every R of "
+             f"{sorted(every_targets())}")
+    print(f"sym: every R of {sorted(seen)} within {REL_TOL} of plain, repeats "
+          "bit for bit, padding exactly 0", flush=True)
     lap("3")
 
     # 4. The main path through both kernels.
@@ -1175,6 +1277,17 @@ def main() -> int:
             fail(f"fused {label} disagrees with its plain version at N={n}")
         if not (torch.equal(p, p2) and torch.equal(v, v2)):
             fail(f"fused {label} N={n}: two launches on one input differ")
+        if label == "rows":  # Kernel B's R at block 128, the same as the CTA's
+            blk = make_block_fn(make_accel_fn("pallas_sym", tile_i=128), 0.1,
+                                BLOCK)
+            want, _ = blk(st)
+            if not (torch.equal(p, want.pos) and torch.equal(v, want.vel)):
+                fail(f"fused rows Euler block at N={n} differs from the "
+                     "unfused pallas_sym block")
+            print(f"fused rows euler N={n} (R = "
+                  f"{sym_kernel.lane_targets(128)}): bit for bit equal to the "
+                  "unfused pallas_sym block", flush=True)
+            del want
         del p, v, p2, v2, p_ref, v_ref
         ms[label] = time_ms(lambda: fused_block.fused_block(*args), reps=5)
         ms[f"{label}_plain"] = time_ms(
@@ -1383,6 +1496,10 @@ def main() -> int:
         "max_abs_err": err[key], "ms": ms[key], "plain_ms": ms[f"{key}_plain"],
         "bound_ms": bounds_ms[key][0], "bound_by": bounds_ms[key][1],
         "library_ms": None,  # no one PyTorch call computes any of them
+        # ms is a wrapper call's; where its Python outlasts its kernels, the
+        # device time of the kernels alone goes beside it.
+        **({"device_ms": ms[f"{key}_device"]} if f"{key}_device" in ms
+           else {}),
     } for name, src, replaces, key in rows]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

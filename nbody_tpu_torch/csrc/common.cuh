@@ -10,6 +10,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 #include <type_traits>
 
 namespace nbt {
@@ -22,18 +23,6 @@ constexpr float kG = 6.67259e-11f;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kTiledThreads = 256;  // threads of a tiled-sweep CTA
 
-// 1 / (|d|^2 + eps^2)^{3/2} with 1.0f / sqrtf, IEEE-rounded under nvcc's
-// default -prec-div=true -prec-sqrt=true (no --use_fast_math): two
-// refinement sequences with a slow-path branch each.  Only the kernels not
-// yet redesigned use it: Kernel B, the two-sided sweep and the fused rows
-// block (sym_tile_cross, sym_tile_pair_at).  The tiled sweep takes
-// rsqrt_cube, the mxu kernel rsqrt_approx.
-__device__ __forceinline__ float inv_cube(float dx, float dy, float dz) {
-  const float d2 = dx * dx + dy * dy + dz * dz + kSoftening2;
-  const float inv = 1.0f / sqrtf(d2);
-  return inv * inv * inv;
-}
-
 // 1 / sqrt(d2) for d2 >= eps^2 from the SFU alone: rsqrt.approx, within a
 // few ulp (.ftz changes nothing, since d2 is never subnormal).  One MUFU op,
 // no branch.
@@ -45,7 +34,10 @@ __device__ __forceinline__ float rsqrt_approx(float d2) {
 
 // d2^{-3/2} for d2 >= eps^2: rsqrt_approx, one Newton step
 // y (3 - d2 y^2) / 2, which leaves it within about an ulp of 1 / sqrt, then
-// the cube.  One MUFU op and six FP32 ops, with no branch.
+// the cube.  One MUFU op and six FP32 ops, with no branch.  Every exact
+// pair loop takes it: the tiled sweep and the pair-symmetric tile body (no
+// IEEE 1.0f / sqrtf, whose two refinement sequences each carry a slow-path
+// branch); the mxu kernel takes rsqrt_approx alone.
 __device__ __forceinline__ float rsqrt_cube(float d2) {
   float y = rsqrt_approx(d2);
   const float h = 0.5f * d2;
@@ -100,100 +92,215 @@ __device__ __forceinline__ float4 load_body(const float* pos, const float* mass,
 // ---------------------------------------------------------------------------
 // The pair-symmetric sweep (Kernel B; see the note in sym.cu).
 
-// One B x B tile pair of two different tiles, run by the B = blockDim.x
-// threads of a CTA.  Thread t owns target i of the i tile and passes its
-// body bi = (x, y, z, G m_i); the j tile is staged in shared memory `sj` and
-// `red` is (B/32)*3*B floats of shared scratch.  Writes the i-side sum
-// sum_j w d to pi and the j-side sum -sum_i w d to pj, each (3, B).  The
-// i and j tiles may come from one set (Kernel B's off-diagonal tiles) or
-// from two (the two-sided sweep).  Every thread of the CTA calls it.
-template <Dist D = Dist::kF32>
+// Most targets a lane of the pair-symmetric tile body owns (R).  Each lane's
+// non-broadcast read of a j body from shared memory and the 3 shuffles that
+// hand its j-side sums on then serve R pairs instead of one.
+// scripts/sweep_shapes.py --sym-targets measures R = 1, 2, 4: R = 2 takes
+// 13% off R = 1 at N=16384, R = 4 (56-80 registers) nothing more (PERF.md).
+constexpr int kMaxSymTargets = 2;
+
+// R at tile edge `block`: the largest power of two up to kMaxSymTargets
+// that leaves whole warps (B / R a multiple of 32), so 2 where B is a
+// multiple of 64 (the default 128) and 1 at B = 32, 96, 160, 224.  A
+// function of B alone: Kernel B, the two-sided sweep and the fused rows
+// block run the same body at one B on any card.
+// (R = 1 is 3-12% faster on the card where a sweep gives each SM only a
+// few warps, but those shapes are host-bound end to end; PERF.md.)
+constexpr int sym_targets(int block) {
+  int r = kMaxSymTargets;
+  while (r > 1 && block % (32 * r) != 0) r /= 2;
+  return r;
+}
+
+// f(std::integral_constant<int, R>{}) for r in {1, 2, 4} up to Max: a
+// launcher's pick among its kernel's instantiations.
+template <int Max, class F>
+auto with_r(int r, F&& f) {
+  if constexpr (Max >= 4) {
+    if (r == 4) return f(std::integral_constant<int, 4>{});
+  }
+  if constexpr (Max >= 2) {
+    if (r == 2) return f(std::integral_constant<int, 2>{});
+  }
+  return f(std::integral_constant<int, 1>{});
+}
+
+// Shared memory of a tile body's CTA: the j tile, each 32-wide subtile
+// staged twice (2 B float4), and the warps' j-side sums ([warp][3][B]
+// floats, B / (32 R) warps).
+inline size_t sym_smem(int block, int r) {
+  return 2 * block * sizeof(float4) +
+         (block / (32 * r)) * 3 * block * sizeof(float);
+}
+
+// Stage the B bodies j0 .. j0 + B - 1 of (3,n) coordinate rows and (n,)
+// masses in shared memory `sj`, each 32-wide subtile s twice (sj[64 s + m]
+// holds body j0 + 32 s + m mod 32, m < 64, so the rotation's reads need no
+// wrap-around), and load the R targets of the calling thread, bodies i0 + t
+// + r B / R.  Every thread of a CTA of B / R threads calls it; the caller
+// synchronises before the body reads `sj`.
+template <int R, Loads L>
+__device__ __forceinline__ void sym_load(const float* pos_i,
+                                         const float* mass_i, int ni, int i0,
+                                         const float* pos_j,
+                                         const float* mass_j, int nj, int j0,
+                                         float4* sj, float4 (&bi)[R]) {
+  const int nt = blockDim.x, t = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = t + r * nt, m = (k & 31) + 64 * (k >> 5);
+    sj[m] = sj[m + 32] = load_body<L>(pos_j, mass_j, nj, j0 + k);
+    bi[r] = load_body<L>(pos_i, mass_i, ni, i0 + k);
+  }
+}
+
+// One pair of the body: d = r_j - r_i (rounded by D), d2 = |d|^2 + eps^2 as
+// three FMAs, the mass-folded weight w = (G m_i)(G m_j) d2^{-3/2}
+// (rsqrt_cube; d = 0 gives exactly 0), w d
+// added to the i side a and subtracted from the j side b, each as an FMA of
+// the exact product, so the two sides stay exactly antisymmetric.
+template <Dist D, bool JSide>
+__device__ __forceinline__ void sym_pair(float4 bi, float4 p, float3& a,
+                                         float3& b) {
+  const float dx = round_delta<D>(p.x - bi.x);
+  const float dy = round_delta<D>(p.y - bi.y);
+  const float dz = round_delta<D>(p.z - bi.z);
+  const float d2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, kSoftening2)));
+  const float w = (bi.w * p.w) * rsqrt_cube(d2);
+  a.x = fmaf(w, dx, a.x);
+  a.y = fmaf(w, dy, a.y);
+  a.z = fmaf(w, dz, a.z);
+  if constexpr (JSide) {
+    b.x = fmaf(-w, dx, b.x);
+    b.y = fmaf(-w, dy, b.y);
+    b.z = fmaf(-w, dz, b.z);
+  }
+}
+
+// One B x B tile pair of two different tiles, run by the B / R threads of a
+// CTA.  Thread t = 32 w + l owns targets t + r B / R (r < R) of the i tile,
+// so a target's lane is its index mod 32, and passes their bodies bi =
+// (x, y, z, G m_i); the j tile is staged in shared memory `sj` and `red` is
+// (B / (32 R)) * 3 * B floats of shared scratch.  At step k of a 32-wide j
+// subtile s, lane l reads j = 32 s + (l + k) mod 32 once (a float4 of its
+// own: no broadcast; the doubled subtile makes it sj[64 s + l + k], an
+// immediate offset) and evaluates it against its R targets; the j-side sums
+// of j take the R reactions and then rotate one lane (3 shuffles), so after
+// 32 steps lane l holds the sum over the warp's 32 R targets for j = 32 s +
+// l.  The warps' sums meet in `red` and are added in warp order.  Each
+// target adds its j in the same order whatever R (subtiles in order, then
+// its lane's rotation).  Writes the i-side sum sum_j w d to pi and the
+// j-side sum -sum_i w d to pj, each (3, B).  The i and j tiles may come from
+// one set (Kernel B's off-diagonal tiles) or from two (the two-sided
+// sweep).  Every thread of the CTA calls it.
+template <int R, Dist D>
 __device__ __forceinline__ void sym_tile_cross(const float4* sj, float* red,
-                                               float4 bi, float* pi,
-                                               float* pj) {
-  const int B = blockDim.x, t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5, nwarps = B >> 5;
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int s = 0; s < nwarps; ++s) {  // 32-wide j subtiles
-    const float4* sub = sj + s * 32;
-    float bx = 0.f, by = 0.f, bz = 0.f;  // j side of j = s*32 + (lane+k)%32
+                                               const float4 (&bi)[R],
+                                               float* pi, float* pj) {
+  const int nt = blockDim.x, B = nt * R, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, nwarps = nt >> 5;
+  float3 a[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) a[r] = make_float3(0.f, 0.f, 0.f);
+  const int from = (lane + 1) & 31;
+  for (int s = 0; s < B / 32; ++s) {  // 32-wide j subtiles
+    const float4* sub = sj + s * 64 + lane;  // sub[k]: j = 32 s + (lane+k)%32
+    float3 b = make_float3(0.f, 0.f, 0.f);  // j side of that j
+#pragma unroll (8 / R)
     for (int k = 0; k < 32; ++k) {
-      const float4 p = sub[(lane + k) & 31];
-      const float dx = round_delta<D>(p.x - bi.x);
-      const float dy = round_delta<D>(p.y - bi.y);
-      const float dz = round_delta<D>(p.z - bi.z);
-      const float w = (bi.w * p.w) * inv_cube(dx, dy, dz);
-      const float px = w * dx, py = w * dy, pz = w * dz;
-      ax += px;
-      ay += py;
-      az += pz;
-      bx -= px;
-      by -= py;
-      bz -= pz;
+      const float4 p = sub[k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) sym_pair<D, true>(bi[r], p, a[r], b);
       // Hand each j-side sum to the lane that takes its j at step k+1.
-      const int from = (lane + 1) & 31;
-      bx = __shfl_sync(kFullMask, bx, from);
-      by = __shfl_sync(kFullMask, by, from);
-      bz = __shfl_sync(kFullMask, bz, from);
+      b.x = __shfl_sync(kFullMask, b.x, from);
+      b.y = __shfl_sync(kFullMask, b.y, from);
+      b.z = __shfl_sync(kFullMask, b.z, from);
     }
-    red[(warp * 3 + 0) * B + s * 32 + lane] = bx;
-    red[(warp * 3 + 1) * B + s * 32 + lane] = by;
-    red[(warp * 3 + 2) * B + s * 32 + lane] = bz;
+    red[(warp * 3 + 0) * B + s * 32 + lane] = b.x;
+    red[(warp * 3 + 1) * B + s * 32 + lane] = b.y;
+    red[(warp * 3 + 2) * B + s * 32 + lane] = b.z;
   }
   __syncthreads();
 
-  float sx = 0.f, sy = 0.f, sz = 0.f;
-  for (int w = 0; w < nwarps; ++w) {  // fixed order: deterministic
-    sx += red[(w * 3 + 0) * B + t];
-    sy += red[(w * 3 + 1) * B + t];
-    sz += red[(w * 3 + 2) * B + t];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = t + r * nt;  // target i, and j = i of the j side
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+    for (int w = 0; w < nwarps; ++w) {  // fixed order: deterministic
+      sx += red[(w * 3 + 0) * B + i];
+      sy += red[(w * 3 + 1) * B + i];
+      sz += red[(w * 3 + 2) * B + i];
+    }
+    pi[i] = a[r].x;
+    pi[B + i] = a[r].y;
+    pi[2 * B + i] = a[r].z;
+    pj[i] = sx;
+    pj[B + i] = sy;
+    pj[2 * B + i] = sz;
   }
-  pi[t] = ax;
-  pi[B + t] = ay;
-  pi[2 * B + t] = az;
-  pj[t] = sx;
-  pj[B + t] = sy;
-  pj[2 * B + t] = sz;
 }
 
 // One unordered B x B tile pair (it <= jt) of one set: the i-side sum goes
 // to pi and, off the diagonal, the j-side sum to pj, each (3, B).  A
-// diagonal tile takes a one-sided sum over all of its pairs.  Arguments as
-// for sym_tile_cross.
-template <Dist D = Dist::kF32>
+// diagonal tile takes a one-sided sum over all of its pairs, each target
+// reading j = 0 .. B - 1 in order (broadcasts).  Arguments as for
+// sym_tile_cross.
+template <int R, Dist D>
 __device__ __forceinline__ void sym_tile_pair_at(const float4* sj, float* red,
-                                                 float4 bi, bool diagonal,
-                                                 float* pi, float* pj) {
-  const int B = blockDim.x, t = threadIdx.x;
+                                                 const float4 (&bi)[R],
+                                                 bool diagonal, float* pi,
+                                                 float* pj) {
   if (diagonal) {  // one-sided sum over all of the tile's pairs
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    for (int k = 0; k < B; ++k) {
-      const float4 p = sj[k];
-      const float dx = round_delta<D>(p.x - bi.x);
-      const float dy = round_delta<D>(p.y - bi.y);
-      const float dz = round_delta<D>(p.z - bi.z);
-      const float w = (bi.w * p.w) * inv_cube(dx, dy, dz);
-      ax += w * dx;
-      ay += w * dy;
-      az += w * dz;
+    const int nt = blockDim.x, B = nt * R, t = threadIdx.x;
+    float3 a[R], unused;
+#pragma unroll
+    for (int r = 0; r < R; ++r) a[r] = make_float3(0.f, 0.f, 0.f);
+    for (int s = 0; s < B / 32; ++s) {
+#pragma unroll (8 / R)
+      for (int m = 0; m < 32; ++m) {
+        const float4 p = sj[s * 64 + m];  // j = 32 s + m
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          sym_pair<D, false>(bi[r], p, a[r], unused);
+      }
     }
-    pi[t] = ax;
-    pi[B + t] = ay;
-    pi[2 * B + t] = az;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = t + r * nt;
+      pi[i] = a[r].x;
+      pi[B + i] = a[r].y;
+      pi[2 * B + i] = a[r].z;
+    }
     return;  // uniform across the CTA
   }
-  sym_tile_cross<D>(sj, red, bi, pi, pj);
+  sym_tile_cross<R, D>(sj, red, bi, pi, pj);
+}
+
+// Unordered tile pair q of T (T + 1) / 2 as (it, jt), it <= jt: row it
+// holds the T - it pairs from q = it T - it (it - 1) / 2 on, jt from T - 1
+// down to it.  Counted from the end, tile row it = T - 1 - k holds the k + 1
+// pairs from the triangular number k (k + 1) / 2 on.  In 64 bits: T (T + 1)
+// / 2 passes 2^31 from T = 65536 on, its intermediates from T = 46341.
+__device__ __forceinline__ void tile_pair(long long q, int T, int& it,
+                                          int& jt) {
+  const long long r = 1LL * T * (T + 1) / 2 - 1 - q;
+  long long k = (long long)((sqrt(8.0 * r + 1.0) - 1.0) * 0.5);
+  while ((k + 1) * (k + 2) / 2 <= r) ++k;
+  while (k * (k + 1) / 2 > r) --k;
+  it = T - 1 - int(k);
+  jt = it + int(r - k * (k + 1) / 2);
 }
 
 // sym_tile_pair_at on the (T, T) partials `part` of one set, T tiles a
 // side: the i side to P[it][jt], the j side to P[jt][it].
+template <int R>
 __device__ __forceinline__ void sym_tile_pair(const float4* sj, float* red,
-                                              float4 bi, int it, int jt,
-                                              int T, float* part) {
-  const int B = blockDim.x;
-  sym_tile_pair_at(sj, red, bi, it == jt,
-                   part + (size_t(it) * T + jt) * 3 * B,   // P[it][jt]
-                   part + (size_t(jt) * T + it) * 3 * B);  // P[jt][it]
+                                              const float4 (&bi)[R], int it,
+                                              int jt, int T, float* part) {
+  const int B = blockDim.x * R;
+  sym_tile_pair_at<R, Dist::kF32>(sj, red, bi, it == jt,
+                                  part + (size_t(it) * T + jt) * 3 * B,
+                                  part + (size_t(jt) * T + it) * 3 * B);
 }
 
 // s + P[t][u0] + P[t][u0 + 1] + ... for `cols` columns of one coordinate,
@@ -252,14 +359,7 @@ inline int tiled_targets(int tile_i, int tile_j) {
 // up to kMaxTargets are built.
 template <class F>
 auto with_targets(int tile_i, int tile_j, F&& f) {
-  const int r = tiled_targets(tile_i, tile_j);
-  if constexpr (kMaxTargets >= 4) {
-    if (r == 4) return f(std::integral_constant<int, 4>{});
-  }
-  if constexpr (kMaxTargets >= 2) {
-    if (r == 2) return f(std::integral_constant<int, 2>{});
-  }
-  return f(std::integral_constant<int, 1>{});
+  return with_r<kMaxTargets>(tiled_targets(tile_i, tile_j), f);
 }
 
 // Thread threadIdx.x of a 1-D CTA of kTiledThreads threads that sweeps

@@ -19,7 +19,8 @@
 // Rows kernel, per sweep (two barriers):
 //   1. the CTAs draw the unordered tile pairs (it <= jt) from a counter in
 //      device memory (one atomicAdd a pair) and write Kernel B's
-//      deterministic partials P[it][jt] and P[jt][it] (nbt::sym_tile_pair).
+//      deterministic partials P[it][jt] and P[jt][it] (nbt::sym_tile_pair:
+//      Kernel B's tile body, B / R threads a CTA at Kernel B's R).
 //      A static grid-stride split left the CTAs that fell behind with no
 //      one to share their work: at N=16384 the pair phase took 276 us a
 //      step against 228 us unfused.  Which CTA takes a pair does not
@@ -108,28 +109,17 @@ __device__ __forceinline__ void advance_body(const float* p_in, float* p_out,
   }
 }
 
-// Unordered tile pair q of T (T + 1) / 2 as (it, jt), it <= jt.  Counted
-// from the end, tile row it = T - 1 - k holds the k + 1 pairs from the
-// triangular number k (k + 1) / 2 on.
-__device__ __forceinline__ void tile_pair(int q, int T, int& it, int& jt) {
-  const int r = T * (T + 1) / 2 - 1 - q;
-  int k = int((sqrt(8.0 * r + 1.0) - 1.0) * 0.5);
-  while ((k + 1) * (k + 2) / 2 <= r) ++k;
-  while (k * (k + 1) / 2 > r) --k;
-  it = T - 1 - k;
-  jt = it + (r - k * (k + 1) / 2);
-}
-
+template <int R>
 __global__ void fused_rows_kernel(float* pos, float* vel, const float* mass,
                                   int n, float* part, unsigned* queue,
                                   Steps st) {
   cg::grid_group grid = cg::this_grid();
-  const int B = blockDim.x, T = n / B, t = threadIdx.x;
+  const int nt = blockDim.x, B = nt * R, T = n / B, t = threadIdx.x;
   const int pairs = T * (T + 1) / 2;
   extern __shared__ float4 smem[];
-  float4* sj = smem;                                // the j tile
-  float* red = reinterpret_cast<float*>(smem + B);  // [warp][3][B]
-  __shared__ int q;                                 // the CTA's tile pair
+  float4* sj = smem;                                    // the j tile, twice
+  float* red = reinterpret_cast<float*>(smem + 2 * B);  // [warp][3][B]
+  __shared__ int q;                                     // the CTA's tile pair
   const int sweeps = st.steps + st.leapfrog;
   for (int s = 0; s < sweeps; ++s) {
     for (;;) {
@@ -138,17 +128,18 @@ __global__ void fused_rows_kernel(float* pos, float* vel, const float* mass,
       __syncthreads();
       if (q >= pairs) break;
       int it, jt;
-      tile_pair(q, T, it, jt);
-      sj[t] = nbt::load_body<kLoads>(pos, mass, n, jt * B + t);
-      const float4 bi = nbt::load_body<kLoads>(pos, mass, n, it * B + t);
+      nbt::tile_pair(q, T, it, jt);
+      float4 bi[R];
+      nbt::sym_load<R, kLoads>(pos, mass, n, it * B, pos, mass, n, jt * B, sj,
+                               bi);
       __syncthreads();
-      nbt::sym_tile_pair(sj, red, bi, it, jt, T, part);
+      nbt::sym_tile_pair<R>(sj, red, bi, it, jt, T, part);
     }
     grid.sync();  // every partial of this sweep is written
     // Every draw of this sweep came before the barrier above, and the next
     // sweep draws only after the one below: reset the counter in between.
     if (blockIdx.x == 0 && t == 0) atomicExch(queue, 0u);
-    for (int idx = blockIdx.x * B + t; idx < n; idx += gridDim.x * B) {
+    for (int idx = blockIdx.x * nt + t; idx < n; idx += gridDim.x * nt) {
       const float gm = mass[idx] * nbt::kG;
       const float3 a = nbt::sym_reduce<kLoads>(part, gm, idx, T, B);
       advance_body(pos, pos, vel, n, idx, a, s, st);
@@ -194,22 +185,25 @@ fused_cols_kernel(float* pos, float* vel, const float* mass, int n,
 
 // The rows block.  pos (3,n) and vel (3,n) are stepped in place; mass (n,);
 // all fp32 and contiguous.  block: a multiple of 32, at most 256, dividing
-// n.  partials: 3 * n * (n / block) floats of scratch; queue: one zeroed
-// unsigned int, the tile-pair counter.  dt and half: the fp32 step and
-// half step.  The wrapper checks all of it.  One launch on
-// `stream`, without synchronising; returns the launch's cudaError_t.
+// n; a CTA takes B / R threads, R = nbt::sym_targets(block) as in Kernel
+// B.  partials: 3 * n * (n / block) floats of scratch; queue: one
+// zeroed unsigned int, the tile-pair counter.  dt and half: the fp32 step
+// and half step.  The wrapper checks all of it.  One launch on `stream`,
+// without synchronising; returns the launch's cudaError_t.
 extern "C" int nbt_fused_rows(float* pos, float* vel, const float* mass, int n,
                               int block, float* partials, unsigned* queue,
                               int steps, float dt, float half, int leapfrog,
                               void* stream) {
   const int T = n / block;
-  const size_t smem =
-      block * sizeof(float4) + (block / 32) * 3 * block * sizeof(float);
   const Steps st{steps, dt, half, leapfrog};
-  return static_cast<int>(nbt::launch_persistent(
-      fused_rows_kernel, T * (T + 1) / 2, 1, dim3(block), smem,
-      static_cast<cudaStream_t>(stream), pos, vel, mass, n, partials, queue,
-      st));
+  return static_cast<int>(nbt::with_r<nbt::kMaxSymTargets>(
+      nbt::sym_targets(block), [&](auto r) {
+        constexpr int R = decltype(r)::value;
+        return nbt::launch_persistent(
+            fused_rows_kernel<R>, T * (T + 1) / 2, 1, dim3(block / R),
+            nbt::sym_smem(block, R), static_cast<cudaStream_t>(stream), pos,
+            vel, mass, n, partials, queue, st);
+      }));
 }
 
 // The columns block.  pos2: two (3,n) position buffers, the first holding

@@ -23,19 +23,26 @@
 // tile from the sources, so two launches on one input agree bit for bit.
 //
 // Bands.  The partials take 12 Nt Ns / B bytes a side (1.5 MB a side at
-// Nt = Ns = 4096, B = 128), so the target tiles are swept in bands of R, one
-// launch pair a band, within the wrapper's scratch budget: 24 R Ns bytes.
+// Nt = Ns = 4096, B = 128), so the target tiles are swept in bands of Q, one
+// launch pair a band, within the wrapper's scratch budget: 24 Q Ns bytes.
 // A band completes its own targets (P_t of its rows, every source column)
-// and adds its R columns of P_s to every source's running sum, which waits
+// and adds its Q columns of P_s to every source's running sum, which waits
 // in out_s for the next band; the last band divides.  Each sum still adds
 // its columns in order, so a banded sweep equals the one-band sweep bit for
-// bit.  With R = Nt / B the layout is the one-band P_t (Tt x Ts) and
+// bit.  With Q = Nt / B the layout is the one-band P_t (Tt x Ts) and
 // P_s (Ts x Tt).
 //
-// Bound.  Compute-bound like Kernel B: about 26 flops, one IEEE sqrt, one
-// IEEE divide and 3 shuffles per pair, Nt Ns pairs; device memory traffic
-// is the partials written once and read once.  The kernel is a template on
-// the pair deltas' precision (nbt::Dist), f32 or the bf16 distance mode.
+// Inside a CTA: Kernel B's tile body, B / R threads with R targets a lane,
+// R = nbt::sym_targets(B) as in Kernel B: 2 where B is a multiple of 64,
+// else 1.
+//
+// Bound.  Compute-bound like Kernel B: 20 FP32 operations, one SFU op
+// (nbt::rsqrt_cube), and 3 / R shuffles and 1 / R shared-memory reads per
+// pair, Nt Ns pairs; device memory traffic is the partials written once
+// and read once.  At its path's shapes a wrapper call takes longer on the
+// host than its two kernels on the card (PERF.md).  The kernel is a
+// template on R and on the pair deltas' precision (nbt::Dist), f32 or the
+// bf16 distance mode.
 #include "common.cuh"
 
 namespace {
@@ -43,29 +50,31 @@ namespace {
 constexpr nbt::Loads kLoads = nbt::Loads::kFixed;
 
 // Band [r0, r0 + gridDim.y) of target tiles: CTA (x, y) takes tile pair
-// (it, jt) = (r0 + y, x).
-template <nbt::Dist D>
+// (it, jt) = (r0 + y, x).  B = R blockDim.x.
+template <int R, nbt::Dist D>
 __global__ void two_sided_kernel(const float* __restrict__ pos_t,
                                  const float* __restrict__ mass_t, int nt,
                                  const float* __restrict__ pos_s,
                                  const float* __restrict__ mass_s, int ns,
                                  int r0, float* __restrict__ part_t,
                                  float* __restrict__ part_s) {
-  const int B = blockDim.x, R = gridDim.y, Ts = gridDim.x;
-  const int r = blockIdx.y, it = r0 + r, jt = blockIdx.x, t = threadIdx.x;
+  const int B = blockDim.x * R, nb = gridDim.y, Ts = gridDim.x;
+  const int r = blockIdx.y, it = r0 + r, jt = blockIdx.x;
   extern __shared__ float4 smem[];
-  float4* sj = smem;                                // the source tile
-  float* red = reinterpret_cast<float*>(smem + B);  // [warp][3][B]
-  sj[t] = nbt::load_body<kLoads>(pos_s, mass_s, ns, jt * B + t);
-  const float4 bi = nbt::load_body<kLoads>(pos_t, mass_t, nt, it * B + t);
+  float4* sj = smem;                                    // the sources, twice
+  float* red = reinterpret_cast<float*>(smem + 2 * B);  // [warp][3][B]
+  float4 bi[R];
+  nbt::sym_load<R, kLoads>(pos_t, mass_t, nt, it * B, pos_s, mass_s, ns,
+                           jt * B, sj, bi);
   __syncthreads();
-  nbt::sym_tile_cross<D>(sj, red, bi, part_t + (size_t(r) * Ts + jt) * 3 * B,
-                         part_s + (size_t(jt) * R + r) * 3 * B);
+  nbt::sym_tile_cross<R, D>(sj, red, bi,
+                            part_t + (size_t(r) * Ts + jt) * 3 * B,
+                            part_s + (size_t(jt) * nb + r) * 3 * B);
 }
 
 // The band's share of a = (sum_u P[t][u]) / (G m), u in order, for
 // coordinate c = blockIdx.y: the band's targets first (complete: every
-// source column), then every source, whose running sum over the band's R
+// source column), then every source, whose running sum over the band's Q
 // columns waits in out_s until the last band divides it.  One thread a body
 // and coordinate: the sums are latency-bound.
 __global__ void two_sided_reduce_kernel(
@@ -73,7 +82,7 @@ __global__ void two_sided_reduce_kernel(
     const float* __restrict__ part_s, const float* __restrict__ mass_s, int ns,
     int B, int r0, int r1, float* __restrict__ out_t,
     float* __restrict__ out_s) {
-  const int R = r1 - r0, band_n = R * B, Ts = ns / B, c = blockIdx.y;
+  const int nb = r1 - r0, band_n = nb * B, Ts = ns / B, c = blockIdx.y;
   int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < band_n) {
     const int tgt = r0 * B + idx, r = idx / B, l = idx - r * B;
@@ -87,21 +96,20 @@ __global__ void two_sided_reduce_kernel(
   const int jt = idx / B, l = idx - jt * B;
   float* o = out_s + size_t(c) * ns + idx;
   const float s = nbt::sym_row_sum<kLoads>(
-      part_s + size_t(jt) * R * 3 * B + c * B + l, R, B, r0 == 0 ? 0.f : *o);
+      part_s + size_t(jt) * nb * 3 * B + c * B + l, nb, B, r0 == 0 ? 0.f : *o);
   *o = r1 * B == nt ? nbt::sym_divide(s, mass_s[idx] * nbt::kG) : s;
 }
 
-template <nbt::Dist D>
+template <int R, nbt::Dist D>
 int two_sided(const float* pos_t, const float* mass_t, int nt,
               const float* pos_s, const float* mass_s, int ns, int block,
               int band, float* part_t, float* part_s, float* out_t,
               float* out_s, cudaStream_t s) {
   const int Tt = nt / block;
-  const size_t smem =
-      block * sizeof(float4) + (block / 32) * 3 * block * sizeof(float);
   for (int r0 = 0; r0 < Tt; r0 += band) {
     const int r1 = std::min(Tt, r0 + band);
-    two_sided_kernel<D><<<dim3(ns / block, r1 - r0), block, smem, s>>>(
+    two_sided_kernel<R, D><<<dim3(ns / block, r1 - r0), block / R,
+                             nbt::sym_smem(block, R), s>>>(
         pos_t, mass_t, nt, pos_s, mass_s, ns, r0, part_t, part_s);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -129,10 +137,14 @@ extern "C" int nbt_two_sided(const float* pos_t, const float* mass_t, int nt,
                              float* out_t, float* out_s, int bf16,
                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? two_sided<nbt::Dist::kBF16>(pos_t, mass_t, nt, pos_s, mass_s,
-                                            ns, block, band, part_t, part_s,
-                                            out_t, out_s, s)
-              : two_sided<nbt::Dist::kF32>(pos_t, mass_t, nt, pos_s, mass_s,
-                                           ns, block, band, part_t, part_s,
-                                           out_t, out_s, s);
+  return nbt::with_r<nbt::kMaxSymTargets>(
+      nbt::sym_targets(block), [&](auto r) {
+        constexpr int R = decltype(r)::value;
+        return bf16 ? two_sided<R, nbt::Dist::kBF16>(
+                          pos_t, mass_t, nt, pos_s, mass_s, ns, block, band,
+                          part_t, part_s, out_t, out_s, s)
+                    : two_sided<R, nbt::Dist::kF32>(
+                          pos_t, mass_t, nt, pos_s, mass_s, ns, block, band,
+                          part_t, part_s, out_t, out_s, s);
+      });
 }

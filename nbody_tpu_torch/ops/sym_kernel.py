@@ -52,7 +52,9 @@ MAX_BLOCK = 256  # 8 warps of j-side partials fill 24 KB of shared memory
 # The partials' budget, as a share of the device's memory; ``auto`` takes
 # this kernel while all of its partials fit it.
 SCRATCH_SHARE = 1 / 8
-MAX_BAND = 65535  # a band is the launch grid's y extent
+MAX_BAND = 65535  # a two-sided band is its launch grid's y extent
+MAX_GRID = 2**31 - 1  # a Kernel B band's tile pairs are its grid's x extent
+MAX_TARGETS = 2  # nbt::kMaxSymTargets (csrc/common.cuh)
 
 # Kernel launches on CUDA tensors (Kernel B; the two-sided kernel);
 # chip_smoke.py zeroes and reads them.
@@ -98,16 +100,29 @@ def _too_big(what: str, need: int, budget: int) -> ValueError:
         f"than the scratch budget of {budget} bytes (use --kernel pallas)")
 
 
+def lane_targets(block: int, most: int = MAX_TARGETS) -> int:
+    """R, the targets a lane of the pair-symmetric tile body owns at tile
+    edge ``block`` (nbt::sym_targets): the largest power of two up to
+    ``most`` that leaves block / R a multiple of 32."""
+    r = most
+    while r > 1 and block % (32 * r):
+        r //= 2
+    return r
+
+
 def sym_band(n: int, block: int, budget: int) -> int:
     """The most i tiles a Kernel B band takes within ``budget`` bytes:
     the whole sweep (n / block) where all the partials fit, else the
-    largest R with band_bytes(n, block, R) <= budget; a ValueError naming
-    ``--kernel pallas`` where not even one tile fits."""
+    largest Q with band_bytes(n, block, Q) <= budget, and at most
+    MAX_GRID // (n / block), so that a band's tile pairs (fewer than
+    Q n / block) fit its launch grid; a ValueError naming ``--kernel
+    pallas`` where not even one tile fits."""
     t_count = n // block
     if band_bytes(n, block, 1) > budget:
         raise _too_big(f"pallas_sym at N={n}, block={block}",
                        band_bytes(n, block, 1), budget)
-    lo, hi = 1, min(t_count, MAX_BAND)  # band_bytes rises with the band
+    # band_bytes rises with the band
+    lo, hi = 1, min(t_count, MAX_GRID // t_count)
     while lo < hi:
         mid = (lo + hi + 1) // 2
         if band_bytes(n, block, mid) <= budget:
@@ -115,6 +130,18 @@ def sym_band(n: int, block: int, budget: int) -> int:
         else:
             hi = mid - 1
     return lo
+
+
+def pair_terms(pos_i: torch.Tensor, gm_i: torch.Tensor, pos_j: torch.Tensor,
+               gm_j: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """w d for every target i and body j, (3, Ni, Nj): d = r_j - r_i
+    (rounded through bf16 where ``bf16``), w = (G m_i)(G m_j) /
+    (|d|^2 + eps^2)^{3/2} in IEEE fp32.  A tile pair's i-side partial is
+    its sum over j, its j-side partial minus its sum over i."""
+    d = round_deltas(pos_j[:, None, :] - pos_i[:, :, None], bf16)
+    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
+    inv = 1.0 / torch.sqrt(d2)
+    return d * ((gm_i[:, None] * gm_j[None, :]) * (inv * inv * inv))
 
 
 def accelerations_plain(pos: torch.Tensor, mass: torch.Tensor,
@@ -141,12 +168,9 @@ def accelerations_plain(pos: torch.Tensor, mass: torch.Tensor,
         r1 = min(t_count, r0 + band)
         for it in range(r0, r1):
             i0 = it * b
-            d = round_deltas(pos[:, None, i0:] - pos[:, i0:i0 + b, None],
-                             bf16)  # (3, B, N - i0)
-            d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
-            inv = 1.0 / torch.sqrt(d2)
-            w = (gm[i0:i0 + b, None] * gm[None, i0:]) * (inv * inv * inv)
-            p = (d * w).reshape(3, b, t_count - it, b)  # [c, i, jt - it, j]
+            p = pair_terms(pos[:, i0:i0 + b], gm[i0:i0 + b], pos[:, i0:],
+                           gm[i0:], bf16).reshape(3, b, t_count - it, b)
+            # p: [c, i, jt - it, j]
             rows[it - r0, it:] = p.sum(dim=3).permute(2, 0, 1)  # P[it][jt]
             # j side of the off-diagonal tiles: P[jt][it] = -sum_i w d, into
             # the band's rows for jt < r1, else into its tail.
@@ -258,12 +282,8 @@ def accelerations_two_sided_plain(pos_t: torch.Tensor, mass_t: torch.Tensor,
         r1 = min(tt, r0 + band)
         for it in range(r0, r1):
             i0 = it * b
-            d = round_deltas(pos_s[:, None, :] - pos_t[:, i0:i0 + b, None],
-                             bf16)  # (3, B, Ns)
-            d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
-            inv = 1.0 / torch.sqrt(d2)
-            w = (gm_t[i0:i0 + b, None] * gm_s[None, :]) * (inv * inv * inv)
-            p = (d * w).reshape(3, b, ts, b)  # [c, i, jt, j]
+            p = pair_terms(pos_t[:, i0:i0 + b], gm_t[i0:i0 + b], pos_s, gm_s,
+                           bf16).reshape(3, b, ts, b)  # [c, i, jt, j]
             part_t[it - r0] = p.sum(dim=3).permute(2, 0, 1)  # P_t[it][jt]
             part_s[:, it - r0] = -p.sum(dim=1).permute(1, 0, 2)  # P_s[jt][it]
         for u in range(ts):

@@ -11,11 +11,11 @@ a plain C interface (no PyTorch headers, so the build takes seconds):
 
 The library lands under ``build/`` beside the package, in a directory named
 by a hash of the sources and flags, so an edited source builds anew and an
-unchanged one loads at once.  There is no fast-math flag: ``1.0f/sqrtf`` is
-IEEE-rounded under nvcc's default ``-prec-div``/``-prec-sqrt`` where a kernel
-asks for it, and the tiled sweep and the mxu kernel take ``rsqrt.approx``
-with a Newton step by name (``nbt::rsqrt_cube``).  A missing ``nvcc``
-raises; nothing falls back.
+unchanged one loads at once.  There is no fast-math flag: divides and square
+roots are IEEE-rounded under nvcc's default ``-prec-div``/``-prec-sqrt``
+where a kernel asks for them (the force VJP), and the exact pair loops take
+``rsqrt.approx`` by name (with a Newton step, ``nbt::rsqrt_cube``, but for
+the mxu kernel).  A missing ``nvcc`` raises; nothing falls back.
 """
 
 from __future__ import annotations

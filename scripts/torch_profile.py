@@ -37,9 +37,15 @@ N=2000 and N=16384 over 4 virtual shards of the card in each comm mode
 (``allgather``, ``ring``, ``ring_sym``, ``rdma``) and ``rdma`` over 3 at
 N=2000, 50-step blocks; P3M on the Plummer sphere of the JAX package's
 gate (N=262144, seed 7, ng=128, cutoff 4), 8-step blocks; P3M and PM on
-the reference initial conditions at N=1048576, 4-step blocks.  Each cell
-is built by the engine (``simulation._DeviceRunner``: its state, P3M plan,
-mesh env and blocks).  The first line is the card's
+the reference initial conditions at N=1048576, 4-step blocks.  Then the
+pair-symmetric kernels called alone through their wrappers, 20 calls in a
+row (a "step" is one call, so wall - device per call is the host's gap
+between calls): Kernel B at N=16384, and the two-sided sweep at one
+``ring_sym`` block pair of N=16384 over 4 (4096 x 4096) and of N=2000
+over 4 (512 x 512), which splits a call into the pairs kernel, the reduce
+kernel and the host gap.  Each engine cell is built by the engine
+(``simulation._DeviceRunner``: its state, P3M plan, mesh env and
+blocks).  The first line is the card's
 name and power limit.  With CELL arguments it runs only the cells whose
 label contains one of them (``"16384 pallas_mxu" "shards=4"``).  Needs a
 CUDA card; imports nothing of JAX.
@@ -301,7 +307,39 @@ def main() -> int:
         finally:
             runner.finish()
         del runner
+    call_cells()
     return 0
+
+
+def call_cells() -> None:
+    """The pair-symmetric kernels alone, 20 wrapper calls a block."""
+    from nbody_tpu_torch import make_state
+    from nbody_tpu_torch.ops import sym_kernel
+    from nbody_tpu_torch.parallel import make_mesh
+    from nbody_tpu_torch.parallel.decompose import shard_state
+
+    calls = 20
+    big = make_state(16384, device="cuda")
+    sh, _ = shard_state(big, 4, make_mesh(4))
+    small = make_state(2000, pad_multiple=512, device="cuda")
+    sh2, _ = shard_state(small, 4, make_mesh(4))
+    for label, fn, args in (
+            ("Kernel B N=16384", sym_kernel.accelerations,
+             (big.pos, big.mass)),
+            ("two-sided 4096 x 4096 (N=16384 over 4)",
+             sym_kernel.accelerations_two_sided,
+             (sh.pos[0], sh.mass[0], sh.pos[1], sh.mass[1])),
+            ("two-sided 512 x 512 (N=2000 over 4)",
+             sym_kernel.accelerations_two_sided,
+             (sh2.pos[0], sh2.mass[0], sh2.pos[1], sh2.mass[1]))):
+        if sys.argv[1:] and not any(c in label for c in sys.argv[1:]):
+            continue
+
+        def block(_, fn=fn, args=args):
+            for _ in range(calls):
+                fn(*args)
+
+        profile_block(f"{label}, {calls} calls", block, None, calls)
 
 
 if __name__ == "__main__":

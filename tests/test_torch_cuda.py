@@ -22,7 +22,10 @@ sum; below N=2000 the expansion's own error allows 5e-5), and a banded
 pair-symmetric or two-sided sweep equals the one-band sweep bit for bit.
 Kernel A, the fused columns block and the ring run one source loop
 (``nbt::tiled_source_sweep``), so an Euler columns block equals the
-unfused block over Kernel A bit for bit.
+unfused block over Kernel A bit for bit; Kernel B, the two-sided sweep and
+the fused rows block run one tile body (``nbt::sym_tile_cross``) with R
+targets a lane, at every R its launchers pick, and an Euler rows block
+equals the unfused block over Kernel B bit for bit at each of them.
 """
 
 import json
@@ -189,6 +192,68 @@ def test_fused_euler_rows_is_unfused_sym_block(cuda_device):
     st = make_state(2000, pad_multiple=128, device=cuda_device)
     pos, vel = fused_block.fused_block(st.pos, st.vel, st.mass, 0.1, 10)
     blk = make_block_fn(make_accel_fn("pallas_sym", tile_i=128), 0.1, 10)
+    want, _ = blk(st)
+    assert torch.equal(pos, want.pos) and torch.equal(vel, want.vel)
+
+
+# Shapes that give the pair-symmetric tile body each R its launchers pick
+# (nbt::sym_targets: 2 where the block is a multiple of 64, else 1): Kernel
+# B and the fused rows block at (N, block), the two-sided sweep at
+# (Nt, Ns, block).
+SELF_SHAPES = [(2048, 128), (8192, 128), (16384, 128), (16384, 64),
+               (4096, 32)]
+CROSS_SHAPES = [(512, 512, 128), (4096, 2048, 128), (4096, 4096, 128),
+                (16384, 8192, 128), (1024, 512, 32)]
+
+
+def _every_targets():
+    return {sym_kernel.lane_targets(b)
+            for b in range(32, sym_kernel.MAX_BLOCK + 1, 32)}
+
+
+def test_sym_kernel_at_each_targets(cuda_device):
+    """Kernel B at shapes that give a lane each R its launcher can pick:
+    within 1e-5 of its plain version, two launches bit for bit, zero-mass
+    padding exactly 0."""
+    seen = set()
+    for n, block in SELF_SHAPES:
+        r = sym_kernel.lane_targets(block)
+        seen.add(r)
+        st = make_state(n - 24, pad_multiple=block, device=cuda_device)
+        got = sym_kernel.accelerations(st.pos, st.mass, block=block)
+        again = sym_kernel.accelerations(st.pos, st.mass, block=block)
+        plain = sym_kernel.accelerations_plain(st.pos, st.mass, block)
+        assert _rel(got, plain) <= 1e-5, (n, block, r)
+        assert torch.equal(got, again), (n, block, r)
+        assert torch.all(got[:, n - 24:] == 0), (n, block, r)
+    assert seen == _every_targets()
+
+
+def test_two_sided_kernel_at_each_targets(cuda_device):
+    seen = set()
+    for nt, ns, block in CROSS_SHAPES:
+        seen.add(sym_kernel.lane_targets(block))
+        a = make_state(nt - 40, pad_multiple=nt, seed=1, device=cuda_device)
+        b = make_state(ns - 24, pad_multiple=ns, seed=2, device=cuda_device)
+        args = (a.pos, a.mass, b.pos, b.mass)
+        t, s = sym_kernel.accelerations_two_sided(*args, block=block)
+        t2, s2 = sym_kernel.accelerations_two_sided(*args, block=block)
+        tp, sp = sym_kernel.accelerations_two_sided_plain(*args, block=block)
+        assert _rel(t, tp) <= 1e-5 and _rel(s, sp) <= 1e-5, (nt, ns, block)
+        assert torch.equal(t, t2) and torch.equal(s, s2), (nt, ns, block)
+        assert torch.all(t[:, nt - 40:] == 0) and torch.all(s[:, ns - 24:] == 0)
+    assert seen == _every_targets()
+
+
+@pytest.mark.parametrize("n,block", SELF_SHAPES[2:])
+def test_fused_euler_rows_is_unfused_at_each_targets(cuda_device, n, block):
+    """The rows kernel takes Kernel B's R at the same block, so an
+    Euler block equals the unfused block over Kernel B bit for bit at every
+    CTA shape."""
+    st = make_state(n, device=cuda_device)
+    pos, vel = fused_block.fused_block(st.pos, st.vel, st.mass, 0.1, 3,
+                                       block)
+    blk = make_block_fn(make_accel_fn("pallas_sym", tile_i=block), 0.1, 3)
     want, _ = blk(st)
     assert torch.equal(pos, want.pos) and torch.equal(vel, want.vel)
 
