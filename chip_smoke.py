@@ -83,7 +83,9 @@ Phases, each printing what it found; any failure exits non-zero:
     bounds sums to the full sweep (rtol 1e-6, atol 2e-6 of the largest);
     the layouts without a reaction repeat bit for bit, the symmetric ones
     within 1e-6 relative norm on the occupied slots.  The per-call time of
-    kernel and plain version (CUDA events) with the entry count.
+    kernel and plain version (CUDA events) with the entry count, and the
+    share of the kernel's (warp, source) steps that its warp-uniform skip
+    takes (``sr_kernel.skip_counts``, counted on the card).
 13. The P3M path: the port's ``pm`` and ``p3m`` at Plummer N=16384 against
     the JAX package's accelerations in
     tests/golden/torch_p3m_plummer_n16384.npz (1e-4 relative norm); at
@@ -224,7 +226,7 @@ FP32_RATE = 67e12
 HBM_RATE = 3.35e12
 OPS_SYM = 27  # per unordered pair: 3 sub, 6 for |d|^2 + eps^2, sqrt,
 # divide, 2 cube, 2 mass, 3 FMA each side
-OPS_VJP = 45  # csrc/vjp.cu's note
+OPS_VJP = 45  # the force VJP's pair arithmetic, sqrt and divide one each
 OPS_SR = 31  # 3 sub, 5 |d|^2, eps, rsqrt, 3 clamp, 7 taper, 4 weight, 1 mass, 3 FMA
 OPS_SR_REACTION = 7  # the symmetric layouts: target mass, 3 products, 3 adds
 # The mxu kernel's function at its least work: both K=8 products of the
@@ -414,9 +416,14 @@ def mesh_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
         ms_p = time_ms(lambda: sr_kernel.sweep_plain(*tabs, bounds, pk["rc2"],
                                                      **kw), reps=1)
         width = 2 * pm.SLAB if paired else pm.SLAB
-        sr[layout] = (n_e, width, sym, ms_k, ms_p, pk["ptab"].shape[1])
+        work = sr_kernel.skip_counts(*tabs, bounds, pk["rc2"], chunk=2048,
+                                     **kw)
+        skip = work["skipped"] / work["steps"]
+        sr[layout] = (n_e, width, sym, ms_k, ms_p, pk["ptab"].shape[1], skip)
         print(f"sr {layout} N={n}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms "
-              f"per call; {n_e * pm.SLAB * width / ms_k / 1e6:.1f} Gpairs/s "
+              f"per call; {n_e * pm.SLAB * width / ms_k / 1e6:.1f} Gpairs/s; "
+              f"(warp, source) steps skipped {skip:.4f} of {work['steps']}, "
+              f"pairs inside the cutoff {work['inside'] / work['pairs']:.4f} "
               f"{tag}", flush=True)
         del pk, tabs
 
@@ -1466,11 +1473,11 @@ def main() -> int:
     bounds_ms["sr"] = min(
         bound(n_e * pm.SLAB * width * (OPS_SR + OPS_SR_REACTION * sym),
               28 * nslots + 8 * n_e)
-        for n_e, width, sym, _, _, nslots in sr.values())
+        for n_e, width, sym, _, _, nslots, _ in sr.values())
     # The row's times: the layout the main path ran.
     sr_default = next(name for name, state in pm.SR_LAYOUTS.items()
                       if state == pm._active_sr_layout(True))
-    _, _, _, ms["sr"], ms["sr_plain"], _ = sr[sr_default]
+    _, _, _, ms["sr"], ms["sr_plain"], _, sr_skip = sr[sr_default]
     rows = [
         ("sym_pairs_kernel+sym_reduce_kernel (Kernel B)", "sym.cu",
          "nbody_tpu/ops/pallas_sym.py:85", "B"),
@@ -1481,8 +1488,9 @@ def main() -> int:
         ("fused_cols_kernel (fused block, columns layout)", "fused.cu",
          "nbody_tpu/ops/fused_block.py:78", "columns"),
         ("force_vjp_kernel", "vjp.cu", "nbody_tpu/ops/grad.py:102", "vjp"),
-        (f"sr_sweep_kernel (P3M short range, {sr_default} layout)",
-         "sr.cu", "nbody_tpu/ops/pm.py:1630", "sr"),
+        (f"sr_pack_kernel+sr_pairs_kernel+sr_finalize_kernel (P3M short "
+         f"range, {sr_default} layout)", "sr.cu", "nbody_tpu/ops/pm.py:1630",
+         "sr"),
         ("two_sided_kernel+two_sided_reduce_kernel (two-sided sweep)",
          "two_sided.cu", "nbody_tpu/ops/pallas_sym.py:211", "two_sided"),
         ("ring_kernel (fused ring, K=4)", "ring.cu",
@@ -1500,6 +1508,9 @@ def main() -> int:
         # device time of the kernels alone goes beside it.
         **({"device_ms": ms[f"{key}_device"]} if f"{key}_device" in ms
            else {}),
+        # The SR kernel skips (warp, source) steps wholly beyond the cutoff,
+        # which the bound counts as work: the share it skipped goes beside.
+        **({"skipped_share": sr_skip} if key == "sr" else {}),
     } for name, src, replaces, key in rows]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
 // Shared pieces of the port's CUDA kernels: the reference's physics
-// constants, the softened inverse cube of one pair distance, the bodies of
-// the two force sweeps and the cooperative launcher.  The unfused kernels
-// (sym.cu, tiled.cu), the fused sample blocks (fused.cu), the two-sided
-// sweep (two_sided.cu) and the ring (ring.cu) run the same device
-// functions, so they share one copy of the pair arithmetic.
+// constants, the inverse square root and cube of one pair distance, the
+// P3M sweep's warp-uniform skip predicate, the bodies of the two force
+// sweeps and the cooperative launcher.  The unfused kernels (sym.cu,
+// tiled.cu), the fused sample blocks (fused.cu), the two-sided sweep
+// (two_sided.cu), the ring (ring.cu) and the force VJP (vjp.cu) run the
+// same device functions, so they share one copy of the pair arithmetic.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,17 +33,31 @@ __device__ __forceinline__ float rsqrt_approx(float d2) {
   return y;
 }
 
-// d2^{-3/2} for d2 >= eps^2: rsqrt_approx, one Newton step
-// y (3 - d2 y^2) / 2, which leaves it within about an ulp of 1 / sqrt, then
-// the cube.  One MUFU op and six FP32 ops, with no branch.  Every exact
-// pair loop takes it: the tiled sweep and the pair-symmetric tile body (no
-// IEEE 1.0f / sqrtf, whose two refinement sequences each carry a slow-path
-// branch); the mxu kernel takes rsqrt_approx alone.
-__device__ __forceinline__ float rsqrt_cube(float d2) {
-  float y = rsqrt_approx(d2);
+// d2^{-1/2} for d2 >= eps^2: rsqrt_approx and one Newton step
+// y (3 - d2 y^2) / 2, which leaves it within about an ulp of 1 / sqrt.  One
+// MUFU op and four FP32 ops, with no branch (IEEE 1.0f / sqrtf carries two
+// refinement sequences, each with a slow-path branch).  The force VJP takes
+// it for its two inverse powers.
+__device__ __forceinline__ float rsqrt_newton(float d2) {
+  const float y = rsqrt_approx(d2);
   const float h = 0.5f * d2;
-  y = y * fmaf(-h * y, y, 1.5f);
+  return y * fmaf(-h * y, y, 1.5f);
+}
+
+// d2^{-3/2} for d2 >= eps^2: rsqrt_newton, then the cube.  One MUFU op and
+// six FP32 ops.  Every exact pair loop takes it: the tiled sweep and the
+// pair-symmetric tile body; the mxu kernel and the P3M short-range sweep
+// take rsqrt_approx alone.
+__device__ __forceinline__ float rsqrt_cube(float d2) {
+  const float y = rsqrt_newton(d2);
   return y * y * y;
+}
+
+// Whether every lane of the warp has q >= 1: a pair beyond the P3M cutoff,
+// where the taper's weight is exactly 0 (the short-range sweep's
+// warp-uniform skip).  Every lane of the warp calls it.
+__device__ __forceinline__ bool warp_all_beyond(float q) {
+  return __all_sync(kFullMask, q >= 1.0f);
 }
 
 // The pair deltas' precision, a compile-time flag of the pair arithmetic.

@@ -12,13 +12,20 @@
 // The j == k term is left unmasked, as in the JAX kernel: it adds the same
 // G m_k s0 g_k to both position terms, which cancel in exact arithmetic.
 //
-// Design: Kernel A's sibling (tiled.cu).  A CTA of 256 threads owns tile_i
-// targets (one thread per target, x) and splits each source tile among
-// 256/tile_i thread rows (y).  Source tiles of (x, y, z, G m) and
-// (gx, gy, gz, 0) are staged once per CTA through shared memory as two
-// float4 and read by broadcast.  Each thread keeps its seven sums in fp32
-// registers; the thread rows' partial sums are added in a fixed order, so
-// the result is deterministic.  The JAX kernel carries its sums across the
+// Design: Kernel A's source loop (tiled.cu, nbt::tiled_source_sweep),
+// applied to the backward.  A one-dimensional CTA of 256 threads owns
+// tile_i targets; each thread owns R = nbt::tiled_targets(tile_i, tile_j)
+// of them (nbt::TiledThread: R = 2 where tile_i is a multiple of 64), so a
+// CTA has 256 R / tile_i thread rows, and each row sweeps its share of
+// every source tile.  Source tiles of (x, y, z, G m) and (gx, gy, gz, 0)
+// are staged once per CTA through shared memory as two float4; a warp's 32
+// lanes are 32 targets of one row and read one source at a time (a
+// broadcast), which feeds R pairs, so the two shared-memory reads of a pair
+// are 2 / R.  The inverse powers come from one rsqrt.approx and one Newton
+// step (nbt::rsqrt_newton): inv, s = inv^3 and q = 3 s inv^2, with no IEEE
+// square root or divide and no branch.  Each thread keeps its 7 R sums in
+// fp32 registers; the rows' partial sums are added in row order, so the
+// result is deterministic.  The JAX kernel carries its sums across the
 // sequential j grid axis in its output block; here that axis is the loop
 // over source tiles inside one CTA, so nothing is reduced across CTAs.
 // The (N,8)/(8,N) packing of the JAX kernel is a TPU lane artifact: the
@@ -29,40 +36,51 @@
 // cotangent leaves the real targets' results bit for bit as they were.
 //
 // Bound.  Like Kernel A the sweep is compute-bound at N=16384: each pair
-// costs one IEEE sqrt, one IEEE divide and about 45 flops, against 32
-// bytes of shared memory per source that every thread of the CTA reuses.
-// Device memory traffic is (N/tile_i) * N * 32 bytes, and the rows sit in
-// the 50 MB L2.
+// is about 45 fp32 operations of the function (chip_smoke.py's count, the
+// square root and the divide one each), which the kernel issues as one SFU
+// op and about 40 instructions, against 32 bytes of shared memory a source
+// that every thread of the CTA reuses.  Device memory traffic is (N /
+// tile_i) * N * 28 bytes, and the rows sit in the 50 MB L2.  tile_i 64 (R =
+// 2) fills the 132 SMs from N = 8448 on; below, 32 (R = 1) gives twice the
+// CTAs (ops/vjp_kernel.py).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kSums = 7;  // A_xyz, B_xyz, S
 
+template <int R>
 __global__ void __launch_bounds__(nbt::kTiledThreads)
 force_vjp_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
                  const float* __restrict__ g, int n, float* __restrict__ d_pos,
-                 float* __restrict__ d_mass, int tile_j) {
+                 float* __restrict__ d_mass, int tile_i, int tile_j) {
   extern __shared__ float4 src[];  // tile_j bodies, then tile_j cotangents
-  __shared__ float part[kSums * nbt::kTiledThreads];
-  const int ti = blockDim.x, tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * ti + tx;
-  const int k = blockIdx.x * ti + tx;
-  const int kc = k < n ? k : n - 1;  // ragged edge: compute, never store
-  const float xk = pos[kc], yk = pos[n + kc], zk = pos[2 * n + kc];
-  const float gkx = g[kc], gky = g[n + kc], gkz = g[2 * n + kc];
+  __shared__ float part[kSums * nbt::kTiledThreads * R];
+  const nbt::TiledThread<R> th(tile_i);
+  const int i0 = blockIdx.x * tile_i;
+  float xk[R], yk[R], zk[R], gkx[R], gky[R], gkz[R];
+  float acc[R][kSums];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = min(i0 + th.target(r), n - 1);  // ragged edge: never stored
+    xk[r] = pos[k];
+    yk[r] = pos[n + k];
+    zk[r] = pos[2 * n + k];
+    gkx[r] = g[k];
+    gky[r] = g[n + k];
+    gkz[r] = g[2 * n + k];
+#pragma unroll
+    for (int v = 0; v < kSums; ++v) acc[r][v] = 0.f;
+  }
   float4* body = src;
   float4* cot = src + tile_j;
-  const int per = tile_j / blockDim.y;
-  const float4* my_body = body + ty * per;
-  const float4* my_cot = cot + ty * per;
+  const int per = tile_j / th.rows;
+  const float4* my_body = body + th.ty * per;
+  const float4* my_cot = cot + th.ty * per;
 
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  float bx = 0.f, by = 0.f, bz = 0.f;
-  float sg = 0.f;
   for (int j0 = 0; j0 < n; j0 += tile_j) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int t = tid; t < tile_j; t += nbt::kTiledThreads) {
+    for (int t = threadIdx.x; t < tile_j; t += nbt::kTiledThreads) {
       const int j = j0 + t;
       if (j < n) {
         body[t] = nbt::load_body<nbt::Loads::kFixed>(pos, mass, n, j);
@@ -73,40 +91,51 @@ force_vjp_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
       }
     }
     __syncthreads();
-#pragma unroll 4
+#pragma unroll (4 / R)
     for (int t = 0; t < per; ++t) {
       const float4 p = my_body[t];
       const float4 c = my_cot[t];
-      const float rx = p.x - xk, ry = p.y - yk, rz = p.z - zk;
-      const float u = rx * rx + ry * ry + rz * rz + nbt::kSoftening2;
-      const float inv = 1.0f / sqrtf(u);
-      const float s = inv * inv * inv;
-      const float q = 3.0f * s * (inv * inv);
-      const float rgj = rx * c.x + ry * c.y + rz * c.z;
-      const float rgk = rx * gkx + ry * gky + rz * gkz;
-      const float cj = q * rgj, ck = q * rgk;
-      ax += s * c.x - cj * rx;
-      ay += s * c.y - cj * ry;
-      az += s * c.z - cj * rz;
-      bx += p.w * (s * gkx - ck * rx);
-      by += p.w * (s * gky - ck * ry);
-      bz += p.w * (s * gkz - ck * rz);
-      sg += rgj * s;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float rx = p.x - xk[r], ry = p.y - yk[r], rz = p.z - zk[r];
+        const float u =
+            fmaf(rz, rz, fmaf(ry, ry, fmaf(rx, rx, nbt::kSoftening2)));
+        const float inv = nbt::rsqrt_newton(u);
+        const float inv2 = inv * inv;
+        const float s = inv2 * inv;
+        const float q = (3.0f * s) * inv2;
+        const float rgj = fmaf(rz, c.z, fmaf(ry, c.y, rx * c.x));
+        const float rgk = fmaf(rz, gkz[r], fmaf(ry, gky[r], rx * gkx[r]));
+        const float cj = q * rgj;
+        const float ms = p.w * s, mck = p.w * (q * rgk);
+        float* a = acc[r];
+        a[0] = fmaf(-cj, rx, fmaf(s, c.x, a[0]));
+        a[1] = fmaf(-cj, ry, fmaf(s, c.y, a[1]));
+        a[2] = fmaf(-cj, rz, fmaf(s, c.z, a[2]));
+        a[3] = fmaf(-mck, rx, fmaf(ms, gkx[r], a[3]));
+        a[4] = fmaf(-mck, ry, fmaf(ms, gky[r], a[4]));
+        a[5] = fmaf(-mck, rz, fmaf(ms, gkz[r], a[5]));
+        a[6] = fmaf(rgj, s, a[6]);
+      }
     }
   }
 
-  const float mine[kSums] = {ax, ay, az, bx, by, bz, sg};
+  // The rows' partial sums of every target, added in row order.
+  const int plane = th.rows * tile_i;
 #pragma unroll
-  for (int v = 0; v < kSums; ++v) part[v * nbt::kTiledThreads + tid] = mine[v];
+  for (int r = 0; r < R; ++r) {
+    const int c = th.ty * tile_i + th.target(r);
+#pragma unroll
+    for (int v = 0; v < kSums; ++v) part[v * plane + c] = acc[r][v];
+  }
   __syncthreads();
-  if (ty != 0 || k >= n) return;
+  const int i = threadIdx.x, k = i0 + i;
+  if (i >= tile_i || k >= n) return;
   float tot[kSums];
 #pragma unroll
   for (int v = 0; v < kSums; ++v) {
     float x = 0.f;
-    for (int r = 0; r < int(blockDim.y); ++r) {  // fixed order: deterministic
-      x += part[v * nbt::kTiledThreads + r * ti + tx];
-    }
+    for (int row = 0; row < th.rows; ++row) x += part[v * plane + row * tile_i + i];
     tot[v] = x;
   }
   const float gmk = mass[k] * nbt::kG;
@@ -121,17 +150,20 @@ force_vjp_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
 // pos (3,n), mass (n,), g (3,n) -> d_pos (3,n), d_mass (n,), all fp32 and
 // contiguous.  tile_i targets per CTA: a multiple of 32 that divides 256.
 // tile_j sources per shared-memory tile: a multiple of 256/tile_i, at most
-// 1024 (32 KB of staged sources beside 7 KB of row sums).  The wrapper
+// 1024 (32 KB of staged sources beside 14 KB of row sums).  The wrapper
 // checks both.  Launches on `stream` without synchronising and returns
 // cudaGetLastError().
 extern "C" int nbt_force_vjp(const float* pos, const float* mass,
                              const float* g, int n, float* d_pos,
                              float* d_mass, int tile_i, int tile_j,
                              void* stream) {
-  const dim3 block(tile_i, nbt::kTiledThreads / tile_i);
   const dim3 grid((n + tile_i - 1) / tile_i);
   const size_t smem = 2 * size_t(tile_j) * sizeof(float4);
-  force_vjp_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      pos, mass, g, n, d_pos, d_mass, tile_j);
+  const auto st = static_cast<cudaStream_t>(stream);
+  nbt::with_targets(tile_i, tile_j, [&](auto r) {
+    force_vjp_kernel<decltype(r)::value>
+        <<<grid, nbt::kTiledThreads, smem, st>>>(pos, mass, g, n, d_pos,
+                                                 d_mass, tile_i, tile_j);
+  });
   return static_cast<int>(cudaGetLastError());
 }

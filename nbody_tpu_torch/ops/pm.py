@@ -32,7 +32,8 @@ What differs from the JAX package:
   the JAX package pairs them only on its accelerator); on the CPU the plain
   sweep, unpaired.  By default the card runs paired rows without the
   symmetric reaction, which the JAX package adds on every device: on the
-  card the reaction's atomics cost more than the pairs they save.  The VMEM gate, the Mosaic probe and ``SR_FLUSH_RUNS``
+  card the reaction's atomics add in no fixed order, and the default layout
+  repeats bit for bit.  The VMEM gate, the Mosaic probe and ``SR_FLUSH_RUNS``
   of the JAX package are TPU machinery and are not ported.
 * The periodic boundary (ROADMAP.md queue 1 item 9), the differentiable
   P3M sweep (item 10) and the sharded solve (item 11) are not ported yet
@@ -60,8 +61,9 @@ SLAB = 64
 # source row).  Read when the solver runs; set through set_sr_layout.
 # SR_SYMMETRIC None lets the state's device decide: the reaction on the
 # CPU, as the JAX package runs its sweep there (so both packages size the
-# same plans), and none on the card, where csrc/sr.cu's reaction atomics
-# cost more than the pairs they save (PERF.md §5).
+# same plans), and none on the card, where csrc/sr.cu adds the reaction
+# with global atomics in no fixed order, and the default layout repeats bit
+# for bit (pallas_sym is 3% faster at the P3M gate; PERF.md §6).
 SR_SYMMETRIC = None
 SR_PAIRED_ROWS = True
 

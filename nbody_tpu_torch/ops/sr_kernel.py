@@ -48,6 +48,91 @@ def _check_index(name: str, t: torch.Tensor, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def scratch_floats(nslots: int, e_max: int, unit: int) -> int:
+    """Floats of ``csrc/sr.cu``'s scratch: the packed (x, y, z, m) table,
+    padded to whole 128-slot rows, then a head and a tail partial (3 x 64)
+    for each unit of ``unit`` worklist entries."""
+    return 4 * (-(-nslots // 128) * 128) + 2 * 3 * SLAB * -(-e_max // unit)
+
+
+def packed_table(ptab: torch.Tensor, mtab: torch.Tensor) -> torch.Tensor:
+    """``csrc/sr.cu``'s packed table: (x, y, z, m) of every slot as rows of
+    an (npad, 4) tensor, zero past nslots up to whole 128-slot rows."""
+    nslots = ptab.shape[1]
+    tab = torch.zeros((-(-nslots // 128) * 128, 4), dtype=ptab.dtype,
+                      device=ptab.device)
+    tab[:nslots, :3] = ptab.t()
+    tab[:nslots, 3] = mtab
+    return tab
+
+
+def split_order(slabs: torch.Tensor) -> torch.Tensor:
+    """The kernel's split of each slab's 64 targets into two compact warps.
+
+    ``slabs`` (nslab, 64, 4) of packed slots -> (nslab, 64) int64: thread k
+    of the group (lane k % 32 of warp k // 32) takes the slot ``order[k]``:
+    the slots sorted along the slab's longest axis (the first of equal
+    extents), ties by slot, as the kernel ranks them."""
+    xyz = slabs[..., :3]
+    axis = (xyz.amax(dim=1) - xyz.amin(dim=1)).argmax(dim=1)
+    key = xyz.gather(2, axis[:, None, None].expand(-1, SLAB, 1))[..., 0]
+    return torch.sort(key, dim=1, stable=True).indices
+
+
+def skip_counts(ptab, mtab, wl_t, wl_s, bounds, rc2, symmetric: bool = False,
+                paired: bool = False, chunk: int = 256,
+                entries: torch.Tensor | None = None) -> dict:
+    """The work of ``csrc/sr.cu``'s schedule: its (warp, source) steps and
+    how many of them its warp-uniform skip takes (every pair of the step
+    beyond the cutoff), counted in plain PyTorch on the tables' device.
+
+    A forward step is one source against a warp's 32 targets (the slab
+    split by ``split_order``); a step of the reaction's rotation pairs lane
+    l with source (l + k) mod 32 of a 32-wide subtile; masked subtiles of
+    ``pallas_paired_sym`` take no step.  q = |d|^2 / rc2 is rounded once an
+    operation here, where the kernel fuses multiply-adds, so a pair on the
+    cutoff may fall the other way.  ``entries`` (int64) counts those
+    worklist entries instead of all in ``bounds``.  Returns ``{"steps",
+    "skipped", "pairs", "inside"}``: steps, skipped steps, pairs evaluated
+    and pairs inside the cutoff, as ints."""
+    width = 2 * SLAB if paired else SLAB
+    tab = packed_table(ptab, mtab)
+    nslab = ptab.shape[1] // SLAB
+    order = split_order(tab[:nslab * SLAB].view(nslab, SLAB, 4))
+    inv_rc2 = 1.0 / rc2
+    if entries is None:
+        lo, hi = max(int(bounds[0]), 0), min(int(bounds[1]), wl_t.shape[0])
+        entries = torch.arange(lo, hi, device=wl_t.device)
+    lane = torch.arange(32, device=tab.device)
+    rot = (lane[:, None] + lane[None, :]) % 32  # [lane, step] -> source
+    out = dict(steps=0, skipped=0, pairs=0, inside=0)
+    for c0 in range(0, entries.shape[0], chunk):
+        idx = entries[c0:c0 + chunk]
+        te, se = wl_t[idx].long(), wl_s[idx].long()
+        tg = tab.view(-1, SLAB, 4)[te].gather(
+            1, order[te][..., None].expand(-1, -1, 4))
+        d = tab.view(-1, width, 4)[se][:, None, :, :3] - tg[:, :, None, :3]
+        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+        beyond = (r2 * inv_rc2 >= 1.0).view(-1, 2, 32, width)
+        for u in range(width // 32):
+            sub = beyond[..., 32 * u:32 * u + 32]  # (E, warp, lane, source)
+            both = torch.zeros_like(te, dtype=torch.bool)
+            live = torch.ones_like(both)
+            if symmetric:
+                slab = 2 * se + u // 2 if paired else se
+                live = slab >= te if paired else live
+                both = slab > te if paired else se != te
+            fwd_skip = sub.all(dim=2)  # a broadcast step: one source
+            rot_skip = sub.gather(3, rot.expand(*sub.shape[:2], 32, 32)).all(
+                dim=2)  # a rotation step: lane l, source (l + k) mod 32
+            skip = torch.where(both[:, None, None], rot_skip, fwd_skip)
+            out["steps"] += int(live.sum()) * 2 * 32
+            out["skipped"] += int((skip & live[:, None, None]).sum())
+            out["pairs"] += int(live.sum()) * SLAB * 32
+            out["inside"] += int((~sub & live[:, None, None, None]).sum())
+    return out
+
+
 def sweep_plain(ptab, mtab, wl_t, wl_s, bounds, rc2, symmetric: bool = False,
                 paired: bool = False, chunk: int = 256) -> torch.Tensor:
     """The sweep in plain PyTorch: ``chunk`` entries at a time as dense
@@ -121,14 +206,17 @@ def sweep(ptab, mtab, wl_t, wl_s, bounds, rc2, symmetric: bool = False,
     react = torch.zeros_like(fwd) if symmetric else fwd
     if e_max:
         lib = build.library()
+        scratch = torch.empty(scratch_floats(nslots, e_max, lib.nbt_sr_unit()),
+                              dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             err = lib.nbt_sr_sweep(
                 ptab.data_ptr(), mtab.data_ptr(), nslots, wl_t.data_ptr(),
                 wl_s.data_ptr(), e_max, bounds.data_ptr(), rc2.data_ptr(),
-                fwd.data_ptr(), react.data_ptr(), int(symmetric), int(paired),
+                fwd.data_ptr(), react.data_ptr(), scratch.data_ptr(),
+                int(symmetric), int(paired),
                 torch.cuda.current_stream().cuda_stream)
         build.check(err, "nbt_sr_sweep")
-        launches += 1
+        launches += 1  # one a sweep: its pack, pairs and finalize kernels
     out = fwd + react if symmetric else fwd
     out[:, nslots - SLAB:] = 0.0
     return out

@@ -18,13 +18,15 @@ import torch
 
 from ..utils import build
 from . import grad
-from .tiled_kernel import check_input, refuse_autograd
+from .tiled_kernel import check_input, default_tile_i, refuse_autograd
 
-# Targets per CTA (256 threads: 8 rows of 32).  At N=16384, 32 took 0.68
-# ms against 0.73 for 64, 1.03 for 128 and 2.03 for 256 (H100, PERF.md):
-# 512 CTAs fill the 132 SMs more evenly than 256.
-DEFAULT_TILE_I = 32
-DEFAULT_TILE_J = 256  # sources per shared-memory tile
+# Targets per CTA (256 threads): Kernel A's rule, tiled_kernel.default_
+# tile_i: 64, two a thread (nbt::tiled_targets), or 32, one a thread, where
+# 64 would leave SMs without a CTA.  At N=16384 64 x 512 took 0.466 ms
+# against 0.477 for 32 x 512, 0.574 for 128 and 1.126 for 256; at N=2048
+# the call is host-bound, 32 and 64 within noise of each other (H100,
+# scripts/sweep_shapes.py --vjp-tiles, PERF.md).
+DEFAULT_TILE_J = 512  # sources per shared-memory tile
 THREADS = 256
 MAX_TILE_J = 1024  # 32 KB of staged sources and cotangents
 
@@ -39,8 +41,10 @@ def force_vjp(pos: torch.Tensor, mass: torch.Tensor, g: torch.Tensor,
     cotangent ``g``.  pos (3,N), mass (N,), g (3,N) -> ((3,N), (N,)) fp32.
 
     ``tile_i``: targets per CTA, a multiple of 32 dividing 256 (default
-    32).  ``tile_j``: sources per shared-memory tile, a multiple of
-    256/tile_i, at most 1024 (default 256)."""
+    64, or 32 where 64 gives fewer CTAs than the card has SMs); a thread
+    takes two where it is a multiple of 64 and tile_j allows it
+    (``nbt::tiled_targets``).  ``tile_j``: sources per shared-memory tile,
+    a multiple of 256/tile_i, at most 1024 (default 512)."""
     global launches
     dev = pos.device
     n = pos.shape[1]
@@ -52,7 +56,7 @@ def force_vjp(pos: torch.Tensor, mass: torch.Tensor, g: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"vjp kernel runs on cuda or cpu, not {dev}")
     refuse_autograd("vjp kernel", pos, mass, g)
-    ti = tile_i or DEFAULT_TILE_I
+    ti = tile_i or default_tile_i(n, dev)
     tj = tile_j or DEFAULT_TILE_J
     if ti % 32 or THREADS % ti:
         raise ValueError(f"tile_i={ti} must be a multiple of 32 dividing {THREADS}")

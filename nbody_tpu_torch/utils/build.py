@@ -11,11 +11,12 @@ a plain C interface (no PyTorch headers, so the build takes seconds):
 
 The library lands under ``build/`` beside the package, in a directory named
 by a hash of the sources and flags, so an edited source builds anew and an
-unchanged one loads at once.  There is no fast-math flag: divides and square
-roots are IEEE-rounded under nvcc's default ``-prec-div``/``-prec-sqrt``
-where a kernel asks for them (the force VJP), and the exact pair loops take
-``rsqrt.approx`` by name (with a Newton step, ``nbt::rsqrt_cube``, but for
-the mxu kernel).  A missing ``nvcc`` raises; nothing falls back.
+unchanged one loads at once.  There is no fast-math flag: divides are
+IEEE-rounded under nvcc's default ``-prec-div`` where a kernel asks for one
+(the pair-symmetric reduce's division by G m), and the pair loops take
+``rsqrt.approx`` by name (with a Newton step, ``nbt::rsqrt_newton``, in the
+exact sweeps and the force VJP; alone in the mxu kernel and the P3M
+short-range sweep).  A missing ``nvcc`` raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C function -> argument types; every function returns an int, a
-# cudaError_t but for nbt_tiled_targets.
+# cudaError_t but for nbt_tiled_targets and nbt_sr_unit.
 SIGNATURES = {
     # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, bf16, stream
     "nbt_tiled_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P),
@@ -56,8 +57,10 @@ SIGNATURES = {
     # pos, mass, g, n, d_pos, d_mass, tile_i, tile_j, stream
     "nbt_force_vjp": (_P, _P, _P, _I, _P, _P, _I, _I, _P),
     # ptab, mtab, nslots, wl_t, wl_s, e_max, bounds, rc2, fwd, react,
-    # symmetric, paired, stream
-    "nbt_sr_sweep": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
+    # scratch, symmetric, paired, stream
+    "nbt_sr_sweep": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    # -> the worklist entries a unit of the sweep (sizes its scratch)
+    "nbt_sr_unit": (),
     # pos_t, mass_t, nt, pos_s, mass_s, ns, block, band, part_t, part_s,
     # out_t, out_s, bf16, stream
     "nbt_two_sided": (_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P),

@@ -1,26 +1,45 @@
 #!/usr/bin/env python3
-"""The P3M short-range kernel's launch shape, on one CUDA card.
+"""The P3M short-range kernel's launch shape and work counts.
 
-    python scripts/sr_launch_shapes.py
+    python scripts/sr_launch_shapes.py            # launch shapes, one card
+    python scripts/sr_launch_shapes.py --tree DIR  # another checkout's kernel
+    python scripts/sr_launch_shapes.py --stats [--device cpu] [--sample 2000]
+
+All three take the Plummer sphere of the JAX package's P3M gate (N=262144,
+seed 7, ng=128, cutoff 4), each layout at its suggested plan.
 
 ``csrc/sr.cu`` fixes its launch shape at compile time: ``kGroups`` groups
-of 64 threads per CTA take a run's entries in turn, and each CTA owns the
-runs that start in its ``kChunk`` worklist entries.  This script rewrites
-those two constants in a copy of the source for every shape of groups
-(1, 2, 4) by chunk (4, 16, 64), builds each copy with the package's nvcc
-flags into ``build/exp/sr_shapes/`` (one nvcc each, all started
-together), and on the Plummer sphere of the JAX package's P3M gate
-(N=262144, seed 7, ng=128, cutoff 4, each layout at its suggested plan)
-prints the mean time of ten launches of each shape (CUDA events) in the
-layouts ``pallas_paired`` (the card's default), ``pallas_paired_sym`` and
-``pallas``, beside the package's kernel.  Each shape's output is held
-against the package's kernel within 2e-5 of the largest occupied slot:
-the shape changes only the summation order.  The first line is the card's
-name and power limit.  Needs a CUDA card and nvcc; imports nothing of JAX.
+of 64 threads a CTA, each taking one unit of ``kUnit`` worklist entries.
+With no option this script rewrites those two constants in a copy of the
+source for every shape of groups (1, 2, 3) by unit (8, 16, 32), builds
+each copy with the package's nvcc flags into ``build/exp/sr_shapes/`` (one
+nvcc each, all started together), and prints the mean time of ten
+launches of each shape (CUDA events) in every layout beside the package's
+kernel.  Each shape's output is held against the package's kernel within
+2e-5 of the largest occupied slot: the shape changes only the summation
+order.  ``--tree DIR`` instead times only the package kernel of another
+checkout (``nbody_tpu_torch`` imported from DIR, its kernels built into
+DIR's ``build/``), through the public wrapper, whose signature every
+version keeps, so two commits compare in one call on one card.  The first
+line is the card's name and power limit.  Needs a CUDA card and nvcc.
+
+``--stats`` runs on any device (the CPU by default) and prints, for each
+layout, the work of the sweep: worklist entries and pairs an entry, the
+pairs evaluated, the runs (entries of one target slab; count, longest and
+mean), the share of evaluated pairs inside the cutoff, and the share of
+(warp of 32 targets, source) steps wholly beyond it, under three
+schedules: the slab's slots in order with every lane on one source, the
+kernel's split of each slab into two compact warps
+(``ops/sr_kernel.split_order``) with every lane on one source, and the
+kernel's own schedule (``ops/sr_kernel.skip_counts``: the reaction's
+rotation where a step takes both sides).  The shares come from
+``--sample`` entries drawn with a fixed seed (0: every entry).  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import re
@@ -28,14 +47,42 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GROUPS = (1, 2, 4)
-CHUNKS = (4, 16, 64)
-LAYOUTS = ("pallas_paired", "pallas_paired_sym", "pallas")
+GROUPS = (1, 2, 3)
+UNITS = (8, 16, 32)
+LAYOUTS = ("pallas_paired", "pallas", "pallas_sym", "pallas_paired_sym")
+GATE = dict(n=262144, seed=7, grid=128, cutoff=4)  # bench.py:102-103
+
+
+def gate_inputs(device: str):
+    """(pm, sr_kernel, {layout: (packed inputs, bounds, sym, paired)})."""
+    import torch
+
+    from nbody_tpu_torch.models import distributions
+    from nbody_tpu_torch.ops import pm, sr_kernel
+
+    pos, _, mass = distributions.plummer(GATE["n"], seed=GATE["seed"])
+    p = torch.tensor(pos, device=device)
+    m = torch.tensor(mass, device=device)
+    out = {}
+    for layout in LAYOUTS:
+        sym, paired = pm.SR_LAYOUTS[layout]
+        # On the CPU the plan is sized for the unpaired worklist, which is
+        # longer than the paired one: nothing drops.
+        plan = pm.suggest_sr_plan(p, m, GATE["grid"], GATE["cutoff"],
+                                  layout=layout)
+        pk = pm.sr_pack_inputs(p, m, grid=GATE["grid"],
+                               cutoff_cells=GATE["cutoff"], symmetric=sym,
+                               paired=paired, **plan)
+        if int(pk["n_e"]) > pk["e_max"]:
+            raise RuntimeError(f"{layout}: the suggested plan drops entries")
+        bounds = torch.stack([torch.zeros_like(pk["n_e"]), pk["n_e"]])
+        out[layout] = (pk, bounds, sym, paired)
+    return pm, sr_kernel, out
 
 
 def build_shapes(out_dir: str) -> dict:
-    """(groups, chunk) -> the loaded ctypes function ``nbt_sr_sweep`` of a
-    copy of csrc/sr.cu built with that launch shape."""
+    """(groups, unit) -> the loaded ctypes library of a copy of csrc/sr.cu
+    built with that launch shape."""
     from nbody_tpu_torch.utils import build
 
     src = (build.CSRC_DIR / "sr.cu").read_text()
@@ -43,49 +90,53 @@ def build_shapes(out_dir: str) -> dict:
     nvcc = build.find_nvcc()
     jobs = {}
     for g in GROUPS:
-        for c in CHUNKS:
+        for u in UNITS:
             text, n_sub = re.subn(r"constexpr int kGroups = \d+;",
                                   f"constexpr int kGroups = {g};", src)
-            text, m_sub = re.subn(r"constexpr int kChunk = \d+;",
-                                  f"constexpr int kChunk = {c};", text)
+            text, m_sub = re.subn(r"constexpr int kUnit = \d+;",
+                                  f"constexpr int kUnit = {u};", text)
             if (n_sub, m_sub) != (1, 1):
                 raise RuntimeError("csrc/sr.cu no longer declares kGroups "
-                                   "and kChunk once each")
-            cu = os.path.join(out_dir, f"sr_g{g}_c{c}.cu")
+                                   "and kUnit once each")
+            cu = os.path.join(out_dir, f"sr_g{g}_u{u}.cu")
             with open(cu, "w") as f:
                 f.write(text)
             so = cu[:-3] + ".so"
             cmd = [nvcc, *build.NVCC_FLAGS, "-shared", "-I",
                    str(build.CSRC_DIR), "-o", so, cu]
-            jobs[(g, c)] = (so, subprocess.Popen(
+            jobs[(g, u)] = (so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
-    fns = {}
+    libs = {}
     for shape, (so, proc) in jobs.items():
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for shape {shape}:\n{out}")
-        fn = ctypes.CDLL(so).nbt_sr_sweep
-        fn.argtypes = list(build.SIGNATURES["nbt_sr_sweep"])
-        fn.restype = ctypes.c_int
-        fns[shape] = fn
-    return fns
+        lib = ctypes.CDLL(so)
+        lib.nbt_sr_sweep.argtypes = list(build.SIGNATURES["nbt_sr_sweep"])
+        lib.nbt_sr_sweep.restype = ctypes.c_int
+        libs[shape] = lib
+    return libs
 
 
-def launch(fn, pk, bounds, sym: bool, paired: bool):
-    """One launch of a shape's kernel, as ops/sr_kernel.sweep makes it."""
+def launch(lib, pk, bounds, sym: bool, paired: bool):
+    """One sweep of a shape's kernels, as ops/sr_kernel.sweep makes it."""
     import torch
 
-    from nbody_tpu_torch.ops import pm
+    from nbody_tpu_torch.ops import pm, sr_kernel
 
-    nslots = pk["ptab"].shape[1]
+    nslots, e_max = pk["ptab"].shape[1], pk["wl_t"].shape[0]
     fwd = torch.zeros((3, nslots), dtype=torch.float32, device="cuda")
     react = torch.zeros_like(fwd) if sym else fwd
-    err = fn(pk["ptab"].data_ptr(), pk["mtab"].data_ptr(), nslots,
-             pk["wl_t"].data_ptr(), pk["wl_s"].data_ptr(),
-             pk["wl_t"].shape[0], bounds.data_ptr(), pk["rc2"].data_ptr(),
-             fwd.data_ptr(), react.data_ptr(), int(sym), int(paired),
-             torch.cuda.current_stream().cuda_stream)
+    scratch = torch.empty(
+        sr_kernel.scratch_floats(nslots, e_max, lib.nbt_sr_unit()),
+        dtype=torch.float32, device="cuda")
+    err = lib.nbt_sr_sweep(
+        pk["ptab"].data_ptr(), pk["mtab"].data_ptr(), nslots,
+        pk["wl_t"].data_ptr(), pk["wl_s"].data_ptr(), e_max,
+        bounds.data_ptr(), pk["rc2"].data_ptr(), fwd.data_ptr(),
+        react.data_ptr(), scratch.data_ptr(), int(sym), int(paired),
+        torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"nbt_sr_sweep: CUDA error {err} at launch")
     out = fwd + react if sym else fwd
@@ -109,30 +160,24 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def main() -> int:
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def shapes(tree_only: bool) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
-    from nbody_tpu_torch.models import distributions
-    from nbody_tpu_torch.ops import pm, sr_kernel
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
-    fns = build_shapes(os.path.join(ROOT, "build", "exp", "sr_shapes"))
-    pos, _, mass = distributions.plummer(262144, seed=7)
-    p = torch.tensor(pos, device="cuda")
-    m = torch.tensor(mass, device="cuda")
-    for layout in LAYOUTS:
-        sym, paired = pm.SR_LAYOUTS[layout]
-        plan = pm.suggest_sr_plan(p, m, 128, 4, layout=layout)
-        pk = pm.sr_pack_inputs(p, m, grid=128, cutoff_cells=4, symmetric=sym,
-                               paired=paired, **plan)
-        bounds = torch.stack([torch.zeros_like(pk["n_e"]), pk["n_e"]])
+    name = card()
+    print(name, flush=True)
+    libs = {} if tree_only else build_shapes(
+        os.path.join(ROOT, "build", "exp", "sr_shapes"))
+    _, sr_kernel, inputs = gate_inputs("cuda")
+    for layout, (pk, bounds, sym, paired) in inputs.items():
         tabs = (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"], bounds,
                 pk["rc2"])
         ref = sr_kernel.sweep(*tabs, symmetric=sym, paired=paired)
@@ -141,21 +186,97 @@ def main() -> int:
         ms_pkg = cuda_ms(lambda: sr_kernel.sweep(*tabs, symmetric=sym,
                                                  paired=paired))
         times = []
-        for (g, c), fn in fns.items():
-            got = launch(fn, pk, bounds, sym, paired)
+        for (g, u), lib in libs.items():
+            got = launch(lib, pk, bounds, sym, paired)
             diff = float((got - ref)[:, occ].abs().max())
             if diff > 2e-5 * scale:
-                print(f"FAIL: {layout} groups {g} chunk {c} disagrees with "
+                print(f"FAIL: {layout} groups {g} unit {u} disagrees with "
                       f"the package's kernel ({diff / scale:.3e})",
                       file=sys.stderr)
                 return 1
-            t = cuda_ms(lambda fn=fn: launch(fn, pk, bounds, sym, paired))
-            times.append(f"groups {g} chunk {c} {t:.4f}")
+            t = cuda_ms(lambda lib=lib: launch(lib, pk, bounds, sym, paired))
+            times.append(f"groups {g} unit {u} {t:.4f}")
         print(f"sr {layout}, {int(pk['n_e'])} entries: the package's kernel "
-              f"{ms_pkg:.4f} ms; " + ", ".join(times) + f" (ms) [{card}]",
-              flush=True)
-        del pk, tabs, ref
+              f"{ms_pkg:.4f} ms" + "".join(f"; {t}" for t in times) +
+              f" (ms) [{name}]", flush=True)
+        del ref
     return 0
+
+
+def stats(device: str, sample: int) -> int:
+    import numpy as np
+    import torch
+
+    pm, sr_kernel, inputs = gate_inputs(device)
+    print(f"P3M gate: Plummer N={GATE['n']}, seed {GATE['seed']}, ng "
+          f"{GATE['grid']}, cutoff {GATE['cutoff']}; shares over "
+          f"{sample or 'all'} entries a layout, on {device}", flush=True)
+    for layout, (pk, bounds, sym, paired) in inputs.items():
+        n_e = int(pk["n_e"])
+        width = 2 * pm.SLAB if paired else pm.SLAB
+        wl_t = pk["wl_t"][:n_e]
+        starts = torch.ones_like(wl_t, dtype=torch.bool)
+        starts[1:] = wl_t[1:] != wl_t[:-1]
+        lens = torch.diff(torch.cat([starts.nonzero()[:, 0],
+                                     torch.tensor([n_e], device=device)]))
+        pick = torch.arange(n_e, device=device)
+        if sample and sample < n_e:
+            rng = np.random.default_rng(0)
+            pick = torch.tensor(np.sort(rng.choice(n_e, sample, replace=False)),
+                                device=device)
+        args = (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"], bounds,
+                pk["rc2"])
+        # The forward schedule with the split, and with the slots in order.
+        split = sr_kernel.skip_counts(*args, paired=paired, entries=pick)
+        plain = _ordered_counts(sr_kernel, pk, paired, pick)
+        kernel = sr_kernel.skip_counts(*args, symmetric=sym, paired=paired,
+                                       entries=pick)
+        print(f"{layout}: {n_e} entries x {pm.SLAB * width} pairs = "
+              f"{n_e * pm.SLAB * width:.4g} pairs evaluated; runs "
+              f"{int(lens.numel())}, longest {int(lens.max())}, mean "
+              f"{float(lens.float().mean()):.1f} entries; inside the cutoff "
+              f"{kernel['inside'] / kernel['pairs']:.4f} of the evaluated "
+              f"pairs; (warp, source) steps wholly beyond: slots in order "
+              f"{plain:.4f}, split {split['skipped'] / split['steps']:.4f}, "
+              f"the kernel's schedule "
+              f"{kernel['skipped'] / kernel['steps']:.4f}", flush=True)
+    return 0
+
+
+def _ordered_counts(sr_kernel, pk, paired: bool, pick) -> float:
+    """The share of (warp, source) steps wholly beyond the cutoff with each
+    slab's slots in order: lanes 0-31 and 32-63 as packed."""
+    from nbody_tpu_torch.ops import pm
+
+    width = 2 * pm.SLAB if paired else pm.SLAB
+    tab = sr_kernel.packed_table(pk["ptab"], pk["mtab"])
+    beyond = steps = 0
+    for c0 in range(0, pick.shape[0], 256):
+        idx = pick[c0:c0 + 256]
+        te, se = pk["wl_t"][idx].long(), pk["wl_s"][idx].long()
+        d = (tab.view(-1, width, 4)[se][:, None, :, :3]
+             - tab.view(-1, pm.SLAB, 4)[te][:, :, None, :3])
+        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+        out = (r2 * (1.0 / pk["rc2"]) >= 1.0).view(-1, 2, 32, width)
+        beyond += int(out.all(dim=2).sum())
+        steps += out.shape[0] * 2 * width
+    return beyond / steps
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=None,
+                    help="time the package kernel of this checkout only")
+    ap.add_argument("--stats", action="store_true",
+                    help="print the sweep's work counts (any device)")
+    ap.add_argument("--device", default="cpu", help="--stats: the device")
+    ap.add_argument("--sample", type=int, default=2000,
+                    help="--stats: entries a layout (0: every entry)")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.tree or ROOT))
+    if args.stats:
+        return stats(args.device, args.sample)
+    return shapes(tree_only=args.tree is not None)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 """The exact sweeps' kernels at their paths' shapes, on one CUDA card.
 
     python scripts/sweep_shapes.py [--tree DIR] [--targets] [--mxu-tiles]
-                                   [--sym-targets]
+                                   [--sym-targets] [--vjp-tiles]
 
 Times (CUDA events, mean of 20 calls after one warm-up) Kernel A
 (``ops/tiled_kernel.py``), the mxu kernel (``ops/mxu_kernel.py``), the ring
@@ -52,7 +52,10 @@ printed) and times their C entries: Kernel B at N = 2048, 4096, 8192 and
 16384, the two-sided sweep at 512, 1024, 2048 and 4096 squared and 4096 x
 2048 (device time, as above), and the fused rows block at N=2048 and
 16384 (50 Euler steps), each line with the warps an SM the launch gives at
-that R.  Needs a CUDA card
+that R.  ``--vjp-tiles`` times the force VJP kernel
+(``ops/vjp_kernel.py``) at tile_i 32, 64, 128 and 256 by tile_j 256, 512
+and 1024 at N=16384 and 2048 (the cotangent: the naive accelerations
+times 1e20), each line with the CTAs of its grid.  Needs a CUDA card
 and nvcc; imports nothing of JAX.
 """
 
@@ -376,6 +379,20 @@ def mxu_tiles(dev) -> None:
                     lambda: mxu_kernel.accelerations_between(*args, ti, tj)))
 
 
+def vjp_tiles(dev) -> None:
+    from nbody_tpu_torch import make_state
+    from nbody_tpu_torch.ops import naive, vjp_kernel
+
+    for n in (16384, 2048):
+        st = make_state(n, device=dev)
+        g = naive.accelerations(st.pos, st.mass) * 1e20
+        for ti in (32, 64, 128, 256):
+            for tj in (256, 512, 1024):
+                emit(f"vjp {n} tiles {ti}x{tj}", time_ms(
+                    lambda: vjp_kernel.force_vjp(st.pos, st.mass, g, ti, tj)),
+                     ctas=-(-n // ti))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT,
@@ -386,6 +403,8 @@ def main(argv=None) -> int:
                     help="the mxu kernel at every tile")
     ap.add_argument("--sym-targets", action="store_true",
                     help="the pair-symmetric kernels at R = 1, 2, 4")
+    ap.add_argument("--vjp-tiles", action="store_true",
+                    help="the force VJP kernel at every tile")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -404,6 +423,8 @@ def main(argv=None) -> int:
         mxu_tiles(dev)
     elif args.sym_targets:
         sym_targets(dev)
+    elif args.vjp_tiles:
+        vjp_tiles(dev)
     else:
         wrappers(dev)
     return 0

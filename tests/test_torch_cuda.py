@@ -293,7 +293,8 @@ def test_fused_raises_on_bad_tiles(cuda_device):
                                 tile_j=256)
 
 
-@pytest.mark.parametrize("tiles", [(0, 0), (32, 64), (128, 1024), (256, 8)])
+@pytest.mark.parametrize("tiles", [(0, 0), (32, 64), (64, 512), (64, 256),
+                                   (128, 1024), (256, 8)])
 @pytest.mark.parametrize("n", [300, 1000, 2000])
 def test_vjp_kernel_matches_plain(cuda_device, n, tiles):
     """Ragged N: the kernel masks targets and sources past N itself."""
@@ -307,6 +308,22 @@ def test_vjp_kernel_matches_plain(cuda_device, n, tiles):
     assert torch.equal(d_pos, again[0]) and torch.equal(d_mass, again[1])
     want = grad.force_vjp(st.pos, st.mass, g)
     assert _rel(d_pos, want[0]) <= 2e-5 and _rel(d_mass, want[1]) <= 2e-5
+
+
+def test_vjp_kernel_default_tiles(cuda_device):
+    """The default tile_i, Kernel A's rule: 64 (two targets a thread)
+    where it gives each SM a CTA, else 32 (one), both with tile_j 512: the
+    default call equals the named tiles bit for bit."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n in (64 * sms, 2048):
+        st = make_state(n, device=cuda_device)
+        g = naive.accelerations(st.pos, st.mass) * 1e20
+        ti = 64 if n >= 64 * sms else 32
+        assert tiled_kernel.default_tile_i(n, cuda_device) == ti
+        got = vjp_kernel.force_vjp(st.pos, st.mass, g)
+        want = vjp_kernel.force_vjp(st.pos, st.mass, g, ti,
+                                    vjp_kernel.DEFAULT_TILE_J)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_vjp_kernel_zero_cotangent_and_bad_tiles(cuda_device):
@@ -409,13 +426,18 @@ def test_sr_kernel_matches_plain(cuda_device, layout):
     assert bool((got[:, -pm.SLAB:] == 0).all())
 
 
-def test_sr_kernel_bounds_split(cuda_device):
-    pk, bounds, sym, paired = _sr_inputs(cuda_device, "pallas_paired_sym")
+@pytest.mark.parametrize("layout", ["pallas_paired_sym", "pallas_paired",
+                                    "pallas", "pallas_sym"])
+@pytest.mark.parametrize("skew", [0, 3])
+def test_sr_kernel_bounds_split(cuda_device, layout, skew):
+    """Four bounds, at multiples of the kernel's unit (skew 0) and cutting
+    units and runs anywhere (skew 3), sum to the full sweep."""
+    pk, bounds, sym, paired = _sr_inputs(cuda_device, layout)
     args = (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"])
     full = sr_kernel.sweep(*args, bounds, pk["rc2"], symmetric=sym,
                            paired=paired)
     n_e = int(bounds[1])
-    per = -(-n_e // 4)
+    per = -(-n_e // 4) + skew
     parts = sum(sr_kernel.sweep(
         *args, torch.tensor([i * per, min((i + 1) * per, n_e)],
                             dtype=torch.int32, device=cuda_device),
@@ -424,6 +446,25 @@ def test_sr_kernel_bounds_split(cuda_device):
     scale = float(full[:, occ].abs().max())
     assert float(((parts - full).abs() - 1e-6 * full.abs())[:, occ].max()) \
         <= 2e-6 * scale
+
+
+@pytest.mark.parametrize("layout", ["pallas_paired", "pallas_paired_sym"])
+def test_sr_kernel_ragged_worklist(cuda_device, layout):
+    """A worklist whose length is no multiple of the kernel's unit (its
+    scratch and grid follow e_max), with bounds that start and end inside
+    units and runs, against the plain sweep on the same bounds."""
+    pk, bounds, sym, paired = _sr_inputs(cuda_device, layout)
+    n_e = int(bounds[1])
+    cut = n_e + 7
+    tabs = (pk["ptab"], pk["mtab"], pk["wl_t"][:cut].contiguous(),
+            pk["wl_s"][:cut].contiguous())
+    b = torch.tensor([5, n_e - 9], dtype=torch.int32, device=cuda_device)
+    got = sr_kernel.sweep(*tabs, b, pk["rc2"], symmetric=sym, paired=paired)
+    want = sr_kernel.sweep_plain(*tabs, b, pk["rc2"], symmetric=sym,
+                                 paired=paired)
+    occ = pk["mtab"] > 0
+    scale = float(want[:, occ].abs().max())
+    assert float((got - want)[:, occ].abs().max()) <= 2e-5 * scale
 
 
 def test_mesh_tiers_match_jax_fixture(cuda_device):
