@@ -167,6 +167,28 @@ Phases, each printing what it found; any failure exits non-zero:
     beside f32: 2200 Kernel B and 3300 two-sided launches in each, no other
     kernel, and the same gate on the kinetic-energy rows.
 
+21. The periodic boundary (``pm_boundary="periodic"``, ``pm_box`` L = 1,
+    ng=128, cutoff 4): (a) the P3M short-range kernel against its plain
+    version on the ghost-extended tables of the reference initial
+    conditions at N=1048576 and of a Gaussian blob wrapped round a box
+    corner (sigma 0.06, N=262144, seed 5), at the suggested plan in the
+    ``pallas_paired`` and ``pallas`` layouts (and at N=1048576 also at the
+    default ghost cap, 2N rounded up to a power of two): occupied slots
+    within 2e-5 of the largest, two launches bit for bit; prints the
+    ghosts, slots, scratch, entries, the per-call time of kernel and plain
+    version and the skipped share.  (b) Periodic ``pm`` and ``p3m`` at
+    N=16384 on both states against the JAX package's accelerations in
+    tests/golden/torch_periodic_n16384.npz (1e-4 relative norm).  (c)
+    Against a numpy copy of the fp64 k-space sum: ``pm`` at 16 bodies
+    (ng=32 < 7e-2, ng=64 < 1.5e-2) and ``p3m`` on a corner blob of 96
+    (2.5e-2 and 1.5e-2, and under a third of ``pm``'s).  (d) The spectra's
+    one-off build time, then ``run(SimConfig(n=1048576, nsteps=8, sfreq=4,
+    kernel=k, pm_boundary="periodic", pm_box=1.0))`` for ``p3m`` (12
+    short-range launches, no other kernel) and ``pm`` (none), finite
+    energies and ms per step, and the periodic energy check of
+    tests/test_torch_periodic.py (N=512, 100 steps, ng=32, L=8): drift
+    below 5e-2.
+
 Each phase's seconds are printed after it.
 
 The last lines are the card's name and power limit, a JSON object of the
@@ -206,6 +228,11 @@ SR_TOL = 2e-5
 MESH_TOL = 1e-4
 P3M_GATE = dict(n=262144, seed=7, grid=128, cutoff=4)  # bench.py:102-103
 N_UNIFORM = 1048576  # the suite's N=1M rows, bench.py:46-47
+# The periodic boundary: bench.py:48-49's periodic row (the reference ICs
+# boxed at L = 1) at ng=128, cutoff 4, and tests/test_p3m.py's corner blob.
+PERIODIC = dict(grid=128, cutoff=4, box=1.0, blob_n=262144, blob_seed=5)
+PERIODIC_FIXTURE = os.path.join(ROOT, "tests", "golden",
+                                "torch_periodic_n16384.npz")
 COMM_MODES = ("allgather", "ring", "ring_sym", "rdma")
 # Shapes that give the pair-symmetric tile body each R its launchers pick
 # (nbt::sym_targets: 2 where the block is a multiple of 64, else 1): Kernel
@@ -660,6 +687,239 @@ def sharded_phases(dev, tag: str, err: dict, ms: dict, launches: dict,
               f"{res.dev:.6g} GFLOP/s (29N^2+19N model; single-device auto "
               f"{gf[f'{n} auto'][0]:.6g} +- {gf[f'{n} auto'][1]:.6g}) {tag}",
               flush=True)
+
+
+def corner_blob(n: int, seed: int, box: float = 1.0):
+    """tests/test_p3m.py's Gaussian blob (sigma 0.06 box) wrapped round a box
+    corner, from numpy: pairs cross the boundary in one, two and three axes.
+    Phase 21 and tests/test_torch_periodic.py share it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pos = np.asarray((0.06 * box * rng.standard_normal((3, n))) % box,
+                     np.float32)
+    return pos, np.asarray(1.0 + rng.random(n), np.float32)
+
+
+def kspace_sum(pos, mass, box: float, kmax: int = 48):
+    """The fp64 direct Fourier-series sum of tests/test_p3m.py (scipy's
+    Bessel K1 over |k_i| <= kmax 2 pi / box), an independent periodic ground
+    truth in numpy, so that it runs where JAX is absent; the plane waves
+    factor by axis, so each sum over the k lattice is a product of three
+    (2 kmax + 1, N) tables.  tests/test_torch_periodic.py uses it too."""
+    import numpy as np
+    import scipy.special as sp
+
+    eps, G = np.sqrt(1e-3), 6.67259e-11
+    p, m = pos.astype(np.float64), mass.astype(np.float64)
+    k1 = 2 * np.pi / box * np.arange(-kmax, kmax + 1)
+    wave = np.exp(1j * k1[None, :, None] * p[:, None, :])  # (3, K, N)
+    k2 = (k1[:, None, None] ** 2 + k1[None, :, None] ** 2
+          + k1[None, None, :] ** 2)
+    kk = np.sqrt(np.where(k2 > 0, k2, 1.0))
+    phih = np.where(k2 > 0, 4 * np.pi * eps * sp.k1(kk * eps) / kk, 0.0)
+    rho = np.einsum("aj,bj,cj->abc", m * wave[0].conj(), wave[1].conj(),
+                    wave[2].conj(), optimize=True)
+    acc = np.empty((3, p.shape[1]))
+    for axis in range(3):
+        k_axis = k1.reshape([-1 if a == axis else 1 for a in range(3)])
+        acc[axis] = np.einsum("abc,ai,bi,ci->i", 1j * k_axis * phih * rho,
+                              *wave, optimize=True).real
+    return G / box ** 3 * acc
+
+
+def periodic_phases(dev, tag: str, ms: dict, launches: dict) -> None:
+    """Phase 21; fills the SR kernel's periodic figures in ``ms`` and
+    ``launches``."""
+    import numpy as np
+    import torch
+
+    from nbody_tpu_torch import SimConfig, make_state, run
+    from nbody_tpu_torch.ops import (
+        fused_block,
+        pm,
+        sr_kernel,
+        sym_kernel,
+        tiled_kernel,
+        vjp_kernel,
+    )
+    from nbody_tpu_torch.utils import build
+
+    ng, cutoff, box = PERIODIC["grid"], PERIODIC["cutoff"], PERIODIC["box"]
+    bkw = dict(boundary="periodic", box_size=box)
+
+    # 21(a). The SR kernel against its plain version on the periodic tables.
+    ref = make_state(N_UNIFORM, device=dev)
+    blob = [torch.tensor(a, device=dev) for a in corner_blob(
+        PERIODIC["blob_n"], PERIODIC["blob_seed"], box)]
+    for label, (p, m) in ((f"reference N={N_UNIFORM}", (ref.pos, ref.mass)),
+                          (f"corner blob N={PERIODIC['blob_n']}", blob)):
+        n = p.shape[1]
+        for layout in ("pallas_paired", "pallas"):
+            sym, paired = pm.SR_LAYOUTS[layout]
+            plan = pm.suggest_sr_plan(p, m, ng, cutoff, layout=layout, **bkw)
+            # At N=1048576 the default layout also runs at the default
+            # ghost cap (0: 2N rounded up to a power of two).
+            caps = [plan["sr_ghosts"]] + (
+                [0] if n == N_UNIFORM and layout == "pallas_paired" else [])
+            for ghosts in caps:
+                gplan = dict(plan, sr_ghosts=ghosts)
+                cap_label = "plan" if ghosts else "default ghost cap"
+                tabs = pm._periodic_sr_tables(p, m, ng, box, cutoff,
+                                              symmetric=sym, paired=paired,
+                                              **gplan)
+                n_e, n_ghost = int(tabs["n_e"]), int(tabs["n_ghost"])
+                nslots = tabs["ptab"].shape[1]
+                if n_e > tabs["e_max"]:
+                    fail(f"periodic sr {label} {layout}: the plan drops "
+                         "entries")
+                if n_ghost > tabs["gcap"]:
+                    fail(f"periodic sr {label} {layout}: the plan drops "
+                         "ghosts")
+                args = (tabs["ptab"], tabs["mtab"], tabs["wl_t"],
+                        tabs["wl_s"],
+                        torch.tensor([0, n_e], dtype=torch.int32, device=dev),
+                        tabs["rc2"])
+                kw = dict(symmetric=sym, paired=paired)
+                got = sr_kernel.sweep(*args, **kw)
+                again = sr_kernel.sweep(*args, **kw)
+                plain = sr_kernel.sweep_plain(*args, **kw)
+                torch.cuda.synchronize()
+                occ = tabs["mtab"] > 0
+                scale = float(plain[:, occ].abs().max())
+                diff = float((got - plain)[:, occ].abs().max())
+                same = torch.equal(got, again)
+                scratch = sr_kernel.scratch_floats(
+                    nslots, tabs["e_max"], build.library().nbt_sr_unit())
+                print(f"periodic sr {label} {layout}, {cap_label} "
+                      f"{gplan}: {n_ghost} ghosts ({n_ghost / n:.4f} N) in "
+                      f"{tabs['gcap']} slots, {nslots} slots, {scratch} "
+                      f"scratch floats, {n_e} entries of {tabs['e_max']}; "
+                      f"kernel vs plain {diff / scale:.3e} of the largest "
+                      f"occupied slot; repeats bit for bit: {same}",
+                      flush=True)
+                if not torch.isfinite(got).all():
+                    fail(f"periodic sr {label} {layout}: non-finite output")
+                if diff > SR_TOL * scale:
+                    fail(f"periodic sr {label} {layout}: kernel disagrees "
+                         "with its plain version")
+                if not same:
+                    fail(f"periodic sr {label} {layout}: two launches differ")
+                del got, again, plain
+                if not ghosts:
+                    continue
+                ms_k = time_ms(lambda: sr_kernel.sweep(*args, **kw), reps=10)
+                ms_p = time_ms(lambda: sr_kernel.sweep_plain(*args, **kw),
+                               reps=1)
+                work = sr_kernel.skip_counts(*args, chunk=2048, **kw)
+                skip = work["skipped"] / work["steps"]
+                print(f"periodic sr {label} {layout}: kernel {ms_k:.4f} ms, "
+                      f"plain {ms_p:.4f} ms per call; (warp, source) steps "
+                      f"skipped {skip:.4f} of {work['steps']}, pairs inside "
+                      f"the cutoff {work['inside'] / work['pairs']:.4f} "
+                      f"{tag}", flush=True)
+                if n == N_UNIFORM and layout == "pallas_paired":
+                    ms["sr_periodic"] = ms_k
+                del tabs, args
+    del ref, blob
+
+    # 21(b). Forces against the JAX package's, at N=16384.
+    fx = np.load(PERIODIC_FIXTURE)
+    n = int(fx["n"])
+    ref16 = make_state(n, device=dev)
+    states = {"reference": (ref16.pos, ref16.mass),
+              "blob": [torch.tensor(a, device=dev) for a in corner_blob(
+                  n, int(fx["blob_seed"]), float(fx["box"]))]}
+    for name, (p, m) in states.items():
+        host = (p.cpu().numpy(), m.cpu().numpy())
+        digest = hashlib.sha256(host[0].tobytes() + host[1].tobytes())
+        if digest.hexdigest() != str(fx[f"{name}_digest"]):
+            fail(f"the periodic {name} N={n} state differs from the "
+                 "fixture's")
+        r_pm = rel_err(pm.accelerations(p, m, grid=ng, **bkw).cpu(),
+                       torch.tensor(fx[f"{name}_pm"]))
+        plan = pm.suggest_sr_plan(p, m, ng, cutoff,
+                                  capacity=int(fx[f"{name}_capacity"]), **bkw)
+        before = sr_kernel.launches
+        r_p3m = rel_err(pm.p3m_accelerations(p, m, grid=ng, **plan,
+                                             **bkw).cpu(),
+                        torch.tensor(fx[f"{name}_p3m"]))
+        print(f"periodic N={n} {name} vs the JAX fixture: pm {r_pm:.3e}, "
+              f"p3m {r_p3m:.3e} (relative norm), plan {plan}", flush=True)
+        if sr_kernel.launches != before + 1:
+            fail("periodic p3m did not launch the SR kernel once")
+        if max(r_pm, r_p3m) > MESH_TOL:
+            fail(f"periodic {name}: the mesh tiers disagree with the JAX "
+                 "package's accelerations")
+
+    # 21(c). Against the fp64 k-space sum, at the CPU tests' bounds.
+    rng = np.random.default_rng(11)
+    pos16 = np.asarray(rng.random((3, 16)), np.float32)
+    mass16 = np.asarray(1.0 + rng.random(16), np.float32)
+    exact = kspace_sum(pos16, mass16, 1.0)
+    p, m = (torch.tensor(a, device=dev) for a in (pos16, mass16))
+    e_pm = {g: rel_err(pm.accelerations(p, m, grid=g, **bkw).cpu(),
+                       torch.tensor(exact)) for g in (32, 64)}
+    print(f"periodic pm, 16 bodies, vs the k-space sum: ng=32 "
+          f"{e_pm[32]:.4e} (< 7e-2), ng=64 {e_pm[64]:.4e} (< 1.5e-2)",
+          flush=True)
+    if not (e_pm[32] < 7e-2 and e_pm[64] < 1.5e-2 and e_pm[64] < e_pm[32]):
+        fail("periodic pm misses the k-space sum")
+    pos96, mass96 = corner_blob(96, 5)
+    exact = torch.tensor(kspace_sum(pos96, mass96, 1.0))
+    p, m = (torch.tensor(a, device=dev) for a in (pos96, mass96))
+    for g, lim in ((32, 2.5e-2), (64, 1.5e-2)):
+        plan = pm.suggest_sr_plan(p, m, g, 4, **bkw)
+        e_p3m = rel_err(pm.accelerations(p, m, grid=g, cutoff_cells=4,
+                                         **plan, **bkw).cpu(), exact)
+        e_mesh = rel_err(pm.accelerations(p, m, grid=g, **bkw).cpu(), exact)
+        print(f"periodic p3m, corner blob of 96, ng={g}, vs the k-space sum: "
+              f"{e_p3m:.4e} (< {lim:g}), pm {e_mesh:.4e} (p3m < pm/3)",
+              flush=True)
+        if not (e_p3m < lim and e_p3m < e_mesh / 3):
+            fail(f"periodic p3m at ng={g} misses the k-space sum")
+
+    # 21(d). The main path: bench.py's periodic row, and its mesh half.
+    for cutoff_cells in (4, 0):
+        def build_env(c=cutoff_cells):
+            return pm._make_periodic_env(ng, c, box, dev)
+
+        t0 = time.perf_counter()
+        build_env()
+        torch.cuda.synchronize()
+        first = 1e3 * (time.perf_counter() - t0)
+        print(f"periodic env ng={ng} cutoff {cutoff_cells}: built in "
+              f"{first:.3f} ms (first call), {time_ms(build_env, reps=3):.3f} "
+              f"ms (CUDA events) {tag}", flush=True)
+    counters = (sr_kernel, tiled_kernel, sym_kernel, fused_block, vjp_kernel)
+    for kernel, want in (("p3m", 12), ("pm", 0)):
+        for mod in counters:
+            mod.launches = 0
+        syncs = pm.host_syncs
+        res = run(SimConfig(n=N_UNIFORM, nsteps=8, sfreq=4, kernel=kernel,
+                            pm_boundary="periodic", pm_box=box), quiet=True)
+        counts = tuple(mod.launches for mod in counters)
+        kes = [ke for _, ke in res.kenergy_trace]
+        step_ms = [1e3 * b / 4 for (_, _, _, b, _) in res.samples]
+        print(f"periodic {kernel} run N={N_UNIFORM} reference, L={box}, 8 "
+              f"steps: sr/tiled/sym/fused/vjp launches {counts}, "
+              f"{pm.host_syncs - syncs} host syncs; ms per step "
+              f"{', '.join(f'{t:.3f}' for t in step_ms)}; energies "
+              f"{', '.join(f'{k:.6g}' for k in kes)} {tag}", flush=True)
+        if counts != (want, 0, 0, 0, 0):
+            fail(f"periodic {kernel} N={N_UNIFORM} launches {counts}")
+        if len(kes) != 2 or not all(math.isfinite(k) and k > 0 for k in kes):
+            fail(f"periodic {kernel} N={N_UNIFORM} energies not finite and "
+                 f"positive: {kes}")
+        if kernel == "p3m":
+            launches["sr_periodic"] = counts[0]
+    res = run(SimConfig(n=512, nsteps=100, kernel="pm", pm_grid=32,
+                        pm_boundary="periodic", pm_box=8.0,
+                        energy_check=True), quiet=True)
+    print(f"energy check periodic pm N=512, 100 steps, ng=32, L=8: drift "
+          f"{res.energy_drift:.6e} (< 5e-2)", flush=True)
+    if not (math.isfinite(res.energy_drift) and res.energy_drift < 5e-2):
+        fail(f"periodic energy drift {res.energy_drift} not below 5e-2")
 
 
 def repair_phases(dev, tag: str) -> None:
@@ -1450,6 +1710,8 @@ def main() -> int:
     lap("19")
     bf16_phases(dev, tag, ms)
     lap("20")
+    periodic_phases(dev, tag, ms, launches)
+    lap("21")
 
     # The bounds, from this run's inputs: the least work of each function,
     # whatever layout its kernel takes.  Kernel A and the columns block
@@ -1509,8 +1771,11 @@ def main() -> int:
         **({"device_ms": ms[f"{key}_device"]} if f"{key}_device" in ms
            else {}),
         # The SR kernel skips (warp, source) steps wholly beyond the cutoff,
-        # which the bound counts as work: the share it skipped goes beside.
-        **({"skipped_share": sr_skip} if key == "sr" else {}),
+        # which the bound counts as work: the share it skipped goes beside,
+        # and its call and launches on the periodic main path (phase 21).
+        **({"skipped_share": sr_skip, "periodic_ms": ms["sr_periodic"],
+            "periodic_launches": launches["sr_periodic"]}
+           if key == "sr" else {}),
     } for name, src, replaces, key in rows]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,7 +18,9 @@ Options:
                                    pm, p3m, --fused, ring_sym or rdma)
     --pm-grid/--pm-cutoff/--pm-capacity  mesh points per axis, the P3M split
                                    radius in grid spacings, P3M slots a cell
-    --pm-boundary open             the mesh boundary (periodic: not yet)
+    --pm-boundary {open,periodic} --pm-box L  the mesh boundary: open
+                                   (default), or the fixed cubic box of
+                                   edge L (--kernel pm or p3m)
     --pm-sr-layout NAME            the P3M sweep layout (ops/pm.SR_LAYOUTS;
                                    "xla" is the kernel's plain layout)
     --pm-replan                    regrow the P3M plan mid-run on overflow
@@ -57,7 +59,6 @@ from .simulation import Simulation
 
 # Flags of ``python -m nbody_tpu`` that the port does not have yet.
 _NOT_PORTED = {
-    "--pm-box": "queue 1 item 9 (periodic boundary)",
     "--autotune": "queue 1 item 12 (autotuning)",
     "--autotune-online": "queue 1 item 12 (autotuning)",
     "--save-state": "queue 1 item 12 (checkpoints)",
@@ -114,7 +115,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="P3M cell-list slots per cell (default: measured on "
                         "the initial state)")
     p.add_argument("--pm-boundary", default="open",
-                   help="mesh boundary: open (periodic is not ported yet)")
+                   choices=["open", "periodic"],
+                   help="mesh boundary: open = isolated system in vacuum "
+                        "(default), periodic = fixed cubic box, forces of "
+                        "all images minus the uniform background (--kernel "
+                        "pm or p3m)")
+    p.add_argument("--pm-box", type=float, default=0.0, metavar="L",
+                   help="periodic box edge for --pm-boundary periodic "
+                        "(positions are wrapped into [0, L))")
     p.add_argument("--pm-replan", action="store_true",
                    help="re-measure the P3M plan mid-run when the per-block "
                         "health check finds overflow (grow-only)")
@@ -188,6 +196,7 @@ def main(argv=None) -> int:
             shards=args.shards, comm=args.comm,
             pm_grid=args.pm_grid, pm_cutoff=args.pm_cutoff,
             pm_capacity=args.pm_capacity, pm_boundary=args.pm_boundary,
+            pm_box=args.pm_box,
             pm_replan=args.pm_replan, pm_sr_layout=args.pm_sr_layout,
             platform=args.platform or ("cpu" if args.device == "cpu" else None),
             profile_dir=args.profile_dir, debug_nans=args.debug_nans,

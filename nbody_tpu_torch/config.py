@@ -29,7 +29,6 @@ PLATFORMS = ("cuda", "cpu")
 # Known to the JAX package, not ported yet: value -> ROADMAP.md item.
 _NOT_PORTED = {
     "ref64": "queue 1 item 12 (the ref64 host oracle)",
-    "periodic": "queue 1 item 9 (periodic boundary)",
 }
 
 
@@ -63,8 +62,9 @@ class SimConfig:
     # time by pm.suggest_sr_plan)
     pm_sr_slabs: int = 0  # P3M table slabs (0 = measured, as above)
     pm_sr_entries: int = 0  # P3M worklist entries (0 = measured)
-    pm_boundary: str = "open"  # open only; periodic is queue 1 item 9
-    pm_box: float = 0.0  # the periodic box edge (queue 1 item 9)
+    pm_sr_ghosts: int = 0  # periodic-P3M ghost-image slots (0 = measured)
+    pm_boundary: str = "open"  # open | periodic (a fixed cubic box)
+    pm_box: float = 0.0  # the periodic box edge L (periodic only)
     pm_sr_layout: str = ""  # P3M sweep layout (ops/pm.SR_LAYOUTS); "" =
     # the module default
     pm_replan: bool = False  # re-measure the P3M plan when the per-block
@@ -107,11 +107,19 @@ class SimConfig:
             self._check_bf16()
         if self.platform is not None:
             _check("platform", self.platform, PLATFORMS)
-        _check("pm boundary", self.pm_boundary, ("open",))
-        if self.pm_box:
-            raise NotImplementedError(
-                "--pm-box is not ported yet: ROADMAP.md queue 1 item 9 "
-                "(periodic boundary)")
+        _check("pm boundary", self.pm_boundary, ("open", "periodic"))
+        if self.pm_boundary == "periodic":
+            if self.kernel not in ("pm", "p3m"):
+                raise ValueError(
+                    "--pm-boundary periodic is a mesh-solver mode; it "
+                    "requires --kernel pm or p3m")
+            if self.pm_box <= 0:
+                raise ValueError(
+                    "--pm-boundary periodic requires --pm-box L > 0 (the "
+                    "fixed cubic box edge)")
+        elif self.pm_box:
+            raise ValueError("--pm-box only applies to --pm-boundary "
+                             "periodic")
         short_range = self.kernel == "p3m" or (self.kernel == "pm"
                                                and self.pm_cutoff)
         if self.pm_sr_layout:
@@ -173,21 +181,27 @@ class SimConfig:
         return grid, self.pm_cutoff
 
     def resolve_sr_plan(self, pos, mass) -> bool:
-        """Fill the P3M static plan (capacity, slabs, entries) from the
-        concrete state through pm.suggest_sr_plan, unless all three are
-        pinned.  Returns whether this config has a short-range pass."""
+        """Fill the P3M static plan (capacity, slabs, entries and, periodic,
+        ghost slots) from the concrete state through pm.suggest_sr_plan,
+        unless every field that applies is pinned.  Returns whether this
+        config has a short-range pass."""
         resolved = self.resolved_kernel()
         if not (resolved == "p3m" or (resolved == "pm" and self.pm_cutoff)):
             return False
-        if self.pm_capacity and self.pm_sr_slabs and self.pm_sr_entries:
+        periodic = self.pm_boundary == "periodic"
+        if (self.pm_capacity and self.pm_sr_slabs and self.pm_sr_entries
+                and (self.pm_sr_ghosts or not periodic)):
             return True
         from .ops.pm import suggest_sr_plan
 
         plan = suggest_sr_plan(pos, mass, *self.mesh_params(),
-                               capacity=self.pm_capacity)
+                               capacity=self.pm_capacity,
+                               boundary=self.pm_boundary, box_size=self.pm_box)
         self.pm_capacity = plan["capacity"]
         self.pm_sr_slabs = self.pm_sr_slabs or plan["sr_slabs"]
         self.pm_sr_entries = self.pm_sr_entries or plan["sr_entries"]
+        if periodic:
+            self.pm_sr_ghosts = self.pm_sr_ghosts or plan["sr_ghosts"]
         return True
 
     def kernel_opts(self) -> dict:
@@ -206,9 +220,13 @@ class SimConfig:
                                ("cutoff_cells", self.pm_cutoff),
                                ("capacity", self.pm_capacity),
                                ("sr_slabs", self.pm_sr_slabs),
-                               ("sr_entries", self.pm_sr_entries)):
+                               ("sr_entries", self.pm_sr_entries),
+                               ("sr_ghosts", self.pm_sr_ghosts)):
                 if value:
                     opts[key] = value
+            if self.pm_boundary != "open":
+                opts["boundary"] = self.pm_boundary
+                opts["box_size"] = self.pm_box
         if self.precision == "bf16":
             opts["dist_dtype"] = "bfloat16"
         return opts

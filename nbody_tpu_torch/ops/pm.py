@@ -1,8 +1,8 @@
-"""Particle-mesh (PM) and P3M force solvers, open boundary.
+"""Particle-mesh (PM) and P3M force solvers, open and periodic boundary.
 
-The port of ``nbody_tpu/ops/pm.py`` for the isolated (vacuum) boundary:
-the O(N log N) tier above the exact all-pairs kernels.  The method and
-its measured accuracy are described there; in short:
+The port of ``nbody_tpu/ops/pm.py``: the O(N log N) tier above the exact
+all-pairs kernels.  The method and its measured accuracy are described
+there; in short:
 
 1. **CIC deposit** of the masses onto an ``ng^3`` grid over the robust
    box of the massive particles (``_robust_box``).
@@ -17,13 +17,20 @@ its measured accuracy are described there; in short:
    executed by the short-range sweep (``ops/sr_kernel.py``).  Cell-capacity
    overflow falls back to mesh-quality forces through the complement
    kernel (``_p3m_force_grids``).
+4. **The periodic boundary** (``boundary="periodic"``, ``box_size`` L):
+   wrapped CIC on the ng^3 grid over the box and closed-form spectra
+   (``_periodic_between``); periodic P3M packs the sources and their ghost
+   images on a cell grid extended by ``sub`` cells a side and runs the same
+   sweep (``_periodic_sr_tables``, ``_periodic_p3m_between``).
 
 What differs from the JAX package:
 
 * The transforms are ``torch.fft.rfftn``/``irfftn`` (cuFFT on the card),
   not full-complex ``fftn``/``ifftn``: the JAX package avoided ``irfftn``
   only because the TPU's was broken.  Spectra are the half spectra
-  (m, m, m//2+1).
+  (m, m, m//2+1).  A periodic force factor i k_j has its Nyquist entry
+  zeroed on its own axis: JAX's ``ifftn(...).real`` drops that entry (its
+  Hermitian part is zero), which a half-spectrum ``irfftn`` cannot do.
 * The overflow ``lax.cond`` is a Python branch on ``bool(has_over)``: one
   host sync per P3M step (counted in ``host_syncs``).  Computing both
   branches instead would cost seven extra (2 ng)^3 transforms a step.
@@ -35,10 +42,12 @@ What differs from the JAX package:
   card the reaction's atomics add in no fixed order, and the default layout
   repeats bit for bit.  The VMEM gate, the Mosaic probe and ``SR_FLUSH_RUNS``
   of the JAX package are TPU machinery and are not ported.
-* The periodic boundary (ROADMAP.md queue 1 item 9), the differentiable
-  P3M sweep (item 10) and the sharded solve (item 11) are not ported yet
-  and raise ``NotImplementedError``.  Plain PM (``cutoff_cells=0``) is
-  differentiable through autograd as it stands.
+* ``sr_entry_overflow`` sizes periodic tables from the slots the solver
+  bins (sources and ghost cap), where the JAX package's uses the sources.
+* The differentiable P3M sweep (ROADMAP.md queue 1 item 10) and the
+  sharded solve (item 11) are not ported yet and raise
+  ``NotImplementedError``.  Plain PM (``cutoff_cells=0``), open or
+  periodic, is differentiable through autograd as it stands.
 """
 
 from __future__ import annotations
@@ -131,46 +140,64 @@ def _cic_weights(pos, lo, inv_h, ng: int):
     return i0, frac
 
 
-def _corner_iter(i0, frac):
-    """The 8 CIC corners: yields (index triple, weight (N,))."""
+def _corner_iter(i0, frac, ng: int, wrap: bool = False):
+    """The 8 CIC corners on the flat (ng, ng, ng) grid: yields (flat index
+    (N,), weight (N,)).  ``wrap`` folds the upper corners round the
+    periodic grid."""
     for cx in (0, 1):
         wx = frac[0] if cx else 1.0 - frac[0]
         for cy in (0, 1):
             wy = frac[1] if cy else 1.0 - frac[1]
             for cz in (0, 1):
                 wz = frac[2] if cz else 1.0 - frac[2]
-                yield (i0[0] + cx, i0[1] + cy, i0[2] + cz), wx * wy * wz
+                ix, iy, iz = i0[0] + cx, i0[1] + cy, i0[2] + cz
+                if wrap:
+                    ix, iy, iz = (torch.where(c >= ng, c - ng, c)
+                                  for c in (ix, iy, iz))
+                yield (ix * ng + iy) * ng + iz, wx * wy * wz
 
 
-def _deposit(pos, mass, lo, inv_h, ng: int):
+def _scatter(corners, mass, ng: int):
     """CIC scatter of masses onto an (ng, ng, ng) f32 grid: one accumulating
     ``index_put_`` of all 8 corners on the flat grid."""
-    i0, frac = _cic_weights(pos, lo, inv_h, ng)
     idx, val = [], []
-    for (ix, iy, iz), w in _corner_iter(i0, frac):
-        idx.append((ix * ng + iy) * ng + iz)
+    for flat, w in corners:
+        idx.append(flat)
         val.append(mass * w)
-    grid = torch.zeros(ng * ng * ng, dtype=_F32, device=pos.device)
+    grid = torch.zeros(ng * ng * ng, dtype=_F32, device=mass.device)
     grid.index_put_((torch.cat(idx).long(),), torch.cat(val),
                     accumulate=True)
     return grid.view(ng, ng, ng)
 
 
-def _gather(grids, pos, lo, inv_h, ng: int):
-    """CIC interpolation of 3 (ng,ng,ng) grids at pos (3,N) -> (3,N),
-    through flat 1-D indices."""
-    i0, frac = _cic_weights(pos, lo, inv_h, ng)
-    flat = grids.reshape(3, ng * ng * ng)
-    out = torch.zeros((3, pos.shape[1]), dtype=_F32, device=pos.device)
-    for (ix, iy, iz), w in _corner_iter(i0, frac):
-        out = out + w * flat.index_select(1, (ix * ng + iy) * ng + iz)
+def _interpolate(grids, corners, n: int):
+    """CIC interpolation of (k, ng, ng, ng) grids at n points -> (k, n),
+    through flat 1-D gathers."""
+    flat_grids = grids.reshape(grids.shape[0], -1)
+    out = torch.zeros((grids.shape[0], n), dtype=_F32, device=grids.device)
+    for flat, w in corners:
+        out = out + w * flat_grids.index_select(1, flat)
     return out
 
 
-def _cic_sharpen(ng: int, device):
-    """Inverse squared CIC window on the doubled m = 2 ng grid, as the half
-    spectrum of the real transform: shape (m, m, m//2+1)."""
-    m = 2 * ng
+def _deposit(pos, mass, lo, inv_h, ng: int):
+    """CIC scatter of masses onto the (ng, ng, ng) grid over the box."""
+    return _scatter(_corner_iter(*_cic_weights(pos, lo, inv_h, ng), ng),
+                    mass, ng)
+
+
+def _gather(grids, pos, lo, inv_h, ng: int):
+    """CIC interpolation of 3 (ng,ng,ng) grids at pos (3,N) -> (3,N)."""
+    return _interpolate(
+        grids, _corner_iter(*_cic_weights(pos, lo, inv_h, ng), ng),
+        pos.shape[1])
+
+
+def _cic_sharpen(ng: int, device, m: int = 0):
+    """Inverse squared CIC window on an ``m``-point grid (default the
+    doubled open-boundary grid, 2 ng; the periodic solver passes m = ng), as
+    the half spectrum of the real transform: shape (m, m, m//2+1)."""
+    m = m or 2 * ng
     j = torch.arange(m, device=device)
     jt = torch.minimum(j, m - j).to(_F32)
     x = math.pi * jt / m
@@ -524,33 +551,495 @@ def sr_pack_inputs(pos, mass, grid: int = DEFAULT_GRID,
 
 
 # ---------------------------------------------------------------------------
+# The periodic boundary: a fixed cubic box of edge L, the forces of every
+# image minus the uniform background (the JAX package's "Periodic-box
+# boundary mode").  The mesh is the ng^3 grid over the box, no doubling;
+# the kernel spectra are closed forms (the Plummer potential's transform,
+# x K1(x)) of which the transforms here take the rfftn half: the last axis
+# holds the rfftfreq wavenumbers 0..ng/2.
+
+
+def _box_scalar(box, like) -> torch.Tensor:
+    """The box edge as a 0-d f32 tensor on ``like``'s device.  Dividing by
+    a tensor keeps the division true: on the card a Python scalar divisor
+    becomes a multiply by its reciprocal, which can round otherwise."""
+    return torch.full((), float(box), dtype=_F32, device=like.device)
+
+
+def _wrap_box(pos, box):
+    """Fold positions into the canonical cell [0, box) per axis."""
+    L = _box_scalar(box, pos)
+    return pos - L * torch.floor(pos / L)
+
+
+def _xk1(x):
+    """g(x) = x K1(x) (modified Bessel K1) for x >= 0, elementwise: the
+    Abramowitz & Stegun 9.8.3/9.8.7/9.8.8 polynomials in f32 (abs err
+    < 2.2e-7).  g(0) = 1 and g ~ sqrt(pi x / 2) e^-x for large x."""
+    x = x.to(_F32)
+    xs = x.clamp_min(1e-12)
+    t = (x * 0.5) ** 2
+    u = (x / torch.full_like(x, 3.75)) ** 2
+    i1x = (0.5 + u * (0.87890594 + u * (0.51498869 + u * (0.15084934
+           + u * (0.02658733 + u * (0.00301532 + u * 0.00032411))))))
+    small = (x * x * torch.log(xs * 0.5) * i1x
+             + 1.0 + t * (0.15443144 + t * (-0.67278579 + t * (-0.18156897
+             + t * (-0.01919402 + t * (-0.00110404 + t * (-0.00004686)))))))
+    w = torch.full_like(x, 2.0) / x.clamp_min(2.0)
+    big = (torch.sqrt(xs) * torch.exp(-x)
+           * (1.25331414 + w * (0.23498619 + w * (-0.03655620
+              + w * (0.01504268 + w * (-0.00780353 + w * (0.00325614
+              + w * (-0.00068245))))))))
+    return torch.where(x <= 2.0, small, big)
+
+
+def _f32_quotient(a, b) -> float:
+    """f32(a) / f32(b), rounded once in f32, as the JAX package's
+    ``jnp.float32(a) / jnp.float32(b)``."""
+    return float(torch.tensor(float(a), dtype=_F32)
+                 / torch.tensor(float(b), dtype=_F32))
+
+
+def _periodic_kvecs(box, ng: int, device):
+    """Per-axis angular wavenumbers (ng,) f32 of the box's k lattice, in
+    fftfreq layout (positive, then negative frequencies)."""
+    idx = torch.arange(ng, device=device)
+    n = torch.where(idx < (ng + 1) // 2, idx, idx - ng).to(_F32)
+    return _f32_quotient(2.0 * math.pi, box) * n
+
+
+def _periodic_axes(box, ng: int, device, nyquist: bool = True):
+    """The three wavenumber axes of the (ng, ng, ng//2+1) half spectrum,
+    broadcastable: fftfreq on the first two, rfftfreq on the last.  With
+    ``nyquist=False`` each axis's Nyquist entry (even ng) is zeroed, for
+    the factor i k_j of a force spectrum on its own axis: the JAX package's
+    ``ifftn(...).real`` drops that entry (its Hermitian part is zero), and
+    a half-spectrum ``irfftn`` handed it would not."""
+    k1d = _periodic_kvecs(box, ng, device)
+    if not nyquist and ng % 2 == 0:
+        k1d = torch.where(torch.arange(ng, device=device) == ng // 2, 0.0, k1d)
+    kz = k1d[: ng // 2 + 1].abs()
+    return k1d[:, None, None], k1d[None, :, None], kz[None, None, :]
+
+
+# 4 pi rounded to f32, as the JAX package's weakly typed ``4.0 * jnp.pi``.
+_F32_4PI = float(torch.tensor(4.0 * math.pi, dtype=_F32))
+
+
+def _periodic_phi_spectrum(box, ng: int, device):
+    """Half spectrum (ng, ng, ng//2+1) f32 of the grid-sampled periodic
+    Plummer potential kernel, phi_hat(|k|) / h^3, with the k=0 mode zeroed
+    (the uniform background's subtraction)."""
+    kx, ky, kz = _periodic_axes(box, ng, device)
+    k2 = kx * kx + ky * ky + kz * kz
+    eps = torch.sqrt(torch.tensor(SOFTENING_SQUARED, dtype=_F32,
+                                  device=device))
+    g = _xk1(eps * torch.sqrt(k2))
+    h3 = torch.tensor(_f32_quotient(box, ng), dtype=_F32, device=device) ** 3
+    phi = (_F32_4PI * g) / k2.clamp_min(1e-30) / h3
+    return torch.where(k2 > 0, phi, 0.0)
+
+
+def _i_times(v):
+    """i v for a real tensor v, as complex64."""
+    return torch.complex(torch.zeros_like(v), v)
+
+
+def _pm_force_spectra_periodic(box, ng: int, device):
+    """The three periodic-PM force spectra i k_j phi_hat, half spectra, each
+    k_j with its own axis's Nyquist entry zeroed (_periodic_axes)."""
+    phi = _periodic_phi_spectrum(box, ng, device)
+    return tuple(_i_times(kc * phi)
+                 for kc in _periodic_axes(box, ng, device, nyquist=False))
+
+
+def _periodic_inverse(specs, ng: int):
+    return torch.stack([torch.fft.irfftn(s, s=(ng, ng, ng)) for s in specs])
+
+
+def _pm_force_grids_periodic(rho_hat, box, ng: int, spectra=None):
+    """Periodic-PM acceleration grids (3, ng, ng, ng): the spectral multiply
+    by +i k_j phi_hat (a = +grad of the potential sum under this module's
+    a_i = sum_j m_j (x_j - x_i) u^3 convention), one irfftn a component."""
+    spectra = spectra or _pm_force_spectra_periodic(box, ng, rho_hat.device)
+    return _periodic_inverse([rho_hat * s for s in spectra], ng)
+
+
+def _cic_weights_periodic(pos, box, ng: int):
+    """CIC lower corners (3,N) int32 in [0, ng-1] and fractions for wrapped
+    positions on the periodic grid (h = box/ng; corners wrap)."""
+    L = _box_scalar(box, pos)
+    g = _wrap_box(pos, box) * (torch.full_like(L, float(ng)) / L)
+    i0 = torch.floor(g).to(_I32).clamp(0, ng - 1)
+    frac = (g - i0.to(_F32)).clamp(0.0, 1.0)
+    return i0, frac
+
+
+def _periodic_corners(pos, box, ng: int):
+    return _corner_iter(*_cic_weights_periodic(pos, box, ng), ng, wrap=True)
+
+
+def _deposit_periodic(pos, mass, box, ng: int):
+    """CIC scatter onto the periodic (ng, ng, ng) grid (corners wrap)."""
+    return _scatter(_periodic_corners(pos, box, ng), mass, ng)
+
+
+def _gather_periodic(grids, pos, box, ng: int):
+    """CIC interpolation of (k, ng, ng, ng) periodic grids at pos -> (k, N)
+    (corners wrap)."""
+    return _interpolate(grids, _periodic_corners(pos, box, ng), pos.shape[1])
+
+
+# The <= 7 image shifts a particle near a box corner needs: each axis gives
+# at most one shift direction (R_c < L/2), so the combinations are the
+# nonempty subsets of the per-axis signs.
+_GHOST_COMBOS = ((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0),
+                 (1, 0, 1), (0, 1, 1), (1, 1, 1))
+
+
+def _ghost_combo_table():
+    """(8, 7) lookup: row = bitmask of a particle's boundary axes (axis j
+    sets bit j), column r = index into _GHOST_COMBOS of its r-th admissible
+    combination (the nonempty subsets of the set bits, in _GHOST_COMBOS
+    order).  Unused tail columns hold 0."""
+    cmb = [[0] * 7 for _ in range(8)]
+    for mask in range(8):
+        r = 0
+        for idx, c in enumerate(_GHOST_COMBOS):
+            cm = c[0] | (c[1] << 1) | (c[2] << 2)
+            if cm and (cm & mask) == cm:
+                cmb[mask][r] = idx
+                r += 1
+    return tuple(tuple(row) for row in cmb)
+
+
+_GHOST_COMBO_TABLE = _ghost_combo_table()
+
+
+def _default_ghost_cap(n: int) -> int:
+    """Ghost slots when the caller gives none: 2N rounded up to a power of
+    two, capped at the guaranteed 7N.  Density-blind, like _auto_capacity:
+    the engine sizes them from suggest_sr_plan's measured count."""
+    cap = 64
+    while cap < 2 * n:
+        cap *= 2
+    return min(cap, 7 * n)
+
+
+def _ghost_cap(n: int, sr_ghosts: int) -> int:
+    return int(sr_ghosts) or _default_ghost_cap(n)
+
+
+def _ghost_images(pos_w, mass, box, rc, gcap: int):
+    """Periodic ghost images for the short-range pass.
+
+    Every massive particle within R_c of a box face gets copies shifted by
+    the relevant +-L combinations (_GHOST_COMBOS), so every cross-boundary
+    min-image pair within R_c becomes a direct pair against some image and
+    the open-boundary sweep applies unchanged.  Ghosts exert short-range
+    force only.  Static shapes: the images pack into ``gcap`` slots and the
+    rest are dropped; ``n_ghost`` stays the exact total whatever ``gcap``.
+
+    Two-stage compaction, as the JAX package's: the boundary particles
+    first (one N-long prefix sum), then each ghost slot decodes (parent,
+    rank) by ``searchsorted`` on the int32 prefix sums of the parents'
+    image counts 2^k - 1, and (mask, rank) -> combination by
+    _GHOST_COMBO_TABLE.  Images come particle-major.  Returns
+    ``(gpos (3, gcap), gmass (gcap,), n_ghost)``, n_ghost a 0-d int32."""
+    dev = pos_w.device
+    L = _box_scalar(box, pos_w)
+    n = pos_w.shape[1]
+    sig = torch.where(pos_w < rc, 1,
+                      torch.where(pos_w > L - rc, -1, 0)).to(_I32)  # (3, N)
+    nz = sig != 0
+    k = nz.sum(dim=0, dtype=_I32)
+    live = (k > 0) & (mass > 0)
+    gc = torch.where(live, (torch.ones_like(k) << k) - 1, 0)
+    n_ghost = gc.sum(dtype=_I32)
+    # Stage 1: compact the boundary particles.
+    bcap = max(1, min(int(gcap), n))
+    cumb = _cumsum(live.to(_I32))
+    bslots = torch.arange(bcap, dtype=_I32, device=dev)
+    bidx = torch.searchsorted(cumb, bslots + 1, side="left",
+                              out_int32=True).clamp(max=n - 1)
+    bvalid = bslots < cumb[-1]
+    nzb = nz[:, bidx]  # (3, bcap)
+    k_b = nzb.sum(dim=0, dtype=_I32)
+    gc_b = torch.where(bvalid, (torch.ones_like(k_b) << k_b) - 1, 0)
+    cumg = _cumsum(gc_b)
+    mask_b = (nzb[0].to(_I32) + 2 * nzb[1].to(_I32) + 4 * nzb[2].to(_I32))
+    # Stage 2: ghost slot -> (boundary parent p, image rank) -> combination.
+    slots = torch.arange(int(gcap), dtype=_I32, device=dev)
+    p = torch.searchsorted(cumg, slots + 1, side="left",
+                           out_int32=True).clamp(max=bcap - 1)
+    valid = slots < cumg[-1]
+    rank = (slots - (cumg[p] - gc_b[p])).clamp(0, 6)
+    table = torch.tensor(_GHOST_COMBO_TABLE, dtype=torch.int64, device=dev)
+    ci = table[mask_b[p].long(), rank.long()]
+    pi = bidx[p]
+    combos = torch.tensor(_GHOST_COMBOS, dtype=_I32, device=dev).t()  # (3, 7)
+    shift = torch.where(combos[:, ci] == 1, sig[:, pi], 0)  # (3, gcap)
+    gpos = torch.where(valid[None, :], pos_w[:, pi] + L * shift.to(_F32), 0.0)
+    gmass = torch.where(valid, mass[pi], 0.0)
+    return gpos, gmass, n_ghost
+
+
+def _periodic_cells(ng: int, cutoff_cells: int):
+    """The periodic short-range cell grid: ``nc`` cells across the box,
+    extended by ``sub`` ghost cells a side (R_c = sub * box/nc is the
+    margin).  R_c must lie strictly inside half the box: nc >= 2 sub + 1."""
+    nc, sub = _cell_grid_params(ng, int(cutoff_cells))
+    if nc < 2 * sub + 1:
+        raise ValueError(
+            f"periodic P3M needs R_c < box/2 (cell grid nc >= "
+            f"{2 * sub + 1}); got nc={nc} from grid={ng}, "
+            f"cutoff_cells={cutoff_cells} — raise grid or lower "
+            "cutoff_cells")
+    return nc, sub
+
+
+def _periodic_geom(ng: int, cutoff_cells: int, box: float, device):
+    """The periodic binning geometry ``(nc, sub, rc, nc_tot, lo_cell,
+    span_tot)``, one definition for the solver and the plan diagnostics:
+    they must bin onto the same ghost-extended grid.  rc is a 0-d f32
+    tensor, lo_cell and span_tot (3, 1) f32."""
+    nc, sub = _periodic_cells(ng, cutoff_cells)
+    cs = box / nc
+    rc = torch.tensor(sub * cs, dtype=_F32, device=device)
+    lo_cell = torch.full((3, 1), -sub * cs, dtype=_F32, device=device)
+    span_tot = torch.full((3, 1), box + 2 * sub * cs, dtype=_F32,
+                          device=device)
+    return nc, sub, rc, nc + 2 * sub, lo_cell, span_tot
+
+
+def _periodic_ghost_bin(src_w, mass, box, rc, nc_tot: int, lo_cell, span_tot,
+                        gcap: int, tgt_w=None):
+    """Ghost images and bin candidates on the ghost-extended grid.  Slot
+    layout ``[sources | ghosts(gcap)]``, or ``[sources | ghosts(gcap) |
+    targets]`` when distinct targets join as massless receivers.  Returns
+    ``(pos_bin, m_bin, cid, n_ghost)``."""
+    gpos, gmass, n_ghost = _ghost_images(src_w, mass, box, rc, gcap)
+    if tgt_w is None:
+        pos_bin = torch.cat([src_w, gpos], dim=1)
+        m_bin = torch.cat([mass, gmass])
+        inc = m_bin > 0
+    else:
+        pos_bin = torch.cat([src_w, gpos, tgt_w], dim=1)
+        m_bin = torch.cat([mass, gmass, torch.zeros_like(tgt_w[0])])
+        inc = torch.cat([mass > 0, gmass > 0,
+                         torch.ones_like(tgt_w[0], dtype=torch.bool)])
+    cid = _bin_cids(pos_bin, lo_cell, span_tot, nc_tot, inc)
+    return pos_bin, m_bin, cid, n_ghost
+
+
+def _periodic_sr_tables(pos_src, mass_src, grid: int, box: float,
+                        cutoff_cells: int, capacity: int = 0,
+                        sr_slabs: int = 0, sr_entries: int = 0,
+                        sr_ghosts: int = 0, pos_tgt=None,
+                        symmetric: bool = False, paired: bool = False) -> dict:
+    """The periodic short-range pass's tables and worklist, as the solver
+    builds them: sources wrapped into the box plus their ghost images (and
+    distinct targets, massless, when ``pos_tgt`` is given), binned on the
+    (nc + 2 sub)^3 grid, packed and listed in the layout (symmetric,
+    paired).  The one recipe, which the solver and the card's checks run.
+    Returns ``ptab, mtab, wl_t, wl_s, n_e, e_max, rc2`` as sr_pack_inputs
+    does, and ``src_w, tgt_w, pslot, binned, n_ghost, gcap, s_max``."""
+    pos_src, mass_src = pos_src.to(_F32), mass_src.to(_F32)
+    ng = int(grid)
+    nc, sub, rc, nc_tot, lo_cell, span_tot = _periodic_geom(
+        ng, int(cutoff_cells), float(box), pos_src.device)
+    src_w = _wrap_box(pos_src, box)
+    tgt_w = src_w if pos_tgt is None else _wrap_box(pos_tgt.to(_F32), box)
+    ns = pos_src.shape[1]
+    gcap = _ghost_cap(ns, sr_ghosts)
+    pos_bin, m_bin, cid, n_ghost = _periodic_ghost_bin(
+        src_w, mass_src, box, rc, nc_tot, lo_cell, span_tot, gcap,
+        tgt_w=None if pos_tgt is None else tgt_w)
+    n_cells = nc_tot ** 3
+    cap, s_max, e_max = _sr_sizing(ns, pos_bin.shape[1], n_cells, capacity,
+                                   sr_slabs, sr_entries)
+    ptab, mtab, slab_lo, slab_hi, pslot, binned = _sr_pack(
+        cid, pos_bin, m_bin, n_cells, cap, s_max)
+    wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc_tot, sub, e_max,
+                                 symmetric=symmetric, paired=paired)
+    return dict(ptab=ptab, mtab=mtab, wl_t=wl_t, wl_s=wl_s, n_e=n_e,
+                e_max=e_max, rc2=rc * rc, src_w=src_w, tgt_w=tgt_w,
+                pslot=pslot, binned=binned, n_ghost=n_ghost, gcap=gcap,
+                s_max=s_max)
+
+
+def _periodic_p3m_spectra(box, ng: int, rc2):
+    """(combined long-range C_j, complement S_j) force spectra of periodic
+    P3M, each a 3-tuple of (ng, ng, ng//2+1) complex64 half spectra.
+
+    The complement kernel s_j(d) = d_j (1 - S(r^2/R_c^2)) u^3, sampled at
+    minimum-image displacements (its support R_c < L/2 puts one image at
+    each grid point), is transformed; the long-range part combines it with
+    the closed-form full spectrum, C_j = (i k_j phi_hat + s_hat_j) W and
+    S_j = s_hat_j W, W the CIC sharpening on the ng grid.  k_j's Nyquist
+    entry is zeroed on its own axis (_periodic_axes); s_hat_j, the
+    transform of a real grid, needs nothing."""
+    dev = rc2.device
+    idx = torch.arange(ng, device=dev)
+    # The min-image displacement per axis; the ambiguous ng/2 point (+-L/2)
+    # has zero complement weight either way (R_c < L/2).
+    d1 = (torch.where(idx <= ng // 2, idx, idx - ng).to(_F32)
+          * _f32_quotient(box, ng))
+    rx, ry, rz = d1[:, None, None], d1[None, :, None], d1[None, None, :]
+    r2 = rx * rx + ry * ry + rz * rz
+    u = torch.rsqrt(r2 + SOFTENING_SQUARED)
+    w1 = (1.0 - _taper(r2 / rc2)) * (u * u * u)
+    phi = _periodic_phi_spectrum(box, ng, dev)
+    W = _cic_sharpen(ng, dev, m=ng)
+    comb, comp = [], []
+    for dj, kc in zip((rx, ry, rz),
+                      _periodic_axes(box, ng, dev, nyquist=False)):
+        s_hat = torch.fft.rfftn(dj * w1)
+        comp.append(s_hat * W)
+        comb.append((_i_times(kc * phi) + s_hat) * W)
+    return tuple(comb), tuple(comp)
+
+
+def _periodic_p3m_force_grids(rho_hat, rho_over_hat_fn, comb, comp, ng: int,
+                              has_over: bool):
+    """(acc_grids, comp_grids) of periodic P3M, as _p3m_force_grids: under
+    overflow the unbinned sources' full force rides rho C - roh S and the
+    targets' complement field is (roh - rho) S; without, comp_grids is
+    None.  ``has_over`` is a Python bool: the caller's one host sync."""
+    if has_over:
+        roh = rho_over_hat_fn()
+        g = _periodic_inverse([rho_hat * c - roh * s
+                               for c, s in zip(comb, comp)], ng)
+        return g, _periodic_inverse([(roh - rho_hat) * s for s in comp], ng)
+    return _periodic_inverse([rho_hat * c for c in comb], ng), None
+
+
+def periodic_potential_energy(pos, mass, box: float,
+                              grid: int = DEFAULT_GRID) -> torch.Tensor:
+    """Background-subtracted periodic potential energy, a 0-d tensor:
+    PE = -(G/2) sum_i m_i Phi(x_i), Phi the mesh-solved periodic potential
+    with k=0 dropped (the raw image sum of the softened 1/r potential
+    diverges, so the open pairwise PE means nothing here).  Mesh quality,
+    which is what a drift diagnostic needs; the CIC self-cloud term is
+    kept, as the open PE keeps its self term."""
+    ng = int(grid)
+    pos, mass = pos.to(_F32), mass.to(_F32)
+    rho = _deposit_periodic(pos, mass, box, ng)
+    phi = torch.fft.irfftn(
+        torch.fft.rfftn(rho) * _periodic_phi_spectrum(box, ng, pos.device),
+        s=(ng, ng, ng))
+    vals = _gather_periodic(phi[None], pos, box, ng)[0]
+    return (-0.5 * G_NEWTON) * torch.sum(mass * vals)
+
+
+def _periodic_between(pos_tgt, pos_src, mass_src, ng: int, box: float,
+                      spectra=None):
+    """Periodic-box mesh accelerations of targets due to sources: wrapped
+    CIC deposit, ng^3 rfftn, the closed-form spectra, wrapped CIC gather.
+    Differentiable through autograd (the wrap is the identity almost
+    everywhere; the spectra are constants)."""
+    rho_hat = torch.fft.rfftn(_deposit_periodic(pos_src, mass_src, box, ng))
+    acc_grids = _pm_force_grids_periodic(rho_hat, box, ng, spectra)
+    return _gather_periodic(acc_grids, pos_tgt, box, ng) * G_NEWTON
+
+
+def _periodic_p3m_between(pos_tgt, pos_src, mass_src, same_set: bool,
+                          ng: int, box: float, cutoff_cells: int,
+                          capacity: int, sr_slabs: int, sr_entries: int,
+                          sr_ghosts: int, spectra=None):
+    """Periodic P3M: the periodic long-range mesh solve plus the exact
+    short-range correction over ghost images (_periodic_sr_tables), through
+    the same sweep as the open path.
+
+    Degradation contract, as the JAX package's: dropped ghosts (gcap
+    overflow) and capacity-overflowed cells lose short-range exactness for
+    their pairs; overflowed real sources and targets keep mesh-quality full
+    forces through the complement field.  A ghost that overflowed while its
+    parent binned does not turn the complement on (it would count the
+    parent's field twice)."""
+    global host_syncs
+    from . import sr_kernel
+
+    sym, pr = _active_sr_layout(pos_src.is_cuda)
+    tabs = _periodic_sr_tables(
+        pos_src, mass_src, ng, box, cutoff_cells, capacity, sr_slabs,
+        sr_entries, sr_ghosts, pos_tgt=None if same_set else pos_tgt,
+        symmetric=sym, paired=pr)
+    ns, gcap = pos_src.shape[1], tabs["gcap"]
+    src_w, tgt_w, binned = tabs["src_w"], tabs["tgt_w"], tabs["binned"]
+    binned_src = binned[:ns]
+    m_over = torch.where(binned_src, 0.0, mass_src)
+    over = (~binned_src & (mass_src > 0)).any()
+    if not same_set:
+        over = over | (~binned[ns + gcap:]).any()
+    has_over = bool(over)  # the one host sync
+    host_syncs += 1
+    rho_hat = torch.fft.rfftn(_deposit_periodic(src_w, mass_src, box, ng))
+    comb, comp = spectra or _periodic_p3m_spectra(box, ng, tabs["rc2"])
+    acc_grids, comp_grids = _periodic_p3m_force_grids(
+        rho_hat,
+        lambda: torch.fft.rfftn(_deposit_periodic(src_w, m_over, box, ng)),
+        comb, comp, ng, has_over)
+    acc = _gather_periodic(acc_grids, tgt_w, box, ng)
+    n_e, e_max = tabs["n_e"], tabs["e_max"]
+    bounds = torch.stack([torch.zeros_like(n_e), n_e.clamp(max=e_max)])
+    atab = sr_kernel.sweep(tabs["ptab"], tabs["mtab"], tabs["wl_t"],
+                           tabs["wl_s"], bounds, tabs["rc2"], symmetric=sym,
+                           paired=pr)
+    tgt = slice(0, ns) if same_set else slice(ns + gcap, None)
+    a_sr = atab[:, tabs["pslot"][tgt]]
+    if has_over:
+        a_comp = _gather_periodic(comp_grids, tgt_w, box, ng)
+    else:
+        a_comp = torch.zeros_like(tgt_w)
+    acc = acc + torch.where(binned[tgt][None, :], a_sr, a_comp)
+    return acc * G_NEWTON
+
+
+def _make_periodic_env(ng: int, cutoff_cells: int, box: float, device) -> dict:
+    """The periodic mesh environment: the force spectra alone (the box is
+    fixed, so there is no box to freeze).  They are constants of (box,
+    grid, cutoff): the engine builds one a run."""
+    if cutoff_cells:
+        rc = _periodic_geom(ng, int(cutoff_cells), float(box), device)[2]
+        return {"spectra": _periodic_p3m_spectra(float(box), ng, rc * rc)}
+    return {"spectra": _pm_force_spectra_periodic(float(box), ng, device)}
+
+
+# ---------------------------------------------------------------------------
 # The solver
 
 
 def _check_boundary(boundary: str, box_size: float) -> bool:
-    """Validate the boundary mode.  Only the open boundary is ported."""
+    """Validate the boundary options; True for periodic."""
     if boundary not in ("open", "periodic"):
         raise ValueError(
             f"unknown boundary {boundary!r}; options: 'open', 'periodic'")
-    if boundary == "periodic" or box_size:
-        raise NotImplementedError(
-            "the periodic boundary is not ported yet: ROADMAP.md queue 1 "
-            "item 9 (periodic boundary)")
-    return False
+    if boundary == "open":
+        return False
+    if not box_size or float(box_size) <= 0:
+        raise ValueError(
+            "boundary='periodic' needs box_size > 0 (the fixed cubic box "
+            "edge; positions are wrapped into [0, box_size))")
+    return True
 
 
-def _check_mesh_env(mesh_env: dict, ng: int, cutoff_cells: int):
+def _check_mesh_env(mesh_env: dict, ng: int, cutoff_cells: int,
+                    periodic: bool = False):
     """Validate a mesh_env against the solver config; return its spectra:
-    ((kx,ky,kz),(sx,sy,sz)) for p3m, (kx,ky,kz) for pm, each (2ng)^3."""
+    ((kx,ky,kz),(sx,sy,sz)) for p3m, (kx,ky,kz) for pm, each over (2ng)^3
+    for the open boundary and ng^3 for the periodic one (which is also what
+    tells the two apart)."""
     spectra = mesh_env["spectra"]
     env_is_p3m = isinstance(spectra[0], tuple)
     env_m = (spectra[0][0] if env_is_p3m else spectra[0]).shape[0]
-    want_m = 2 * ng
+    want_m = ng if periodic else 2 * ng
     if env_is_p3m != bool(cutoff_cells) or env_m != want_m:
         raise ValueError(
             "mesh_env was built for a different solver config "
             f"(env spectra {env_m}^3, p3m={env_is_p3m}; call has "
-            f"grid={ng}, p3m={bool(cutoff_cells)}, boundary=open -> "
+            f"grid={ng}, p3m={bool(cutoff_cells)}, "
+            f"boundary={'periodic' if periodic else 'open'} -> "
             f"wants {want_m}^3)")
     return spectra
 
@@ -564,15 +1053,17 @@ def _refuse_differentiable_p3m():
 def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
                           cutoff_cells: int = 0, capacity: int = 0,
                           sr_slabs: int = 0, sr_entries: int = 0,
-                          differentiable: bool = False,
+                          sr_ghosts: int = 0, differentiable: bool = False,
                           boundary: str = "open", box_size: float = 0.0,
                           mesh_env: dict | None = None, **_opts):
-    """Mesh-solved accelerations of targets due to sources, open boundary.
+    """Mesh-solved accelerations of targets due to sources.
     pos_tgt (3, Nt), pos_src (3, Ns), mass_src (Ns,) -> (3, Nt) f32.
 
     Same-set solves are recognised by identity (``pos_tgt is pos_src``);
     otherwise the targets join the cell tables as massless entries.
     ``cutoff_cells > 0`` adds the exact short-range correction (P3M).
+    ``boundary="periodic"`` solves in the fixed box of edge ``box_size``
+    (``sr_ghosts``: the P3M ghost-image slots, 0 = _default_ghost_cap).
     ``mesh_env`` (make_mesh_env) freezes the box and the kernel spectra.
     Extra registry options (tiles) are accepted and ignored."""
     global host_syncs
@@ -583,9 +1074,20 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
     pos_src = pos_src.to(_F32)
     pos_tgt = pos_src if same_set else pos_tgt.to(_F32)
     mass_src = mass_src.to(_F32)
-    _check_boundary(boundary, box_size)
+    periodic = _check_boundary(boundary, box_size)
     if cutoff_cells and differentiable:
         _refuse_differentiable_p3m()
+    if periodic:
+        p_spec = None
+        if mesh_env:
+            p_spec = _check_mesh_env(mesh_env, ng, cutoff_cells, periodic=True)
+        if not cutoff_cells:
+            return _periodic_between(pos_tgt, pos_src, mass_src, ng,
+                                     float(box_size), spectra=p_spec)
+        return _periodic_p3m_between(
+            pos_tgt, pos_src, mass_src, same_set, ng, float(box_size),
+            int(cutoff_cells), capacity, sr_slabs, sr_entries, sr_ghosts,
+            spectra=p_spec)
     spectra = None
     if mesh_env:
         spectra = _check_mesh_env(mesh_env, ng, cutoff_cells)
@@ -662,9 +1164,12 @@ def make_mesh_env(pos, mass, grid: int = DEFAULT_GRID, cutoff_cells: int = 0,
                   **_opts) -> dict:
     """Per-sample-block mesh environment: the robust source box and the
     (2ng)^3 force-kernel spectra, computed once at block entry and passed
-    to every step as ``mesh_env=``."""
+    to every step as ``mesh_env=``.  A periodic env holds the ng^3 spectra
+    alone (_make_periodic_env), on ``pos``'s device."""
     ng = int(grid)
-    _check_boundary(boundary, box_size)
+    if _check_boundary(boundary, box_size):
+        return _make_periodic_env(ng, cutoff_cells, float(box_size),
+                                  pos.device)
     lo_box, hi_box = _robust_box(pos.to(_F32), mass.to(_F32))
     span = hi_box - lo_box
     h = (span / float(ng - 3))[:, 0]
@@ -679,7 +1184,7 @@ def make_mesh_env(pos, mass, grid: int = DEFAULT_GRID, cutoff_cells: int = 0,
 
 def accelerations(pos, mass, grid: int = DEFAULT_GRID, cutoff_cells: int = 0,
                   capacity: int = 0, sr_slabs: int = 0, sr_entries: int = 0,
-                  differentiable: bool = False,
+                  sr_ghosts: int = 0, differentiable: bool = False,
                   boundary: str = "open", box_size: float = 0.0,
                   mesh_env: dict | None = None, **_opts):
     """All-source mesh accelerations. pos (3,N), mass (N,) -> (3,N).
@@ -687,14 +1192,15 @@ def accelerations(pos, mass, grid: int = DEFAULT_GRID, cutoff_cells: int = 0,
     return accelerations_between(
         pos, pos, mass, grid=grid, cutoff_cells=cutoff_cells,
         capacity=capacity, sr_slabs=sr_slabs, sr_entries=sr_entries,
-        differentiable=differentiable, boundary=boundary, box_size=box_size,
-        mesh_env=mesh_env)
+        sr_ghosts=sr_ghosts, differentiable=differentiable,
+        boundary=boundary, box_size=box_size, mesh_env=mesh_env)
 
 
 def p3m_accelerations(pos, mass, grid: int = DEFAULT_GRID,
                       cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
                       capacity: int = 0, sr_slabs: int = 0,
-                      sr_entries: int = 0, differentiable: bool = False,
+                      sr_entries: int = 0, sr_ghosts: int = 0,
+                      differentiable: bool = False,
                       boundary: str = "open", box_size: float = 0.0,
                       mesh_env: dict | None = None, **_opts):
     """The ``p3m`` registry entry: the short-range correction on by
@@ -703,15 +1209,15 @@ def p3m_accelerations(pos, mass, grid: int = DEFAULT_GRID,
         pos, pos, mass, grid=grid,
         cutoff_cells=cutoff_cells or DEFAULT_CUTOFF_CELLS,
         capacity=capacity, sr_slabs=sr_slabs, sr_entries=sr_entries,
-        differentiable=differentiable, boundary=boundary, box_size=box_size,
-        mesh_env=mesh_env)
+        sr_ghosts=sr_ghosts, differentiable=differentiable,
+        boundary=boundary, box_size=box_size, mesh_env=mesh_env)
 
 
 def p3m_accelerations_between(pos_tgt, pos_src, mass_src,
                               grid: int = DEFAULT_GRID,
                               cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
                               capacity: int = 0, sr_slabs: int = 0,
-                              sr_entries: int = 0,
+                              sr_entries: int = 0, sr_ghosts: int = 0,
                               differentiable: bool = False,
                               boundary: str = "open", box_size: float = 0.0,
                               **_opts):
@@ -719,45 +1225,72 @@ def p3m_accelerations_between(pos_tgt, pos_src, mass_src,
         pos_tgt, pos_src, mass_src, grid=grid,
         cutoff_cells=cutoff_cells or DEFAULT_CUTOFF_CELLS,
         capacity=capacity, sr_slabs=sr_slabs, sr_entries=sr_entries,
-        differentiable=differentiable, boundary=boundary, box_size=box_size)
+        sr_ghosts=sr_ghosts, differentiable=differentiable,
+        boundary=boundary, box_size=box_size)
 
 
 # ---------------------------------------------------------------------------
 # The plan: capacity, slab and worklist sizes measured on a concrete state
 
 
-def _cell_counts(pos, mass, grid: int, cutoff_cells: int):
+def _cell_counts(pos, mass, grid: int, cutoff_cells: int,
+                 boundary: str = "open", box_size: float = 0.0):
     """Per-cell in-box massive-particle counts (n_cells,) and the in-box
-    count, both int32."""
+    count, both int32.  The periodic boundary counts on the ghost-extended
+    grid, the ghost images included (a capacity must cover the ghost cells
+    too: they mirror the densest boundary regions)."""
     pos, mass = pos.to(_F32), mass.to(_F32)
-    lo_box, hi_box = _robust_box(pos, mass)
-    nc, _ = _cell_grid_params(int(grid), int(cutoff_cells))
-    n_cells = nc * nc * nc
-    m_in = mass * _inside(pos, lo_box, hi_box)
-    cid = _bin_cids(pos, lo_box, hi_box - lo_box, nc, m_in > 0)
+    if boundary == "periodic":
+        box = float(box_size)
+        _, _, rc, nc_tot, lo_cell, span_tot = _periodic_geom(
+            int(grid), int(cutoff_cells), box, pos.device)
+        _, m_b, cid, _ = _periodic_ghost_bin(
+            _wrap_box(pos, box), mass, box, rc, nc_tot, lo_cell, span_tot,
+            7 * pos.shape[1])
+        n_cells, n_in = nc_tot ** 3, (m_b > 0).sum(dtype=_I32)
+    else:
+        lo_box, hi_box = _robust_box(pos, mass)
+        nc, _ = _cell_grid_params(int(grid), int(cutoff_cells))
+        n_cells = nc * nc * nc
+        m_in = mass * _inside(pos, lo_box, hi_box)
+        cid = _bin_cids(pos, lo_box, hi_box - lo_box, nc, m_in > 0)
+        n_in = (m_in > 0).sum(dtype=_I32)
     counts = torch.zeros(n_cells + 1, dtype=_I32, device=pos.device)
     counts.scatter_add_(0, cid.long(), torch.ones_like(cid))
-    return counts[:-1], (m_in > 0).sum(dtype=_I32)
+    return counts[:-1], n_in
 
 
 def _overflow_frac(counts, n_in, cap: int):
     return (counts - cap).clamp_min(0).sum() / n_in.clamp_min(1)
 
 
-def _max_occupancy(pos, mass, grid: int, cutoff_cells: int):
-    return _cell_counts(pos, mass, grid, cutoff_cells)[0].max()
+def _max_occupancy(pos, mass, grid: int, cutoff_cells: int,
+                   boundary: str = "open", box_size: float = 0.0):
+    return _cell_counts(pos, mass, grid, cutoff_cells, boundary,
+                        box_size)[0].max()
+
+
+def _n_cells(grid: int, cutoff_cells: int, boundary: str) -> int:
+    """The cells the solver bins on: the ghost-extended (nc + 2 sub)^3 grid
+    under the periodic boundary, nc^3 under the open one."""
+    if boundary == "periodic":
+        nc, sub = _periodic_cells(int(grid), int(cutoff_cells))
+        return (nc + 2 * sub) ** 3
+    return _cell_grid_params(int(grid), int(cutoff_cells))[0] ** 3
 
 
 def cell_overflow_fraction(pos, mass, grid: int = DEFAULT_GRID,
                            cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
                            capacity: int = 0, boundary: str = "open",
                            box_size: float = 0.0):
-    """Fraction of in-box massive particles the P3M cell list cannot bin
-    at ``capacity`` (0 resolves as the solver does), as a 0-d tensor."""
+    """Fraction of in-box massive particles (and, periodic, ghost images)
+    the P3M cell list cannot bin at ``capacity`` (0 resolves as the solver
+    does, on the solver's cell count), as a 0-d tensor."""
     _check_boundary(boundary, box_size)
-    nc, _ = _cell_grid_params(int(grid), int(cutoff_cells))
-    cap = int(capacity) or _auto_capacity(pos.shape[1], nc ** 3)
-    counts, n_in = _cell_counts(pos, mass, grid, cutoff_cells)
+    cap = int(capacity) or _auto_capacity(
+        pos.shape[1], _n_cells(grid, cutoff_cells, boundary))
+    counts, n_in = _cell_counts(pos, mass, grid, cutoff_cells, boundary,
+                                box_size)
     return _overflow_frac(counts, n_in, cap)
 
 
@@ -768,11 +1301,32 @@ def suggest_capacity(pos, mass, grid: int = DEFAULT_GRID,
     """Host-side cell capacity: the measured max cell occupancy times
     ``headroom``, a power of two in [64, max_capacity]."""
     _check_boundary(boundary, box_size)
-    occ = int(_max_occupancy(pos, mass, int(grid), int(cutoff_cells)))
+    occ = int(_max_occupancy(pos, mass, int(grid), int(cutoff_cells),
+                             boundary, box_size))
     cap = 64
     while cap < headroom * occ and cap < max_capacity:
         cap *= 2
     return cap
+
+
+def _ghost_count(pos, mass, grid: int, cutoff_cells: int, box_size: float):
+    """The exact number of periodic ghost images of this state (0-d)."""
+    box = float(box_size)
+    rc = _periodic_geom(int(grid), int(cutoff_cells), box, pos.device)[2]
+    return _ghost_images(_wrap_box(pos.to(_F32), box), mass.to(_F32), box,
+                         rc, 1)[2]
+
+
+def ghost_overflow_count(pos, mass, grid: int = DEFAULT_GRID,
+                         cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
+                         sr_ghosts: int = 0, box_size: float = 0.0) -> int:
+    """Periodic ghost images beyond the ghost cap for this state (the cap 0
+    resolves as the solver does).  Nonzero means cross-boundary pairs lose
+    their whole short-range term (no complement makes up for them): raise
+    ``sr_ghosts`` or re-run suggest_sr_plan."""
+    gcap = _ghost_cap(pos.shape[1], sr_ghosts)
+    n = int(_ghost_count(pos, mass, grid, cutoff_cells, box_size))
+    return max(0, n - gcap)
 
 
 # Index order of the per-layout entry counts: symmetric + 2 * paired.
@@ -786,22 +1340,30 @@ def _count_all_layouts(slab_lo, slab_hi, nc: int, sub: int):
                    paired=pr)[2] for sym, pr in _SR_COMBOS])
 
 
-def _sr_plan_counts(pos, mass, grid: int, cutoff: int, cap: int):
-    """Measured (S, E[4]): the packed slab count and the exact worklist
-    entry count of every layout for this state."""
+def _sr_plan_counts(pos, mass, grid: int, cutoff: int, cap: int,
+                    boundary: str = "open", box_size: float = 0.0):
+    """Measured (S, E[4], n_ghost): the packed slab count, the exact
+    worklist entry count of every layout, and (periodic) the exact ghost
+    image count for this state; the periodic tables are binned at the
+    guaranteed 7N ghost bound."""
     pos, mass = pos.to(_F32), mass.to(_F32)
     ns = pos.shape[1]
-    lo_box, hi_box = _robust_box(pos, mass)
-    nc, sub = _cell_grid_params(int(grid), int(cutoff))
-    n_cells = nc * nc * nc
-    span = hi_box - lo_box
-    m_in = mass * _inside(pos, lo_box, hi_box)
-    cid = _bin_cids(pos, lo_box, span, nc, m_in > 0)
-    _, _, slab_lo, slab_hi, _, binned = _sr_pack(cid, pos, m_in, n_cells,
-                                                 int(cap), ns // SLAB + 2)
+    if boundary == "periodic":
+        box = float(box_size)
+        _, sub, rc, nc, lo_cell, span_tot = _periodic_geom(
+            int(grid), int(cutoff), box, pos.device)
+        pos_b, m_b, cid, n_ghost = _periodic_ghost_bin(
+            _wrap_box(pos, box), mass, box, rc, nc, lo_cell, span_tot, 7 * ns)
+    else:
+        lo_box, hi_box = _robust_box(pos, mass)
+        nc, sub = _cell_grid_params(int(grid), int(cutoff))
+        m_b = mass * _inside(pos, lo_box, hi_box)
+        pos_b, cid = pos, _bin_cids(pos, lo_box, hi_box - lo_box, nc, m_b > 0)
+        n_ghost = torch.zeros((), dtype=_I32, device=pos.device)
+    _, _, slab_lo, slab_hi, _, binned = _sr_pack(
+        cid, pos_b, m_b, nc ** 3, int(cap), pos_b.shape[1] // SLAB + 2)
     n_e4 = _count_all_layouts(slab_lo, slab_hi, nc, sub)
-    n_bin = binned.sum(dtype=_I32)
-    return n_bin // SLAB + 2, n_e4
+    return binned.sum(dtype=_I32) // SLAB + 2, n_e4, n_ghost
 
 
 def _active_sr_layout(on_cuda: bool, differentiable: bool = False) -> tuple:
@@ -831,10 +1393,15 @@ def suggest_sr_plan(pos, mass, grid: int = DEFAULT_GRID,
     slab count and the worklist entry count of the layout that will run
     (``layout=None``: the active one on the state's device; a name from
     SR_LAYOUTS; or ``"full"``), times ``headroom``, rounded up to powers of
-    two.  Returns ``{"capacity", "sr_slabs", "sr_entries"}``."""
+    two.  Returns ``{"capacity", "sr_slabs", "sr_entries"}``, and under the
+    periodic boundary ``"sr_ghosts"``: the measured image count times
+    ``headroom``, capped at the guaranteed 7N."""
     _check_boundary(boundary, box_size)
-    cap = int(capacity) or suggest_capacity(pos, mass, grid, cutoff_cells)
-    s, e4 = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap)
+    cap = int(capacity) or suggest_capacity(pos, mass, grid, cutoff_cells,
+                                            boundary=boundary,
+                                            box_size=box_size)
+    s, e4, g = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
+                               boundary, box_size)
     s_planned = _pow2_at_least(int(s) * headroom)
     if layout == "full":
         sym, pr = False, False
@@ -847,26 +1414,41 @@ def suggest_sr_plan(pos, mass, grid: int = DEFAULT_GRID,
         sym, want_pr = SR_LAYOUTS[layout]
         pr = want_pr and pos.is_cuda
     e = int(e4[int(sym) + 2 * int(pr)])
-    return {"capacity": cap, "sr_slabs": s_planned,
+    plan = {"capacity": cap, "sr_slabs": s_planned,
             "sr_entries": _pow2_at_least(e * headroom)}
+    if boundary == "periodic":
+        plan["sr_ghosts"] = min(_pow2_at_least(int(g) * headroom),
+                                7 * pos.shape[1])
+    return plan
+
+
+def _entry_guard_sizing(ns: int, grid: int, cutoff_cells: int, capacity: int,
+                        sr_slabs: int, sr_entries: int, boundary: str,
+                        sr_ghosts: int = 0) -> tuple:
+    """(cap, s_max, e_max) as the solver sizes its tables: the slab tables
+    hold ``n_bin`` slots, the sources and, periodic, the ghost cap.  (The
+    JAX package's guard sizes periodic tables from the sources alone.)"""
+    n_bin = ns + (_ghost_cap(ns, sr_ghosts) if boundary == "periodic" else 0)
+    return _sr_sizing(ns, n_bin, _n_cells(grid, cutoff_cells, boundary),
+                      capacity, sr_slabs, sr_entries)
 
 
 def sr_entry_overflow(pos, mass, grid: int = DEFAULT_GRID,
                       cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
                       capacity: int = 0, sr_slabs: int = 0,
                       sr_entries: int = 0, boundary: str = "open",
-                      box_size: float = 0.0) -> int:
+                      box_size: float = 0.0, sr_ghosts: int = 0) -> int:
     """Worklist entries this state would drop past the static
     ``sr_entries`` under the active layout (0 for the guaranteed bound)."""
     _check_boundary(boundary, box_size)
     if not int(sr_entries):
         return 0
-    nc, _ = _cell_grid_params(int(grid), int(cutoff_cells))
-    ns = pos.shape[1]
-    cap, _, e_max = _sr_sizing(ns, ns, nc ** 3, capacity, sr_slabs,
-                               sr_entries)
+    cap, _, e_max = _entry_guard_sizing(
+        pos.shape[1], grid, cutoff_cells, capacity, sr_slabs, sr_entries,
+        boundary, sr_ghosts)
     sym, pr = _active_sr_layout(pos.is_cuda)
-    _, e4 = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap)
+    e4 = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
+                         boundary, box_size)[1]
     return max(0, int(e4[int(sym) + 2 * int(pr)]) - e_max)
 
 

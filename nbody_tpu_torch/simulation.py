@@ -27,16 +27,23 @@ and GFlop/s statistics, print the footer.
   raises ``FloatingPointError`` when a sample block ends with a non-finite
   position, velocity or kinetic energy, checked where the host reads the
   energy.
-* The mesh tiers (``pm``, ``p3m``, open boundary): the P3M plan is measured
-  on the initial state before the warm-up (the layout first, then
-  ``SimConfig.resolve_sr_plan``); each block freezes the mesh box and
-  kernel spectra at its entry (``pm.make_mesh_env``); after each sample
-  block a health check re-measures the overflow on the current state and
-  warns once, or under ``pm_replan`` grows the plan and rebuilds the blocks.
+* The mesh tiers (``pm``, ``p3m``): the P3M plan is measured on the initial
+  state before the warm-up (the layout first, then
+  ``SimConfig.resolve_sr_plan``); each open-boundary block freezes the mesh
+  box and kernel spectra at its entry (``pm.make_mesh_env``); after each
+  sample block a health check re-measures the overflow (cells, worklist
+  entries and, periodic, ghost images) on the current state and warns
+  once, or under ``pm_replan`` grows the plan and rebuilds the blocks.
+* The periodic boundary (``pm_boundary="periodic"``): the spectra are
+  constants of (box, grid, cutoff), so one periodic env is built a run and
+  handed to every block.  The JAX engine passes none there, because XLA
+  hoists the spectra out of its compiled block; eager PyTorch hoists
+  nothing, and without an env each step would rebuild them.  The energy
+  check takes the mesh-solved periodic potential energy.
 
 The JAX engine's autotune, online retune, checkpoint and ref64 branches,
-its multi-process runs and sharded mesh solve and its periodic mesh are not
-ported yet (ROADMAP.md queue 1);
+its multi-process runs and sharded mesh solve are not ported yet
+(ROADMAP.md queue 1);
 its watchdog branches, the fused block's pair budget and the mesh-step
 estimate among them, are not ported at all (ROADMAP.md "What is not
 ported").
@@ -112,6 +119,7 @@ class _DeviceRunner:
         self._sr_health = False  # per-block P3M plan health check
         self._sr_warned = False
         self._sr_layout_prev = None  # pm layout to restore after the run
+        self._periodic_env = None  # the run's periodic mesh env, once built
 
     def finish(self) -> None:
         """Restore the pm layout a forced ``pm_sr_layout`` replaced."""
@@ -149,15 +157,28 @@ class _DeviceRunner:
         return self._blocks[steps]
 
     def _mesh_env_fn(self):
-        """The per-block frozen mesh environment (pm.make_mesh_env) for the
-        mesh tiers, else None."""
-        if self.cfg.resolved_kernel() not in ("pm", "p3m"):
+        """The mesh environment (pm.make_mesh_env) for the mesh tiers, else
+        None: built at each block's entry under the open boundary; under
+        the periodic one built at the first block's and handed to every
+        block after it, the same object for the whole run."""
+        cfg = self.cfg
+        if cfg.resolved_kernel() not in ("pm", "p3m"):
             return None
         from .ops import pm
 
-        grid, cutoff = self.cfg.mesh_params()
-        return lambda pos, mass: pm.make_mesh_env(
-            pos, mass, grid=grid, cutoff_cells=cutoff)
+        grid, cutoff = cfg.mesh_params()
+        if cfg.pm_boundary != "periodic":
+            return lambda pos, mass: pm.make_mesh_env(
+                pos, mass, grid=grid, cutoff_cells=cutoff)
+
+        def periodic_env(pos, mass):
+            if self._periodic_env is None:
+                self._periodic_env = pm.make_mesh_env(
+                    pos, mass, grid=grid, cutoff_cells=cutoff,
+                    boundary="periodic", box_size=cfg.pm_box)
+            return self._periodic_env
+
+        return periodic_env
 
     def prepare(self) -> None:
         cfg = self.cfg
@@ -194,10 +215,10 @@ class _DeviceRunner:
 
     def check_sr_health(self) -> None:
         """After each sample block, the P3M plan health check.  The plan was
-        measured on the initial state, but clustering evolves: check cell
-        and worklist overflow on the current state, and warn once, or under
-        ``pm_replan`` re-measure the plan, grow it (never shrink) and
-        rebuild the blocks."""
+        measured on the initial state, but clustering evolves: check cell,
+        worklist and (periodic) ghost overflow on the current state, and
+        warn once, or under ``pm_replan`` re-measure the plan, grow it
+        (never shrink) and rebuild the blocks."""
         if not self._sr_health:
             return
         from .ops import pm
@@ -205,38 +226,50 @@ class _DeviceRunner:
         cfg = self.cfg
         grid, cutoff = cfg.mesh_params()
         pos, mass = self.state.pos, self.state.mass
+        bkw = dict(boundary=cfg.pm_boundary, box_size=cfg.pm_box)
+        periodic = cfg.pm_boundary == "periodic"
         frac = float(pm.cell_overflow_fraction(pos, mass, grid, cutoff,
-                                               cfg.pm_capacity))
-        # Dropped worklist entries lose their whole short-range term, so any
-        # is degradation.
+                                               cfg.pm_capacity, **bkw))
+        # Dropped ghosts and worklist entries lose their whole short-range
+        # term, so any is degradation.
+        ghosts = pm.ghost_overflow_count(
+            pos, mass, grid, cutoff, sr_ghosts=cfg.pm_sr_ghosts,
+            box_size=cfg.pm_box) if periodic else 0
         entries = pm.sr_entry_overflow(
             pos, mass, grid, cutoff, capacity=cfg.pm_capacity,
-            sr_slabs=cfg.pm_sr_slabs, sr_entries=cfg.pm_sr_entries)
-        if frac <= self.SR_HEALTH_MAX_OVERFLOW and not entries:
+            sr_slabs=cfg.pm_sr_slabs, sr_entries=cfg.pm_sr_entries,
+            sr_ghosts=cfg.pm_sr_ghosts, **bkw)
+        if frac <= self.SR_HEALTH_MAX_OVERFLOW and not ghosts and not entries:
             return
-        detail = f"cell overflow {frac:.1%}" + (
-            f", {entries} worklist entries dropped" if entries else "")
+        detail = (f"cell overflow {frac:.1%}"
+                  + (f", {ghosts} ghost images dropped" if ghosts else "")
+                  + (f", {entries} worklist entries dropped" if entries
+                     else ""))
         if not cfg.pm_replan:
             if not self._sr_warned:
                 self._sr_warned = True
                 print(f"# p3m plan health: {detail} on the current state "
                       "— the measured plan no longer fits (accuracy degrades "
                       "toward pure PM for the overflowed pairs"
+                      + (";\n# dropped ghosts lose their short-range term "
+                         "entirely" if ghosts else "")
                       + (";\n# dropped worklist entries lose their "
                          "short-range term entirely" if entries else "")
                       + ").  Rerun with --pm-replan to re-measure mid-run, "
                       "or raise --pm-capacity.", file=sys.stderr)
             return
-        plan = pm.suggest_sr_plan(pos, mass, grid, cutoff)
+        plan = pm.suggest_sr_plan(pos, mass, grid, cutoff, **bkw)
         cap = max(cfg.pm_capacity, plan["capacity"])
         if cap != plan["capacity"]:
             # Slabs and entries measured at the capacity the rebuilt blocks
             # will bin with.
-            plan = pm.suggest_sr_plan(pos, mass, grid, cutoff, capacity=cap)
+            plan = pm.suggest_sr_plan(pos, mass, grid, cutoff, capacity=cap,
+                                      **bkw)
         grown = dict(
             pm_capacity=max(cfg.pm_capacity, plan["capacity"]),
             pm_sr_slabs=max(cfg.pm_sr_slabs, plan["sr_slabs"]),
-            pm_sr_entries=max(cfg.pm_sr_entries, plan["sr_entries"]))
+            pm_sr_entries=max(cfg.pm_sr_entries, plan["sr_entries"]),
+            pm_sr_ghosts=max(cfg.pm_sr_ghosts, plan.get("sr_ghosts", 0)))
         if all(grown[k] == getattr(cfg, k) for k in grown):
             if not self._sr_warned:
                 self._sr_warned = True
@@ -250,8 +283,9 @@ class _DeviceRunner:
         self._sr_warned = False
         print(f"# p3m plan health: {detail} — replanned to "
               f"capacity={cfg.pm_capacity} slabs={cfg.pm_sr_slabs} "
-              f"entries={cfg.pm_sr_entries} (blocks rebuild on next sample "
-              "block)", file=sys.stderr)
+              f"entries={cfg.pm_sr_entries}"
+              + (f" ghosts={cfg.pm_sr_ghosts}" if periodic else "")
+              + " (blocks rebuild on next sample block)", file=sys.stderr)
         self._blocks.clear()
         self.accel_fn = make_accel_fn(cfg.kernel, **cfg.kernel_opts())
 
@@ -293,12 +327,22 @@ class _DeviceRunner:
 
     def total_energy(self) -> float:
         """KE + PE of the current state (zero-mass padding adds nothing),
-        on the whole state when it is sharded."""
+        on the whole state when it is sharded.  Under the periodic boundary
+        the PE is the mesh-solved, background-subtracted one
+        (pm.periodic_potential_energy): the open pairwise image sum
+        diverges."""
         state = self.state
         if self.mesh is not None:
             from .parallel.decompose import unshard_state
 
             state = unshard_state(state)
+        if self.cfg.pm_boundary == "periodic":
+            from .ops import pm
+
+            pe = pm.periodic_potential_energy(state.pos, state.mass,
+                                              self.cfg.pm_box,
+                                              self.cfg.mesh_params()[0])
+            return float(kinetic_energy(state)) + float(pe)
         return float(kinetic_energy(state)) + float(potential_energy(state))
 
 

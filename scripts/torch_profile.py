@@ -37,7 +37,10 @@ N=2000 and N=16384 over 4 virtual shards of the card in each comm mode
 (``allgather``, ``ring``, ``ring_sym``, ``rdma``) and ``rdma`` over 3 at
 N=2000, 50-step blocks; P3M on the Plummer sphere of the JAX package's
 gate (N=262144, seed 7, ng=128, cutoff 4), 8-step blocks; P3M and PM on
-the reference initial conditions at N=1048576, 4-step blocks.  Then the
+the reference initial conditions at N=1048576, 4-step blocks, with the
+open boundary and with the periodic one (bench.py:48-49's row: L = 1;
+its stages are the deposit, the transforms, the gather, the ghost images
+and the pack, and alone also the spectra it builds once a run).  Then the
 pair-symmetric kernels called alone through their wrappers, 20 calls in a
 row (a "step" is one call, so wall - device per call is the host's gap
 between calls): Kernel B at N=16384, and the two-sided sweep at one
@@ -78,15 +81,24 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _stage_hooks():
+def _stage_hooks(periodic: bool = False):
     """(label, module, attribute) of the mesh step's stages, as the solver
-    calls them: each is wrapped in a profiler range for one block."""
+    calls them: each is wrapped in a profiler range for one block.  The
+    periodic step has no block env (one is built a run), and adds the ghost
+    images (their prefix sums and searchsorted decode)."""
     from nbody_tpu_torch.ops import pm, sr_kernel
 
-    return (("block env", pm, "make_mesh_env"), ("deposit", pm, "_deposit"),
-            ("3 irfftn", pm, "_inverse"), ("gather", pm, "_gather"),
-            ("pack", pm, "_sr_pack"), ("worklist", pm, "_sr_ranges"),
-            ("sr kernel", sr_kernel, "sweep"))
+    if periodic:
+        mesh = (("deposit", pm, "_deposit_periodic"),
+                ("3 irfftn", pm, "_periodic_inverse"),
+                ("gather", pm, "_gather_periodic"),
+                ("ghosts", pm, "_ghost_images"))
+    else:
+        mesh = (("block env", pm, "make_mesh_env"),
+                ("deposit", pm, "_deposit"), ("3 irfftn", pm, "_inverse"),
+                ("gather", pm, "_gather"))
+    return mesh + (("pack", pm, "_sr_pack"), ("worklist", pm, "_sr_ranges"),
+                   ("sr kernel", sr_kernel, "sweep"))
 
 
 def _ranged(label: str, fn):
@@ -100,10 +112,10 @@ def _ranged(label: str, fn):
 
 
 def profile_block(label: str, block, state, steps: int,
-                  stages: bool = False) -> None:
+                  stages: str = "") -> None:
     """Wall time, device time and idle share of one block; top kernels;
-    with ``stages``, the device time of each mesh stage inside the profiled
-    block."""
+    with ``stages`` ("open" or "periodic"), the device time of each mesh
+    stage inside the profiled block."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -116,7 +128,7 @@ def profile_block(label: str, block, state, steps: int,
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     wall = statistics.median(walls)
-    hooks = _stage_hooks() if stages else ()
+    hooks = _stage_hooks(stages == "periodic") if stages else ()
     saved = [getattr(mod, attr) for _, mod, attr in hooks]
     for (name, mod, attr), fn in zip(hooks, saved):
         setattr(mod, attr, _ranged(name, fn))
@@ -138,7 +150,7 @@ def profile_block(label: str, block, state, steps: int,
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + 1e-3 * e.device_time_total)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     print(f"{label}: block {wall:.3f} ms wall ({wall / steps:.3f} per step), "
           f"device {busy:.3f} ms, idle share {1 - busy / wall:.3f}", flush=True)
     for name, (n, t) in top:
@@ -191,10 +203,10 @@ def mesh_stages(label: str, runner) -> None:
     grids = pm._inverse([rho_hat * k for k in spectra], grid)
 
     def deposit_index_add():
-        i0, frac = pm._cic_weights(pos, lo, inv_h, grid)
         idx, val = [], []
-        for (ix, iy, iz), w in pm._corner_iter(i0, frac):
-            idx.append((ix * grid + iy) * grid + iz)
+        for flat, w in pm._corner_iter(*pm._cic_weights(pos, lo, inv_h, grid),
+                                       grid):
+            idx.append(flat)
             val.append(mass * w)
         return torch.zeros(grid ** 3, device=pos.device).index_add_(
             0, torch.cat(idx), torch.cat(val))
@@ -254,6 +266,64 @@ def mesh_stages(label: str, runner) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()), flush=True)
 
 
+def periodic_mesh_stages(label: str, runner) -> None:
+    """Each stage of one periodic mesh step alone, at the step's shapes, on
+    the runner's state with its plan: the spectra's build (once a run), the
+    wrap, the deposit, the forward and the three inverse transforms, the
+    gather; for P3M the ghost images, the tables (binning, pack and
+    worklist, ghosts included) and the short-range kernel."""
+    import torch
+
+    from nbody_tpu_torch.ops import pm, sr_kernel
+
+    cfg = runner.cfg
+    pos, mass = runner.state.pos, runner.state.mass
+    grid, cutoff = cfg.mesh_params()
+    box = cfg.pm_box
+    env = runner._mesh_env_fn()(pos, mass)
+    spectra = env["spectra"][0] if cutoff else env["spectra"]
+    rho = pm._deposit_periodic(pos, mass, box, grid)
+    rho_hat = torch.fft.rfftn(rho)
+    grids = pm._periodic_inverse([rho_hat * k for k in spectra], grid)
+    ms = {
+        "spectra (once a run)": cuda_ms(lambda: pm._make_periodic_env(
+            grid, cutoff, box, pos.device), 3),
+        "wrap": cuda_ms(lambda: pm._wrap_box(pos, box)),
+        "deposit": cuda_ms(lambda: pm._deposit_periodic(pos, mass, box,
+                                                        grid)),
+        "rfftn": cuda_ms(lambda: torch.fft.rfftn(rho)),
+        "3 irfftn": cuda_ms(lambda: pm._periodic_inverse(
+            [rho_hat * k for k in spectra], grid)),
+        "gather": cuda_ms(lambda: pm._gather_periodic(grids, pos, box, grid)),
+    }
+    if cutoff:
+        sym, paired = pm._active_sr_layout(pos.is_cuda)
+        plan = dict(capacity=cfg.pm_capacity, sr_slabs=cfg.pm_sr_slabs,
+                    sr_entries=cfg.pm_sr_entries, sr_ghosts=cfg.pm_sr_ghosts)
+        src_w = pm._wrap_box(pos, box)
+        rc = pm._periodic_geom(grid, cutoff, box, pos.device)[2]
+        tabs = pm._periodic_sr_tables(pos, mass, grid, box, cutoff,
+                                      symmetric=sym, paired=paired, **plan)
+        n_e = tabs["n_e"]
+        bounds = torch.stack([torch.zeros_like(n_e),
+                              n_e.clamp(max=tabs["e_max"])])
+        ms["ghosts"] = cuda_ms(lambda: pm._ghost_images(
+            src_w, mass, box, rc, tabs["gcap"]))
+        ms["tables"] = cuda_ms(lambda: pm._periodic_sr_tables(
+            pos, mass, grid, box, cutoff, symmetric=sym, paired=paired,
+            **plan))
+        ms["sr kernel"] = cuda_ms(lambda: sr_kernel.sweep(
+            tabs["ptab"], tabs["mtab"], tabs["wl_t"], tabs["wl_s"], bounds,
+            tabs["rc2"], symmetric=sym, paired=paired))
+        n = pos.shape[1]
+        print(f"{label}: plan {plan}, {int(tabs['n_ghost'])} ghosts "
+              f"({int(tabs['n_ghost']) / n:.4f} N), "
+              f"{tabs['ptab'].shape[1]} slots, {int(n_e)} entries, layout "
+              f"symmetric={sym} paired={paired}", flush=True)
+    print(f"{label} stages alone (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -288,7 +358,13 @@ def main() -> int:
             ("p3m plummer N=262144", 8, dict(n=262144, kernel="p3m",
                                               distribution="plummer", seed=7)),
             ("p3m reference N=1048576", 4, dict(n=1048576, kernel="p3m")),
-            ("pm reference N=1048576", 4, dict(n=1048576, kernel="pm"))):
+            ("pm reference N=1048576", 4, dict(n=1048576, kernel="pm")),
+            ("p3m periodic reference N=1048576", 4, dict(
+                n=1048576, kernel="p3m", pm_boundary="periodic",
+                pm_box=1.0)),
+            ("pm periodic reference N=1048576", 4, dict(
+                n=1048576, kernel="pm", pm_boundary="periodic",
+                pm_box=1.0))):
         if sys.argv[1:] and not any(c in label for c in sys.argv[1:]):
             continue
         # The engine's own blocks, plan and mesh env; prepare() runs the
@@ -296,14 +372,17 @@ def main() -> int:
         runner = _DeviceRunner(SimConfig(nsteps=steps, sfreq=steps, **kw))
         runner.prepare()
         mesh = runner._mesh_env_fn() is not None
+        periodic = runner.cfg.pm_boundary == "periodic"
+        stages = ("periodic" if periodic else "open") if mesh else ""
         syncs = pm.host_syncs
         try:
             profile_block(f"{label}, {steps} steps", runner._block_for(steps),
-                          runner.state, steps, stages=mesh)
+                          runner.state, steps, stages=stages)
             if mesh:
                 print(f"{label}: {(pm.host_syncs - syncs) / (7 * steps):.0f} "
                       "host syncs a step", flush=True)
-                mesh_stages(label, runner)
+                (periodic_mesh_stages if periodic else mesh_stages)(label,
+                                                                     runner)
         finally:
             runner.finish()
         del runner

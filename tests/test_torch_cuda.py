@@ -13,7 +13,8 @@ force VJP at 2e-5, the JAX package's bound between its VJP kernel and its
 plain sweep (tests/test_grad.py); the P3M short-range sweep at 2e-5 of the
 largest occupied slot, as tests/test_p3m.py holds the Pallas sweep against
 the plain one, and the mesh tiers at 1e-4 relative norm against the JAX
-package's accelerations in tests/golden/torch_p3m_plummer_n16384.npz.
+package's accelerations in tests/golden/torch_p3m_plummer_n16384.npz, and
+the periodic mesh tiers at 1e-4 against the port on the CPU.
 The sharded modes hold the n256_s100 golden trace at %.5g.  The mxu kernel
 and the bf16 distance mode hold the same 1e-5 against their plain versions
 (the mxu kernel rounds d2 as its plain version does, and sums its 3xTF32
@@ -681,3 +682,48 @@ def test_profile_dir_traces_the_card(cuda_device, tmp_path):
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     assert any("sym_pairs_kernel" in name for name in names)
+
+
+def _periodic_state(kind, n=4096, seed=5):
+    """Uniform in the unit box, or the Gaussian blob wrapped round a box
+    corner (chip_smoke.corner_blob)."""
+    if kind == "blob":
+        from chip_smoke import corner_blob
+
+        return corner_blob(n, seed)
+    rng = np.random.default_rng(seed)
+    return (np.asarray(rng.random((3, n)), np.float32),
+            np.asarray(1.0 + rng.random(n), np.float32))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "blob"])
+@pytest.mark.parametrize("cutoff", [0, 4])
+def test_periodic_mesh_tiers_match_cpu(cuda_device, kind, cutoff):
+    """Periodic pm and p3m on the card (cuFFT, the SR kernel in the card's
+    layout) against the port on the CPU (plain sweep), one plan sized for
+    the full worklist: 1e-4 relative norm."""
+    pos, mass = _periodic_state(kind)
+    cpu = (torch.tensor(pos), torch.tensor(mass))
+    card = tuple(t.to(cuda_device) for t in cpu)
+    kw = dict(grid=64, cutoff_cells=cutoff, boundary="periodic", box_size=1.0)
+    plan = pm.suggest_sr_plan(*cpu, 64, 4, layout="full", boundary="periodic",
+                              box_size=1.0) if cutoff else {}
+    before = sr_kernel.launches
+    got = pm.accelerations(*card, **plan, **kw)
+    assert sr_kernel.launches == before + bool(cutoff)
+    want = pm.accelerations(*cpu, **plan, **kw)
+    assert _rel(got.cpu(), want) <= 1e-4
+    env = pm.make_mesh_env(*card, **kw)
+    assert torch.equal(pm.accelerations(*card, mesh_env=env, **plan, **kw),
+                       got)
+
+
+def test_periodic_run_goes_through_the_sr_kernel(cuda_device):
+    for kernel, want in (("p3m", 12), ("pm", 0)):
+        sr_kernel.launches = tiled_kernel.launches = sym_kernel.launches = 0
+        res = run(SimConfig(n=4096, nsteps=8, sfreq=4, kernel=kernel,
+                            pm_boundary="periodic", pm_box=1.0, dt=0.01),
+                  quiet=True)
+        assert (sr_kernel.launches, tiled_kernel.launches,
+                sym_kernel.launches) == (want, 0, 0)
+        assert all(np.isfinite(ke) and ke > 0 for _, ke in res.kenergy_trace)

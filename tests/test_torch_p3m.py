@@ -322,7 +322,7 @@ def test_p3m_config_validation():
         SimConfig(kernel="pallas", pm_sr_layout="xla")
     with pytest.raises(ValueError, match="unknown --pm-sr-layout"):
         SimConfig(kernel="p3m", pm_sr_layout="bogus")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="requires --pm-box"):
         SimConfig(kernel="p3m", pm_boundary="periodic")
     SimConfig(kernel="pm", pm_cutoff=4, pm_replan=True)
 

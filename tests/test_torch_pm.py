@@ -171,11 +171,12 @@ def test_mesh_tier_refusals():
     with pytest.raises(ValueError, match="backward_opts"):
         make_accel_fn("pm", backward_opts={"backward": "jnp"})
     pos, mass = _plummer(64, 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pm.accelerations(_t(pos), _t(mass), grid=16, boundary="periodic",
-                         box_size=1.0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        SimConfig(kernel="pm", pm_boundary="periodic", pm_box=1.0)
+    # The periodic boundary runs (tests/test_torch_periodic.py); what it
+    # refuses is a box it cannot have.
+    with pytest.raises(ValueError, match="box_size > 0"):
+        pm.accelerations(_t(pos), _t(mass), grid=16, boundary="periodic")
+    with pytest.raises(ValueError, match="requires --pm-box"):
+        SimConfig(kernel="pm", pm_boundary="periodic")
     with pytest.raises(ValueError, match="grid must be >= 8"):
         pm.accelerations(_t(pos), _t(mass), grid=4)
     env = pm.make_mesh_env(_t(pos), _t(mass), grid=16)

@@ -147,7 +147,7 @@ def test_cli_in_process(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--pm-box", "1.0"], "queue 1 item 9"),
+    (["--pm-box", "1.0"], "--pm-box only applies to --pm-boundary periodic"),
     (["--checkpoint-every", "2"], "queue 1 item 12"),
     (["--autotune"], "queue 1 item 12"),
     (["--precision", "bf16", "--shards", "4", "--comm", "rdma"],

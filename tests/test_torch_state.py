@@ -103,9 +103,9 @@ def test_make_state_refuses_unported_distribution():
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(precision="bf16", kernel="pm"), ValueError, "fp32-only"),
     (dict(precision="ref64"), NotImplementedError, "queue 1 item 12"),
-    (dict(kernel="p3m", pm_boundary="periodic"), NotImplementedError,
-     "queue 1 item 9"),
-    (dict(kernel="pm", pm_box=1.0), NotImplementedError, "queue 1 item 9"),
+    (dict(kernel="p3m", pm_boundary="periodic"), ValueError,
+     "requires --pm-box"),
+    (dict(kernel="pm", pm_box=1.0), ValueError, "only applies"),
     (dict(kernel="bogus"), ValueError, "unknown kernel"),
     (dict(platform="tpu"), ValueError, "unknown platform"),
     (dict(n=0), ValueError, "n must be"),
