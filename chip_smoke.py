@@ -189,6 +189,36 @@ Phases, each printing what it found; any failure exits non-zero:
     tests/test_torch_periodic.py (N=512, 100 steps, ng=32, L=8): drift
     below 5e-2.
 
+22. Differentiable P3M (``differentiable=True``), open and periodic, at
+    the P3M gate's state and plan (``suggest_sr_plan(...,
+    differentiable=True)``: the unpaired worklist that runs).  (a) The
+    short-range sweep's VJP kernel (``csrc/sr_vjp.cu``) against its plain
+    version in ``pallas`` and ``pallas_sym`` with a seeded cotangent: gp
+    and gm within 1e-5 of each one's largest, grc2 within 1e-4 relative,
+    two launches bit for bit; per-call times of both (CUDA events) and the
+    pairs inside the cutoff, which the bound counts.  (b) The forward of
+    ``pm.accelerations(..., differentiable=True)`` equals the
+    non-differentiable call in the pinned ``pallas`` layout bit for bit.
+    (c) The gradient of mean(|a|^2) through ``make_accel_fn("p3m",
+    differentiable=True)`` with the kernel backward against the plain
+    backward (``sr_kernel.sweep_vjp`` swapped for ``sweep_vjp_plain``),
+    within 1e-4 of the largest; against the JAX package's gradients in
+    tests/golden/torch_p3m_grad_n16384.npz (periodic within 1e-4 of the
+    largest; open within 1e-4 relative norm, tests/test_torch_p3m_grad.py
+    says why).  (d) A 10-step Euler rollout gradient (dt 0.01) through
+    ``make_rollout_fn``: which of the mesh's indexing ops repeat bit for
+    bit, with and without PyTorch's deterministic mode; remat against no
+    remat within 1e-4 of the largest (the CIC gather's backward,
+    ``index_add_``, adds with atomics in no fixed order), and bit for bit
+    under ``torch.use_deterministic_algorithms(True)``; the forward and
+    VJP launches of the main path (20 and 10 with remat, 10 and 10
+    without), ms per rollout gradient.  (e) ``bench.py:48-49``'s periodic row
+    (reference ICs, N=1048576, L = 1, ng=128): the VJP kernel against its
+    plain version on the ghost-extended tables as in (a), one finite,
+    non-zero gradient of mean(|a|^2), ms of its forward and backward.  (f)
+    ``examples.fit_velocities 128 10 40 p3m`` exits 0 and its velocity
+    error falls.
+
 Each phase's seconds are printed after it.
 
 The last lines are the card's name and power limit, a JSON object of the
@@ -256,6 +286,23 @@ OPS_SYM = 27  # per unordered pair: 3 sub, 6 for |d|^2 + eps^2, sqrt,
 OPS_VJP = 45  # the force VJP's pair arithmetic, sqrt and divide one each
 OPS_SR = 31  # 3 sub, 5 |d|^2, eps, rsqrt, 3 clamp, 7 taper, 4 weight, 1 mass, 3 FMA
 OPS_SR_REACTION = 7  # the symmetric layouts: target mass, 3 products, 3 adds
+# The short-range sweep's VJP: a pair beyond the cutoff costs its distance
+# test (3 sub, 5 |d|^2, 1 q, 1 compare); one inside it, both sides once, 58
+# more: eps, rsqrt, u^2, u^3, the taper 8, S' 4, w, w' 5, k 2, h 3, h.d 5,
+# 2 w' h.d 2, V 9, gp both sides 6, gm_j 7, grc2 2; the reaction (pallas_sym
+# off the diagonal) 13 more: h 6, gm_i 7.
+OPS_SR_TEST = 10
+OPS_SR_VJP = 68
+OPS_SR_VJP_REACTION = 13
+# The VJP kernel against its plain version: gp and gm as a share of each
+# one's largest (fp32 sums in other orders, rsqrt with a Newton step), grc2
+# relative (a sum over every pair); the full and rollout gradients, the
+# kernel backward against the plain one and against the JAX package's.
+SR_VJP_TOL = 1e-5
+SR_VJP_RC2_TOL = 1e-4
+GRAD_TOL = 1e-4
+GRAD_FIXTURE = os.path.join(ROOT, "tests", "golden",
+                            "torch_p3m_grad_n16384.npz")
 # The mxu kernel's function at its least work: both K=8 products of the
 # |r|^2 expansion on the tensor cores with a 3xTF32 split, 3 x (16 + 16)
 # flops a pair at the H100 SXM's TF32 rate (NVIDIA's data sheet), and the
@@ -920,6 +967,305 @@ def periodic_phases(dev, tag: str, ms: dict, launches: dict) -> None:
           f"{res.energy_drift:.6e} (< 5e-2)", flush=True)
     if not (math.isfinite(res.energy_drift) and res.energy_drift < 5e-2):
         fail(f"periodic energy drift {res.energy_drift} not below 5e-2")
+
+
+def vjp_check(label: str, tabs: dict, n_e: int, sym: bool, dev) -> tuple:
+    """The SR VJP kernel against its plain version on one set of tables
+    (``ptab, mtab, wl_t, wl_s, rc2``) with a seeded cotangent; fails on a
+    miss.  Returns (max abs error of gp and gm, kernel ms, plain ms)."""
+    import torch
+
+    from nbody_tpu_torch.ops import sr_kernel
+
+    gen = torch.Generator(dev).manual_seed(11)
+    g = torch.randn(tabs["ptab"].shape, device=dev, generator=gen)
+    bounds = torch.tensor([0, n_e], dtype=torch.int32, device=dev)
+    args = (tabs["ptab"], tabs["mtab"], tabs["wl_t"], tabs["wl_s"], bounds,
+            tabs["rc2"], g)
+    got = sr_kernel.sweep_vjp(*args, symmetric=sym)
+    again = sr_kernel.sweep_vjp(*args, symmetric=sym)
+    t0 = time.perf_counter()
+    plain = sr_kernel.sweep_vjp_plain(*args, symmetric=sym)
+    torch.cuda.synchronize()
+    ms_p = 1e3 * (time.perf_counter() - t0)
+    rel = [float((a - b).abs().max() / b.abs().max())
+           for a, b in zip(got[:2], plain[:2])]
+    rel.append(float((got[2] - plain[2]).abs() / plain[2].abs()))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(got[:2], plain[:2]))
+    ms_k = time_ms(lambda: sr_kernel.sweep_vjp(*args, symmetric=sym), reps=5)
+    print(f"sr vjp {label}: {n_e} entries; kernel vs plain gp {rel[0]:.3e}, "
+          f"gm {rel[1]:.3e} of the largest, grc2 {rel[2]:.3e} relative; "
+          f"repeats bit for bit: {same}; kernel {ms_k:.4f} ms, plain "
+          f"{ms_p:.1f} ms per call", flush=True)
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        fail(f"sr vjp {label}: non-finite output")
+    if max(rel[:2]) > SR_VJP_TOL or rel[2] > SR_VJP_RC2_TOL:
+        fail(f"sr vjp {label}: kernel disagrees with its plain version")
+    if not same:
+        fail(f"sr vjp {label}: two launches differ")
+    return max_abs, ms_k, ms_p
+
+
+def grad_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
+    """Phase 22; fills the SR VJP kernel's figures in ``err``, ``ms`` and
+    ``launches`` and returns its bound's pair counts."""
+    import contextlib
+    import io
+    import re
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from nbody_tpu_torch import make_state
+    from nbody_tpu_torch.examples import fit_velocities
+    from nbody_tpu_torch.models import distributions
+    from nbody_tpu_torch.models.gravity import make_accel_fn
+    from nbody_tpu_torch.models.rollout import make_rollout_fn
+    from nbody_tpu_torch.ops import pm, sr_kernel
+
+    gate = P3M_GATE
+    ng, cutoff = gate["grid"], gate["cutoff"]
+    pos_np, vel_np, mass_np = distributions.plummer(gate["n"],
+                                                    seed=gate["seed"])
+    p, v, m = (torch.tensor(a, device=dev) for a in (pos_np, vel_np, mass_np))
+
+    # 22(a). The VJP kernel against its plain version, and its bound's work.
+    work = {}
+    for layout in ("pallas", "pallas_sym"):
+        sym = pm.SR_LAYOUTS[layout][0]
+        plan = pm.suggest_sr_plan(p, m, ng, cutoff, layout=layout,
+                                  differentiable=True)
+        pk = pm.sr_pack_inputs(p, m, grid=ng, cutoff_cells=cutoff,
+                               symmetric=sym, **plan)
+        n_e = int(pk["n_e"])
+        if n_e > pk["e_max"]:
+            fail(f"sr vjp {layout}: the suggested plan drops entries")
+        max_abs, ms_k, ms_p = vjp_check(f"{layout} N={gate['n']}", pk, n_e,
+                                        sym, dev)
+        # The pairs the function needs at these inputs: each pair's distance
+        # test, the full terms inside the cutoff, and (pallas_sym, entries
+        # off the diagonal) the reaction's.
+        tabs = (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"])
+        bounds = torch.tensor([0, n_e], dtype=torch.int32, device=dev)
+        off = (pk["wl_t"][:n_e] != pk["wl_s"][:n_e]).nonzero()[:, 0]
+        full = sr_kernel.skip_counts(*tabs, bounds, pk["rc2"], chunk=2048)
+        react = sr_kernel.skip_counts(*tabs, bounds, pk["rc2"], chunk=2048,
+                                      entries=off) if sym else {"inside": 0}
+        work[layout] = (full["pairs"], full["inside"], react["inside"],
+                        pk["ptab"].shape[1], n_e)
+        print(f"sr vjp {layout}: pairs {full['pairs']}, inside the cutoff "
+              f"{full['inside'] / full['pairs']:.4f} {tag}", flush=True)
+        if layout == "pallas":  # the layout the card's AD runs
+            err["sr_vjp"], ms["sr_vjp"], ms["sr_vjp_plain"] = max_abs, ms_k, ms_p
+        del pk, tabs
+
+    # 22(b). The differentiable forward equals the pinned pallas layout's.
+    plan = pm.suggest_sr_plan(p, m, ng, cutoff, differentiable=True)
+    kw = dict(grid=ng, cutoff_cells=cutoff, **plan)
+    prev = pm.set_sr_layout("pallas")
+    try:
+        pinned = pm.accelerations(p, m, **kw)
+    finally:
+        pm.set_sr_layout(prev)
+    same = torch.equal(pm.accelerations(p, m, differentiable=True, **kw),
+                       pinned)
+    print(f"differentiable p3m N={gate['n']}, plan {plan}: forward equals "
+          f"the pinned pallas layout bit for bit: {same}", flush=True)
+    if not same:
+        fail("the differentiable forward differs from the pinned pallas one")
+
+    # 22(c). The full gradient: kernel against plain backward, and the JAX
+    # package's gradients.
+    def grad(pos, mass, plain=False, **opts):
+        kernel = sr_kernel.sweep_vjp
+        if plain:  # the yardstick: the plain VJP in the kernel's place
+            sr_kernel.sweep_vjp = sr_kernel.sweep_vjp_plain
+        try:
+            fn = make_accel_fn("p3m", differentiable=True, **opts)
+            q = pos.clone().requires_grad_(True)
+            torch.mean(fn(q, mass) ** 2).backward()
+        finally:
+            sr_kernel.sweep_vjp = kernel
+        return q.grad
+
+    g_k, g_p = grad(p, m, **kw), grad(p, m, plain=True, **kw)
+    rel = float((g_k - g_p).abs().max() / g_p.abs().max())
+    print(f"differentiable p3m N={gate['n']}: gradient of mean(|a|^2), kernel "
+          f"vs plain backward {rel:.3e} of the largest", flush=True)
+    if not (torch.isfinite(g_k).all() and g_k.abs().max() > 0):
+        fail("the p3m gradient is not finite and non-zero")
+    if rel > GRAD_TOL:
+        fail("the p3m gradient disagrees with the plain backward's")
+    fx = np.load(GRAD_FIXTURE)
+    n16 = int(fx["n"])
+    pos16, _, mass16 = distributions.plummer(n16, seed=int(fx["seed"]))
+    ref16 = make_state(n16, device=dev)
+    states = {"open": (torch.tensor(pos16, device=dev),
+                       torch.tensor(mass16, device=dev), {}),
+              "periodic": (ref16.pos, ref16.mass,
+                           dict(boundary="periodic", box_size=float(fx["box"])))}
+    for name, (q, mq, bkw) in states.items():
+        host = (q.cpu().numpy(), mq.cpu().numpy())
+        digest = hashlib.sha256(host[0].tobytes() + host[1].tobytes())
+        if digest.hexdigest() != str(fx[f"{name}_digest"]):
+            fail(f"the {name} N={n16} state differs from the fixture's")
+        qplan = pm.suggest_sr_plan(q, mq, int(fx["grid"]), int(fx["cutoff"]),
+                                   capacity=int(fx[f"{name}_capacity"]),
+                                   differentiable=True, **bkw)
+        got = grad(q, mq, grid=int(fx["grid"]), cutoff_cells=int(fx["cutoff"]),
+                   **qplan, **bkw).cpu().double()
+        want = torch.tensor(fx[f"{name}_grad"]).double()
+        e_max = float((got - want).abs().max() / want.abs().max())
+        e_rel = float((got - want).norm() / want.norm())
+        print(f"differentiable p3m N={n16} {name} vs the JAX fixture: "
+              f"{e_max:.3e} of the largest, {e_rel:.3e} relative norm",
+              flush=True)
+        if (e_rel if name == "open" else e_max) > GRAD_TOL:
+            fail(f"the {name} p3m gradient disagrees with the JAX package's")
+
+    # 22(d). A 10-step rollout gradient, the main path of differentiable
+    # P3M: its launches, remat against no remat, its time.
+    steps, dt = 10, 0.01
+    accel = make_accel_fn("p3m", differentiable=True, **kw)
+    with torch.no_grad():
+        target = make_rollout_fn(accel, dt, steps)(p, v, m)[0]
+
+    def rollout_grads(remat=True):
+        vel = (0.5 * v).requires_grad_(True)
+        mass = m.clone().requires_grad_(True)
+        d = make_rollout_fn(accel, dt, steps, remat=remat)(p, vel, mass)[0]
+        torch.sum((d - target) ** 2).backward()
+        return vel.grad, mass.grad
+
+    # Which of the mesh's indexing ops repeat bit for bit on the card: each
+    # run twice on the gate's state, with and without PyTorch's
+    # deterministic mode.
+    lo_box, hi_box = pm._robust_box(p, m)
+    h = ((hi_box - lo_box) / float(ng - 3))[:, 0]
+    inv_h, lo = 1.0 / h[:, None], lo_box - h[:, None]
+    gen = torch.Generator(dev).manual_seed(5)
+    w_acc = torch.randn(p.shape, device=dev, generator=gen)
+    w_rho = torch.randn((ng, ng, ng), device=dev, generator=gen)
+    grids = torch.randn((3, ng, ng, ng), device=dev, generator=gen)
+    idx = torch.randint(0, p.shape[1], (2 * p.shape[1],), device=dev,
+                        generator=gen)
+
+    def backward_of(x, f):
+        x = x.clone().requires_grad_(True)
+        f(x).backward()
+        return x.grad
+
+    probes = {
+        "CIC gather backward (index_select -> index_add_)": lambda: backward_of(
+            grids, lambda g: (pm._gather(g, p, lo, inv_h, ng) * w_acc).sum()),
+        "CIC deposit (index_put_, accumulate)": lambda: pm._deposit(
+            p, m, lo, inv_h, ng),
+        "CIC deposit backward (a gather)": lambda: backward_of(
+            m, lambda q: (pm._deposit(p, q, lo, inv_h, ng) * w_rho).sum()),
+        "table gather backward (index_put_, accumulate)": lambda: backward_of(
+            p, lambda q: (q[:, idx] * w_acc.repeat(1, 2)).sum()),
+    }
+    for det in (False, True):
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                same = {k: torch.equal(f(), f()) for k, f in probes.items()}
+                if det:
+                    g_det = [rollout_grads(remat) for remat in (True, False)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        print(f"repeats bit for bit{' (deterministic mode)' if det else ''}: "
+              + "; ".join(f"{k} {v}" for k, v in same.items()), flush=True)
+    ops = sorted({str(w.message).split(" does not have")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    same = all(torch.equal(a, b) for a, b in zip(*g_det))
+    print(f"rollout under deterministic mode: remat equals no remat bit for "
+          f"bit: {same}; ops that warned of no deterministic CUDA "
+          f"implementation: {ops}", flush=True)
+    if not same:
+        fail("under deterministic mode the rollout gradients with remat "
+             "differ from those without")
+    del probes, grids, g_det
+    runs = {}
+    for remat in (True, False):
+        sr_kernel.launches = sr_kernel.vjp_launches = 0
+        runs[remat] = rollout_grads(remat)
+        torch.cuda.synchronize()
+        runs[remat] += ((sr_kernel.launches, sr_kernel.vjp_launches),)
+    launches["sr_vjp"] = runs[True][2][1]
+    launches["sr_ad"] = runs[True][2][0]
+    rel = [float((a - b).abs().max() / b.abs().max())
+           for a, b in zip(runs[True][:2], runs[False][:2])]
+    same = all(torch.equal(a, b) for a, b in zip(runs[True][:2],
+                                                 runs[False][:2]))
+    print(f"rollout N={gate['n']}, {steps} Euler steps: sr/sr vjp launches "
+          f"{runs[True][2]} with remat, {runs[False][2]} without; remat vs "
+          f"no remat d_vel {rel[0]:.3e}, d_mass {rel[1]:.3e} of the largest, "
+          f"bit for bit: {same}", flush=True)
+    if runs[True][2] != (2 * steps, steps) or runs[False][2] != (steps, steps):
+        fail("rollout launches are not (20, 10) with remat and (10, 10) "
+             "without")
+    if not all(torch.isfinite(t).all() and t.abs().max() > 0
+               for t in runs[True][:2]):
+        fail("rollout gradients missing, non-finite or zero")
+    if max(rel) > GRAD_TOL:
+        fail("rollout gradients with remat differ from those without")
+    del runs
+    ms["rollout_p3m"] = time_ms(lambda: rollout_grads(), reps=3)
+    print(f"rollout N={gate['n']} p3m, {steps} Euler steps: forward + backward "
+          f"{ms['rollout_p3m']:.3f} ms {tag}", flush=True)
+
+    # 22(e). bench.py's periodic row.
+    ref = make_state(N_UNIFORM, device=dev)
+    box = PERIODIC["box"]
+    bkw = dict(boundary="periodic", box_size=box)
+    for layout in ("pallas", "pallas_sym"):
+        sym = pm.SR_LAYOUTS[layout][0]
+        pplan = pm.suggest_sr_plan(ref.pos, ref.mass, ng, cutoff, layout=layout,
+                                   differentiable=True, **bkw)
+        tabs = pm._periodic_sr_tables(ref.pos, ref.mass, ng, box, cutoff,
+                                      symmetric=sym, **pplan)
+        n_e = int(tabs["n_e"])
+        if n_e > tabs["e_max"] or int(tabs["n_ghost"]) > tabs["gcap"]:
+            fail(f"periodic sr vjp {layout}: the plan drops entries or ghosts")
+        _, ms_k, _ = vjp_check(f"periodic {layout} N={N_UNIFORM}", tabs, n_e,
+                               sym, dev)
+        if layout == "pallas":
+            ms["sr_vjp_periodic"] = ms_k
+        del tabs
+    pplan = pm.suggest_sr_plan(ref.pos, ref.mass, ng, cutoff,
+                               differentiable=True, **bkw)
+    fn = make_accel_fn("p3m", differentiable=True, grid=ng, **pplan, **bkw)
+
+    def periodic_forward():
+        q = ref.pos.clone().requires_grad_(True)
+        return q, torch.mean(fn(q, ref.mass) ** 2)
+
+    q, loss = periodic_forward()
+    loss.backward()
+    if not (torch.isfinite(q.grad).all() and q.grad.abs().max() > 0):
+        fail("the periodic p3m gradient is not finite and non-zero")
+    fwd_ms = time_ms(lambda: periodic_forward(), reps=3)
+    both_ms = time_ms(lambda: periodic_forward()[1].backward(), reps=3)
+    print(f"periodic differentiable p3m N={N_UNIFORM}, L={box}, plan {pplan}: "
+          f"gradient finite, |g| max {float(q.grad.abs().max()):.3e}; forward "
+          f"{fwd_ms:.3f} ms, backward {both_ms - fwd_ms:.3f} ms {tag}",
+          flush=True)
+    del ref, q, loss
+
+    # 22(f). The example.
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fit_velocities.main(["128", "10", "40", "p3m"])
+    print(out.getvalue(), end="", flush=True)
+    errs = [float(e) for e in re.findall(r"vel rel err=(\S+)", out.getvalue())]
+    if rc != 0 or len(errs) < 2 or not errs[-1] < errs[0]:
+        fail(f"examples.fit_velocities 128 10 40 p3m exited {rc}, errors "
+             f"{errs}")
+    return work
 
 
 def repair_phases(dev, tag: str) -> None:
@@ -1712,6 +2058,8 @@ def main() -> int:
     lap("20")
     periodic_phases(dev, tag, ms, launches)
     lap("21")
+    vjp_work = grad_phases(dev, tag, err, ms, launches)
+    lap("22")
 
     # The bounds, from this run's inputs: the least work of each function,
     # whatever layout its kernel takes.  Kernel A and the columns block
@@ -1736,6 +2084,13 @@ def main() -> int:
         bound(n_e * pm.SLAB * width * (OPS_SR + OPS_SR_REACTION * sym),
               28 * nslots + 8 * n_e)
         for n_e, width, sym, _, _, nslots, _ in sr.values())
+    # The VJP: the pairs this run's data needs in the layout it runs and in
+    # the cheapest (pallas_sym); bytes: the tables and the cotangent read,
+    # gp and gm written, the worklist read.
+    bounds_ms["sr_vjp"] = min(
+        bound(inside * OPS_SR_VJP + (pairs - inside) * OPS_SR_TEST
+              + react * OPS_SR_VJP_REACTION, 44 * nslots + 8 * n_e)
+        for pairs, inside, react, nslots, n_e in vjp_work.values())
     # The row's times: the layout the main path ran.
     sr_default = next(name for name, state in pm.SR_LAYOUTS.items()
                       if state == pm._active_sr_layout(True))
@@ -1759,6 +2114,11 @@ def main() -> int:
          "nbody_tpu/parallel/ring_kernel.py:55", "ring"),
         ("mxu_accel_kernel (|r|^2 expansion, pallas_mxu)", "mxu.cu",
          "nbody_tpu/ops/pallas_mxu.py:48", "mxu"),
+        ("sr_vjp_pack_kernel+sr_vjp_pairs_kernel+sr_vjp_reduce_kernel+"
+         "sr_vjp_combine_kernel+sr_vjp_sum_kernel (P3M short-range VJP, "
+         "pallas layout)", "sr_vjp.cu",
+         "nbody_tpu/ops/pm.py:1844 _sr_ad_bwd (XLA; no Pallas kernel)",
+         "sr_vjp"),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": f"nbody_tpu_torch/csrc/{src}",
@@ -1774,8 +2134,13 @@ def main() -> int:
         # which the bound counts as work: the share it skipped goes beside,
         # and its call and launches on the periodic main path (phase 21).
         **({"skipped_share": sr_skip, "periodic_ms": ms["sr_periodic"],
-            "periodic_launches": launches["sr_periodic"]}
+            "periodic_launches": launches["sr_periodic"],
+            "ad_launches": launches["sr_ad"]}
            if key == "sr" else {}),
+        # The VJP's call on the periodic row's ghost-extended tables, and its
+        # main path's run: a 10-step rollout gradient with remat.
+        **({"periodic_ms": ms["sr_vjp_periodic"],
+            "rollout_ms": ms["rollout_p3m"]} if key == "sr_vjp" else {}),
     } for name, src, replaces, key in rows]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -102,6 +102,8 @@ class SimConfig:
             )
         if self.fused and self.precision != "f32":
             raise ValueError("--fused requires f32 precision")
+        if self.fused:
+            self._check_fused_exact()
         _check("precision", self.precision, SUPPORTED_PRECISIONS)
         if self.precision == "bf16":
             self._check_bf16()
@@ -140,6 +142,23 @@ class SimConfig:
             raise ValueError(
                 "--pm-replan re-measures the P3M short-range plan; it "
                 "requires --kernel p3m (or --kernel pm with --pm-cutoff > 0)")
+
+    def _check_fused_exact(self) -> None:
+        """Refuse ``fused`` with any option of the mesh tier: the fused
+        block runs the exact open-boundary sweep and nothing else, so the
+        engine would drop the mesh and the box without a word.  The JAX
+        package does that (its config has no such check); the port refuses."""
+        mesh = [name for name, on in (
+            (f"--kernel {self.kernel}", self.kernel in ("pm", "p3m")),
+            ("--pm-boundary periodic", self.pm_boundary == "periodic"),
+            ("--pm-sr-layout", bool(self.pm_sr_layout)),
+            ("--pm-replan", self.pm_replan),
+            ("--pm-cutoff", bool(self.pm_cutoff))) if on]
+        if mesh:
+            raise ValueError(
+                f"--fused runs the exact open-boundary sweep; it cannot run "
+                f"the mesh tier ({', '.join(mesh)}): drop --fused to run pm "
+                "or p3m")
 
     def _check_bf16(self) -> None:
         """Refuse the bf16 distance mode where no kernel of the run takes

@@ -11,8 +11,12 @@ kernel and the backward through the force VJP kernel (csrc/vjp.cu).
         [kernel] [--platform {cuda,cpu}]
 
 ``kernel`` is a registry name (default ``auto``: Kernel B on the card,
-``naive`` on the CPU).  Exits 0 when the recovered velocities are within
-5% of the true ones.
+``naive`` on the CPU).  ``p3m`` fits through the differentiable O(N log N)
+mesh tier instead (ops/pm.py, ``differentiable=True``): the short-range
+sweep runs its kernel forward (csrc/sr.cu) and its VJP kernel backward
+(csrc/sr_vjp.cu) on the card; ``pm`` and ``p3m`` take the JAX example's
+mesh options, grid 32 and capacity 64.  Exits 0 when the recovered
+velocities are within 5% of the true ones.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ def main(argv=None) -> int:
 
     st = from_numpy(*reference_init_arrays(args.n), args.n, device=device)
     pos0, vel_true, mass = st.pos, st.vel, st.mass
-    accel = make_accel_fn(args.kernel, differentiable=True)
+    opts = dict(grid=32, capacity=64) if args.kernel in ("pm", "p3m") else {}
+    accel = make_accel_fn(args.kernel, differentiable=True, **opts)
     rollout = make_rollout_fn(accel, 0.1, args.steps, remat=False)
     with torch.no_grad():
         target = rollout(pos0, vel_true, mass)[0]  # "observed" final positions

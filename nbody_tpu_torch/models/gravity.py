@@ -101,9 +101,10 @@ def make_accel_fn(kernel_name: str, differentiable: bool = False,
     ``tile_i``/``tile_j``).
 
     The mesh tiers take no exact-pair VJP, which would return all-pairs
-    cotangents for a mesh forward: plain ``pm`` differentiates natively
-    through autograd; ``p3m``, or ``pm`` with a cutoff, is not
-    differentiable yet (ROADMAP.md queue 1 item 10)."""
+    cotangents for a mesh forward: they differentiate natively, plain
+    ``pm`` through autograd, and ``p3m`` (or ``pm`` with a cutoff) through
+    ``differentiable=True`` in the mesh options, whose short-range sweep
+    carries its own VJP (ops/pm.py)."""
     from ..ops import registry
 
     fn = registry.get(kernel_name)
@@ -112,11 +113,8 @@ def make_accel_fn(kernel_name: str, differentiable: bool = False,
             raise ValueError(
                 "backward_opts tune the exact-pair analytic VJP and do not "
                 f"apply to the native-AD mesh tier '{kernel_name}'")
-        if differentiable and (kernel_name == "p3m"
-                               or opts.get("cutoff_cells")):
-            from ..ops.pm import _refuse_differentiable_p3m
-
-            _refuse_differentiable_p3m()
+        if differentiable:
+            opts = dict(opts, differentiable=True)
         return functools.partial(fn, **opts) if opts else fn
     if opts:
         fn = functools.partial(fn, **opts)

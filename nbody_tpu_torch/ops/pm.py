@@ -44,10 +44,19 @@ What differs from the JAX package:
   of the JAX package are TPU machinery and are not ported.
 * ``sr_entry_overflow`` sizes periodic tables from the slots the solver
   bins (sources and ghost cap), where the JAX package's uses the sources.
-* The differentiable P3M sweep (ROADMAP.md queue 1 item 10) and the
-  sharded solve (item 11) are not ported yet and raise
-  ``NotImplementedError``.  Plain PM (``cutoff_cells=0``), open or
-  periodic, is differentiable through autograd as it stands.
+* ``differentiable=True`` (P3M, open or periodic): paired rows are off on
+  every device, as in the JAX package, and the sweep is
+  ``sr_kernel.sweep_ad``: the same forward (the hand kernel on the card,
+  so its output equals the non-differentiable call in the pinned unpaired
+  layout bit for bit) with the VJP as its backward (the hand kernel of
+  ``csrc/sr_vjp.cu`` on the card, the plain VJP on the CPU), where the
+  JAX package takes ``jax.vjp`` of its plain sweep.  Everything around the
+  sweep (box, deposit, transforms, gather, pack, ghosts) differentiates
+  through autograd.  Plain PM (``cutoff_cells=0``) is differentiable as
+  it stands.  Plans for a differentiable call are sized with
+  ``suggest_sr_plan(..., differentiable=True)``.
+* The sharded solve (ROADMAP.md queue 1 item 11) is not ported yet and
+  raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -424,7 +433,10 @@ def _sr_pack(cid, pos, mass, n_cells: int, cap: int, s_max: int):
     slot = torch.where(ok, ar, nslots - 1)
     kk = torch.arange(nslots, dtype=_I32, device=dev)
     okk = (kk < n_bin) & (kk < s_max * SLAB)
-    src = perm[kk.clamp(max=ns - 1)]
+    # Slots past the particles read spread indices, masked below: the
+    # gather's backward (an accumulating index_put_) then sums no long run
+    # of one index, which it would add one element at a time.
+    src = perm[kk % ns]
     ptab = torch.where(okk[None, :], pos[:, src], 0.0)
     mtab = torch.where(okk, mass[src], 0.0)
     pslot = torch.zeros_like(ar).scatter_(0, perm.long(), slot)
@@ -776,7 +788,7 @@ def _ghost_images(pos_w, mass, box, rc, gcap: int):
     rank = (slots - (cumg[p] - gc_b[p])).clamp(0, 6)
     table = torch.tensor(_GHOST_COMBO_TABLE, dtype=torch.int64, device=dev)
     ci = table[mask_b[p].long(), rank.long()]
-    pi = bidx[p]
+    pi = torch.where(valid, bidx[p], slots % n)  # spread, as in _sr_pack
     combos = torch.tensor(_GHOST_COMBOS, dtype=_I32, device=dev).t()  # (3, 7)
     shift = torch.where(combos[:, ci] == 1, sig[:, pi], 0)  # (3, gcap)
     gpos = torch.where(valid[None, :], pos_w[:, pi] + L * shift.to(_F32), 0.0)
@@ -946,10 +958,12 @@ def _periodic_between(pos_tgt, pos_src, mass_src, ng: int, box: float,
 def _periodic_p3m_between(pos_tgt, pos_src, mass_src, same_set: bool,
                           ng: int, box: float, cutoff_cells: int,
                           capacity: int, sr_slabs: int, sr_entries: int,
-                          sr_ghosts: int, spectra=None):
+                          sr_ghosts: int, differentiable: bool = False,
+                          spectra=None):
     """Periodic P3M: the periodic long-range mesh solve plus the exact
     short-range correction over ghost images (_periodic_sr_tables), through
-    the same sweep as the open path.
+    the same sweep as the open path (``differentiable``: as there).
+    Gradients reach each ghost's parent through ``_ghost_images``' index.
 
     Degradation contract, as the JAX package's: dropped ghosts (gcap
     overflow) and capacity-overflowed cells lose short-range exactness for
@@ -958,9 +972,7 @@ def _periodic_p3m_between(pos_tgt, pos_src, mass_src, same_set: bool,
     parent binned does not turn the complement on (it would count the
     parent's field twice)."""
     global host_syncs
-    from . import sr_kernel
-
-    sym, pr = _active_sr_layout(pos_src.is_cuda)
+    sym, pr = _active_sr_layout(pos_src.is_cuda, differentiable)
     tabs = _periodic_sr_tables(
         pos_src, mass_src, ng, box, cutoff_cells, capacity, sr_slabs,
         sr_entries, sr_ghosts, pos_tgt=None if same_set else pos_tgt,
@@ -983,11 +995,10 @@ def _periodic_p3m_between(pos_tgt, pos_src, mass_src, same_set: bool,
     acc = _gather_periodic(acc_grids, tgt_w, box, ng)
     n_e, e_max = tabs["n_e"], tabs["e_max"]
     bounds = torch.stack([torch.zeros_like(n_e), n_e.clamp(max=e_max)])
-    atab = sr_kernel.sweep(tabs["ptab"], tabs["mtab"], tabs["wl_t"],
-                           tabs["wl_s"], bounds, tabs["rc2"], symmetric=sym,
-                           paired=pr)
+    atab = _sr_sweep(tabs["ptab"], tabs["mtab"], tabs["wl_t"], tabs["wl_s"],
+                     bounds, tabs["rc2"], sym, pr, differentiable)
     tgt = slice(0, ns) if same_set else slice(ns + gcap, None)
-    a_sr = atab[:, tabs["pslot"][tgt]]
+    a_sr = _gather_slots(atab, tabs["pslot"][tgt], binned[tgt])
     if has_over:
         a_comp = _gather_periodic(comp_grids, tgt_w, box, ng)
     else:
@@ -1044,10 +1055,27 @@ def _check_mesh_env(mesh_env: dict, ng: int, cutoff_cells: int,
     return spectra
 
 
-def _refuse_differentiable_p3m():
-    raise NotImplementedError(
-        "differentiable P3M is not ported yet: ROADMAP.md queue 1 item 10 "
-        "(differentiable P3M); plain pm (no cutoff) differentiates natively")
+def _gather_slots(atab, slot, binned):
+    """atab[:, slot] for the binned targets; the others, whose value the
+    caller masks, read spread slots instead of the sentinel's, so that the
+    gather's backward sums no long run of one index."""
+    spread = torch.arange(slot.shape[0], dtype=slot.dtype,
+                          device=slot.device) % atab.shape[1]
+    return atab[:, torch.where(binned, slot, spread)]
+
+
+def _sr_sweep(ptab, mtab, wl_t, wl_s, bounds, rc2, symmetric: bool,
+              paired: bool, differentiable: bool):
+    """The short-range sweep of the solver: ``sr_kernel.sweep``, or under
+    ``differentiable`` (where paired rows are off) ``sr_kernel.sweep_ad``,
+    which carries the VJP (the JAX package's ``_sr_sweep_pallas_ad``)."""
+    from . import sr_kernel
+
+    if differentiable:
+        return sr_kernel.sweep_ad(ptab, mtab, wl_t, wl_s, bounds, rc2,
+                                  symmetric=symmetric)
+    return sr_kernel.sweep(ptab, mtab, wl_t, wl_s, bounds, rc2,
+                           symmetric=symmetric, paired=paired)
 
 
 def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
@@ -1065,6 +1093,8 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
     ``boundary="periodic"`` solves in the fixed box of edge ``box_size``
     (``sr_ghosts``: the P3M ghost-image slots, 0 = _default_ghost_cap).
     ``mesh_env`` (make_mesh_env) freezes the box and the kernel spectra.
+    ``differentiable`` runs P3M's sweep with its VJP, paired rows off
+    (_sr_sweep); plain pm differentiates through autograd either way.
     Extra registry options (tiles) are accepted and ignored."""
     global host_syncs
     ng = int(grid)
@@ -1075,8 +1105,6 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
     pos_tgt = pos_src if same_set else pos_tgt.to(_F32)
     mass_src = mass_src.to(_F32)
     periodic = _check_boundary(boundary, box_size)
-    if cutoff_cells and differentiable:
-        _refuse_differentiable_p3m()
     if periodic:
         p_spec = None
         if mesh_env:
@@ -1087,7 +1115,7 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
         return _periodic_p3m_between(
             pos_tgt, pos_src, mass_src, same_set, ng, float(box_size),
             int(cutoff_cells), capacity, sr_slabs, sr_entries, sr_ghosts,
-            spectra=p_spec)
+            differentiable=differentiable, spectra=p_spec)
     spectra = None
     if mesh_env:
         spectra = _check_mesh_env(mesh_env, ng, cutoff_cells)
@@ -1108,8 +1136,6 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
     m = 2 * ng
     rho_hat = torch.fft.rfftn(rho, s=(m, m, m))
     if cutoff_cells:
-        from . import sr_kernel
-
         nc, sub = _cell_grid_params(ng, cutoff_cells)
         n_cells = nc * nc * nc
         ns = pos_src.shape[1]
@@ -1138,16 +1164,16 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
         acc_grids = _pm_force_grids(rho_hat, h, ng, spectra=spectra)
     acc = _gather(acc_grids, pos_tgt, lo, inv_h, ng)
     if cutoff_cells:
-        sym, pr = _active_sr_layout(ptab.is_cuda)
+        sym, pr = _active_sr_layout(ptab.is_cuda, differentiable)
         wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc, sub, e_max,
                                      symmetric=sym, paired=pr)
         bounds = torch.stack([torch.zeros_like(n_e),
                               n_e.clamp(max=e_max)])
-        atab = sr_kernel.sweep(ptab, mtab, wl_t, wl_s, bounds, rc2,
-                               symmetric=sym, paired=pr)
+        atab = _sr_sweep(ptab, mtab, wl_t, wl_s, bounds, rc2, sym, pr,
+                         differentiable)
         tgt_slot = pslot if same_set else pslot[ns:]
         tgt_binned = binned_all if same_set else binned_all[ns:]
-        a_sr = atab[:, tgt_slot]
+        a_sr = _gather_slots(atab, tgt_slot, tgt_binned)
         if has_over:
             a_comp = _gather(comp_grids, pos_tgt, lo, inv_h, ng)
         else:
@@ -1188,7 +1214,8 @@ def accelerations(pos, mass, grid: int = DEFAULT_GRID, cutoff_cells: int = 0,
                   boundary: str = "open", box_size: float = 0.0,
                   mesh_env: dict | None = None, **_opts):
     """All-source mesh accelerations. pos (3,N), mass (N,) -> (3,N).
-    Plain pm (``cutoff_cells=0``) is differentiable through autograd."""
+    Plain pm (``cutoff_cells=0``) is differentiable through autograd; P3M
+    with ``differentiable=True`` (accelerations_between)."""
     return accelerations_between(
         pos, pos, mass, grid=grid, cutoff_cells=cutoff_cells,
         capacity=capacity, sr_slabs=sr_slabs, sr_entries=sr_entries,
@@ -1388,12 +1415,13 @@ def suggest_sr_plan(pos, mass, grid: int = DEFAULT_GRID,
                     cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
                     capacity: int = 0, headroom: float = 1.5,
                     boundary: str = "open", box_size: float = 0.0,
-                    layout=None) -> dict:
+                    layout=None, differentiable: bool = False) -> dict:
     """Host-side short-range plan from the concrete state: the measured
     slab count and the worklist entry count of the layout that will run
     (``layout=None``: the active one on the state's device; a name from
-    SR_LAYOUTS; or ``"full"``), times ``headroom``, rounded up to powers of
-    two.  Returns ``{"capacity", "sr_slabs", "sr_entries"}``, and under the
+    SR_LAYOUTS; or ``"full"``; ``differentiable``: for a differentiable
+    call, whose layout has no paired rows), times ``headroom``, rounded up
+    to powers of two.  Returns ``{"capacity", "sr_slabs", "sr_entries"}``, and under the
     periodic boundary ``"sr_ghosts"``: the measured image count times
     ``headroom``, capped at the guaranteed 7N."""
     _check_boundary(boundary, box_size)
@@ -1406,13 +1434,13 @@ def suggest_sr_plan(pos, mass, grid: int = DEFAULT_GRID,
     if layout == "full":
         sym, pr = False, False
     elif layout is None:
-        sym, pr = _active_sr_layout(pos.is_cuda)
+        sym, pr = _active_sr_layout(pos.is_cuda, differentiable)
     else:
         if layout not in SR_LAYOUTS:
             raise ValueError(f"unknown SR layout {layout!r}; options: "
                              f"{tuple(SR_LAYOUTS)} or 'full'")
         sym, want_pr = SR_LAYOUTS[layout]
-        pr = want_pr and pos.is_cuda
+        pr = want_pr and pos.is_cuda and not differentiable
     e = int(e4[int(sym) + 2 * int(pr)])
     plan = {"capacity": cap, "sr_slabs": s_planned,
             "sr_entries": _pow2_at_least(e * headroom)}
@@ -1437,16 +1465,18 @@ def sr_entry_overflow(pos, mass, grid: int = DEFAULT_GRID,
                       cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
                       capacity: int = 0, sr_slabs: int = 0,
                       sr_entries: int = 0, boundary: str = "open",
-                      box_size: float = 0.0, sr_ghosts: int = 0) -> int:
+                      box_size: float = 0.0, sr_ghosts: int = 0,
+                      differentiable: bool = False) -> int:
     """Worklist entries this state would drop past the static
-    ``sr_entries`` under the active layout (0 for the guaranteed bound)."""
+    ``sr_entries`` under the active layout, or that of a differentiable
+    call (0 for the guaranteed bound)."""
     _check_boundary(boundary, box_size)
     if not int(sr_entries):
         return 0
     cap, _, e_max = _entry_guard_sizing(
         pos.shape[1], grid, cutoff_cells, capacity, sr_slabs, sr_entries,
         boundary, sr_ghosts)
-    sym, pr = _active_sr_layout(pos.is_cuda)
+    sym, pr = _active_sr_layout(pos.is_cuda, differentiable)
     e4 = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
                          boundary, box_size)[1]
     return max(0, int(e4[int(sym) + 2 * int(pr)]) - e_max)

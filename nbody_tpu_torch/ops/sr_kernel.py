@@ -20,20 +20,34 @@ occupied slots.
 On a CUDA tensor ``sweep`` launches the hand kernel in every layout, or
 raises; on a CPU tensor it runs ``sweep_plain``, the same function in plain
 PyTorch.  Design and bound: see the note at the top of ``csrc/sr.cu``.
+
+The sweep's backward, for the two unpaired layouts (paired rows are never
+differentiated, as in the JAX package): ``sweep_vjp`` launches the hand
+kernel of ``csrc/sr_vjp.cu`` on a CUDA tensor, or raises, and runs
+``sweep_vjp_plain`` on a CPU tensor.  ``sweep_ad`` is the differentiable
+sweep, a ``torch.autograd.Function`` with ``sweep`` as its forward and the
+VJP as its backward: the port of the JAX package's ``_sr_sweep_pallas_ad``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..types import SOFTENING_SQUARED
 from ..utils import build
 from .pm import SLAB, _taper
 from .tiled_kernel import check_input, refuse_autograd
 
-# Kernel launches on CUDA tensors; chip_smoke.py zeroes and reads it.
+# Kernel launches on CUDA tensors; chip_smoke.py zeroes and reads them:
+# the forward sweep's, and its VJP's.
 launches = 0
+vjp_launches = 0
+
+# Floats of the VJP kernel's partials an entry: (gp x, y, z, gm, grc2) of
+# each target slot and (gp x, y, z, gm) of each source slot.
+VJP_PARTIAL_FLOATS = (5 + 4) * SLAB
 
 
 def _check_index(name: str, t: torch.Tensor, shape: tuple,
@@ -220,3 +234,210 @@ def sweep(ptab, mtab, wl_t, wl_s, bounds, rc2, symmetric: bool = False,
     out = fwd + react if symmetric else fwd
     out[:, nslots - SLAB:] = 0.0
     return out
+
+
+def _vjp_pair_terms(d, r2, rc2):
+    """The pair weight and its derivatives: w = (1 - S(q)) u^3, w' = dw/dr2
+    and k = dw/drc2, u = (r2 + eps^2)^(-1/2), q = r2 / rc2 clamped to [0, 1]
+    (S'(q) = 30 q^2 (1 - q)^2, 0 outside).  Every term is exactly 0 beyond
+    the cutoff."""
+    u = torch.rsqrt(r2 + SOFTENING_SQUARED)
+    u3 = u * u * u
+    q = (r2 / rc2).clamp(0.0, 1.0)
+    keep = 1.0 - _taper(r2 / rc2)
+    ds = 30.0 * (q * (1.0 - q)) ** 2  # S'(q)
+    w = keep * u3
+    dw = -1.5 * (w * (u * u)) - u3 * ds / rc2
+    return w, dw, u3 * ds * q / rc2
+
+
+def sweep_vjp_plain(ptab, mtab, wl_t, wl_s, bounds, rc2, g,
+                    symmetric: bool = False, chunk: int = 256) -> tuple:
+    """The VJP of the unpaired sweep (``sweep_plain`` with ``paired``
+    False) in plain PyTorch, for the output cotangent ``g`` (3, nslots):
+    ``(gp (3, nslots), gm (nslots,), grc2 ())``.
+
+    For an entry (t, s), target slot i of slab t and source slot j of slab
+    s, d = p_j - p_i, the forward adds m_j w d to a_i and, in the symmetric
+    layout off the diagonal (s != t), -m_i w d to a_j.  With h = m_j g_i
+    (minus m_i g_j with the reaction), the pair gives
+
+        gp_j += V,  gp_i -= V,  V = w h + 2 w' (h . d) d,
+        gm_j += w (g_i . d),  gm_i -= w (g_j . d) (reaction),
+        grc2 += k (h . d).
+
+    The sentinel slab's output is zeroed in the forward, so its cotangent is
+    zeroed here.  Each chunk's dense (chunk, 64, 64) pair block is
+    recomputed, as ``ops/grad.force_vjp`` does, so only the tables are held.
+    Reads ``bounds`` on the host.  The kernel's oracle."""
+    nslots = ptab.shape[1]
+    g = g.clone()
+    g[:, nslots - SLAB:] = 0.0
+    p = ptab.reshape(3, -1, SLAB)
+    m = mtab.reshape(-1, SLAB)
+    gg = g.reshape(3, -1, SLAB)
+    gp = torch.zeros_like(ptab)
+    gm = torch.zeros_like(mtab)
+    gp_s, gm_s = gp.view(3, -1, SLAB), gm.view(-1, SLAB)
+    grc2 = torch.zeros((), dtype=ptab.dtype, device=ptab.device)
+    e_max = wl_t.shape[0]
+    lo, hi = max(int(bounds[0]), 0), min(int(bounds[1]), e_max)
+    for c0 in range(lo, hi, chunk):
+        te = wl_t[c0:min(c0 + chunk, hi)].long()
+        se = wl_s[c0:min(c0 + chunk, hi)].long()
+        d = p[:, se][:, :, None, :] - p[:, te][:, :, :, None]  # (3, w, i, j)
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        w, dw, k = _vjp_pair_terms(d, r2, rc2)
+        g_i = gg[:, te][:, :, :, None]
+        h = m[se][None, :, None, :] * g_i
+        if symmetric:
+            g_j = gg[:, se][:, :, None, :]
+            off = (se != te).to(w.dtype)[:, None, None]  # the reaction's entries
+            h = h - (m[te][:, :, None] * off) * g_j
+            gm_s.index_add_(0, te, -(off * w * (g_j * d).sum(dim=0)).sum(dim=2))
+        hd = (h * d).sum(dim=0)
+        v = w * h + (2.0 * dw * hd) * d
+        gp_s.index_add_(1, te, -v.sum(dim=3))
+        gp_s.index_add_(1, se, v.sum(dim=2))
+        gm_s.index_add_(0, se, (w * (g_i * d).sum(dim=0)).sum(dim=1))
+        grc2 = grc2 + (k * hd).sum()
+    return gp, gm, grc2
+
+
+def vjp_band(e_max: int, device: torch.device, budget: int = 0) -> int:
+    """Worklist entries a band of the VJP kernel: as many as the partials
+    of ``budget`` bytes hold (0: 1/8 of the card's memory), at least one."""
+    if not budget:
+        budget = torch.cuda.get_device_properties(device).total_memory // 8
+    return max(1, min(e_max, budget // (4 * VJP_PARTIAL_FLOATS)))
+
+
+def band_order(wl, bounds, e0: int, e1: int, nslab: int) -> tuple:
+    """The fixed order in which the VJP kernel's reduce adds one side's
+    partials of the band [e0, e1): ``(perm, start)``, int32, where the
+    band's live entries (those in [bounds[0], bounds[1])) whose slab is q
+    are ``perm[start[q]:start[q + 1]]`` in worklist order (a stable sort of
+    the slabs, dead entries keyed past the last slab).  On the tables'
+    device, with no host sync."""
+    idx = torch.arange(e0, e1, dtype=torch.int32, device=wl.device)
+    live = (idx >= bounds[0]) & (idx < bounds[1])
+    key = torch.where(live, wl[e0:e1], nslab)
+    ordered, perm = torch.sort(key, stable=True)
+    start = torch.searchsorted(
+        ordered, torch.arange(nslab + 1, dtype=torch.int32,
+                              device=wl.device), out_int32=True)
+    return perm.to(torch.int32), start
+
+
+def sweep_vjp(ptab, mtab, wl_t, wl_s, bounds, rc2, g, symmetric: bool = False,
+              scratch_budget: int = 0) -> tuple:
+    """The VJP of the unpaired sweep: the cotangent ``g`` (3, nslots) of
+    its output -> ``(gp (3, nslots), gm (nslots,), grc2 ())``, f32, as
+    ``sweep_vjp_plain``.  ``scratch_budget``: bytes of per-entry partials a
+    band holds (0: 1/8 of the card's memory)."""
+    global vjp_launches
+    dev = ptab.device
+    nslots = ptab.shape[1]
+    e_max = wl_t.shape[0]
+    check_input("ptab", ptab, (3, nslots), dev)
+    check_input("mtab", mtab, (nslots,), dev)
+    check_input("rc2", rc2, (), dev)
+    check_input("g", g, (3, nslots), dev)
+    _check_index("wl_t", wl_t, (e_max,), dev)
+    _check_index("wl_s", wl_s, (e_max,), dev)
+    _check_index("bounds", bounds, (2,), dev)
+    if nslots % SLAB or nslots == 0:
+        raise ValueError(f"nslots={nslots} must be a positive multiple of {SLAB}")
+    if dev.type == "cpu":
+        return sweep_vjp_plain(ptab, mtab, wl_t, wl_s, bounds, rc2, g,
+                               symmetric=symmetric)
+    if dev.type != "cuda":
+        raise ValueError(f"sr vjp kernel runs on cuda or cpu, not {dev}")
+    refuse_autograd("sr vjp kernel", ptab, mtab, rc2, g)
+    nslab = nslots // SLAB
+    gp = torch.empty((3, nslots), dtype=torch.float32, device=dev)
+    gm = torch.empty((nslots,), dtype=torch.float32, device=dev)
+    grc2 = torch.empty((), dtype=torch.float32, device=dev)
+    # The tables (x, y, z, m) and (g, 0), the sentinel slab's g zeroed,
+    # and the sums of each side's partials by slot.
+    tabs = torch.empty((2, nslots, 4), dtype=torch.float32, device=dev)
+    acc_t = torch.zeros((5, nslots), dtype=torch.float32, device=dev)
+    acc_s = torch.zeros((4, nslots), dtype=torch.float32, device=dev)
+    lib = build.library()
+    if lib.nbt_sr_vjp_partial_floats() != VJP_PARTIAL_FLOATS:
+        raise RuntimeError("csrc/sr_vjp.cu's partials differ from "
+                           f"VJP_PARTIAL_FLOATS={VJP_PARTIAL_FLOATS}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        build.check(lib.nbt_sr_vjp_pack(
+            ptab.data_ptr(), mtab.data_ptr(), g.data_ptr(), nslots,
+            tabs.data_ptr(), stream), "nbt_sr_vjp_pack")
+        band = vjp_band(e_max, dev, scratch_budget) if e_max else 1
+        part = torch.empty((min(band, e_max), VJP_PARTIAL_FLOATS),
+                           dtype=torch.float32, device=dev)
+        for e0 in range(0, e_max, band):
+            e1 = min(e0 + band, e_max)
+            perm_t, start_t = band_order(wl_t, bounds, e0, e1, nslab)
+            perm_s, start_s = band_order(wl_s, bounds, e0, e1, nslab)
+            build.check(lib.nbt_sr_vjp_band(
+                tabs.data_ptr(), nslots, wl_t.data_ptr(), wl_s.data_ptr(), e0,
+                e1 - e0, bounds.data_ptr(), rc2.data_ptr(), int(symmetric),
+                part.data_ptr(), perm_t.data_ptr(), start_t.data_ptr(),
+                perm_s.data_ptr(), start_s.data_ptr(), acc_t.data_ptr(),
+                acc_s.data_ptr(), stream), "nbt_sr_vjp_band")
+        build.check(lib.nbt_sr_vjp_finish(
+            acc_t.data_ptr(), acc_s.data_ptr(), nslots, gp.data_ptr(),
+            gm.data_ptr(), grc2.data_ptr(), stream), "nbt_sr_vjp_finish")
+    vjp_launches += 1  # one a call: its pack, bands and finish
+    return gp, gm, grc2
+
+
+class _SweepPlainVJP(torch.autograd.Function):
+    """atab = sweep(...) of an unpaired layout, with ``sweep_vjp_plain``
+    as its backward (cotangents for ptab, mtab and rc2)."""
+
+    @staticmethod
+    def forward(ctx, ptab, mtab, rc2, wl_t, wl_s, bounds, symmetric):
+        with torch.no_grad():  # the CUDA kernel refuses a recorded call
+            out = sweep(ptab, mtab, wl_t, wl_s, bounds, rc2,
+                        symmetric=symmetric)
+        ctx.save_for_backward(ptab, mtab, rc2, wl_t, wl_s, bounds)
+        ctx.symmetric = symmetric
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ad_grads(ctx, sweep_vjp_plain(*_ad_args(ctx), g.contiguous(),
+                                              symmetric=ctx.symmetric))
+
+
+class _SweepKernelVJP(_SweepPlainVJP):
+    """The same forward with ``sweep_vjp`` (the kernel on a CUDA tensor) as
+    its backward, which cannot itself be differentiated."""
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _ad_grads(ctx, sweep_vjp(*_ad_args(ctx), g.contiguous(),
+                                        symmetric=ctx.symmetric))
+
+
+def _ad_args(ctx):
+    ptab, mtab, rc2, wl_t, wl_s, bounds = ctx.saved_tensors
+    return ptab, mtab, wl_t, wl_s, bounds, rc2
+
+
+def _ad_grads(ctx, grads):
+    gp, gm, grc2 = grads
+    need = ctx.needs_input_grad
+    return (gp if need[0] else None, gm if need[1] else None,
+            grc2 if need[2] else None, None, None, None, None)
+
+
+def sweep_ad(ptab, mtab, wl_t, wl_s, bounds, rc2,
+             symmetric: bool = False) -> torch.Tensor:
+    """The differentiable sweep of an unpaired layout: ``sweep``'s output,
+    with cotangents for ``ptab``, ``mtab`` and ``rc2`` from the VJP kernel
+    on a CUDA tensor and from ``sweep_vjp_plain`` on the CPU."""
+    fn = _SweepKernelVJP if ptab.device.type == "cuda" else _SweepPlainVJP
+    return fn.apply(ptab, mtab, rc2, wl_t, wl_s, bounds, symmetric)

@@ -46,7 +46,13 @@ row (a "step" is one call, so wall - device per call is the host's gap
 between calls): Kernel B at N=16384, and the two-sided sweep at one
 ``ring_sym`` block pair of N=16384 over 4 (4096 x 4096) and of N=2000
 over 4 (512 x 512), which splits a call into the pairs kernel, the reduce
-kernel and the host gap.  Each engine cell is built by the engine
+kernel and the host gap.  Then differentiable P3M
+(``make_accel_fn("p3m", differentiable=True)``, at the plan of
+``suggest_sr_plan(..., differentiable=True)``) at the Plummer gate and on
+bench.py:48-49's periodic row: one step's forward, one step's forward and
+backward of mean(|a|^2) (the backward's device time is the difference), and
+at the gate a 10-step Euler rollout gradient with remat (a "step" is one
+rollout step).  Each engine cell is built by the engine
 (``simulation._DeviceRunner``: its state, P3M plan, mesh env and
 blocks).  The first line is the card's
 name and power limit.  With CELL arguments it runs only the cells whose
@@ -386,8 +392,56 @@ def main() -> int:
         finally:
             runner.finish()
         del runner
+    grad_cells()
     call_cells()
     return 0
+
+
+def grad_cells() -> None:
+    """Differentiable P3M: one step forward, forward and backward, and (at
+    the Plummer gate) a 10-step rollout gradient."""
+    import torch
+
+    from nbody_tpu_torch import make_state
+    from nbody_tpu_torch.models import distributions
+    from nbody_tpu_torch.models.gravity import make_accel_fn
+    from nbody_tpu_torch.models.rollout import make_rollout_fn
+    from nbody_tpu_torch.ops import pm
+
+    dev = torch.device("cuda", 0)
+    pos, vel, mass = (torch.tensor(a, device=dev)
+                      for a in distributions.plummer(262144, seed=7))
+    ref = make_state(1048576, device=dev)
+    periodic = dict(boundary="periodic", box_size=1.0)
+    for label, (p, v, m), bkw in (
+            ("p3m grad plummer N=262144", (pos, vel, mass), {}),
+            ("p3m grad periodic reference N=1048576",
+             (ref.pos, ref.vel, ref.mass), periodic)):
+        if sys.argv[1:] and not any(c in label for c in sys.argv[1:]):
+            continue
+        plan = pm.suggest_sr_plan(p, m, 128, 4, differentiable=True, **bkw)
+        fn = make_accel_fn("p3m", differentiable=True, grid=128, **plan,
+                           **bkw)
+
+        def forward(_, p=p, m=m, fn=fn):
+            q = p.clone().requires_grad_(True)
+            return torch.mean(fn(q, m) ** 2)
+
+        profile_block(f"{label}, forward", forward, None, 1)
+        profile_block(f"{label}, forward and backward",
+                      lambda s: forward(s).backward(), None, 1)
+        if bkw:
+            continue
+        rollout = make_rollout_fn(fn, 0.01, 10)
+        with torch.no_grad():
+            target = rollout(p, v, m)[0]
+
+        def rollout_grad(_):
+            v0 = (0.5 * v).requires_grad_(True)
+            torch.sum((rollout(p, v0, m)[0] - target) ** 2).backward()
+
+        profile_block(f"{label}, 10-step rollout gradient", rollout_grad,
+                      None, 10)
 
 
 def call_cells() -> None:

@@ -21,6 +21,9 @@ and the bf16 distance mode hold the same 1e-5 against their plain versions
 tensor-core products in chunks of 64 sources into a compensated running
 sum; below N=2000 the expansion's own error allows 5e-5), and a banded
 pair-symmetric or two-sided sweep equals the one-band sweep bit for bit.
+The short-range sweep's VJP kernel holds 1e-5 of the largest gp and gm and
+1e-4 of grc2 against its plain version, and differentiable P3M's gradient
+through it 1e-4 of the largest against the plain backward's.
 Kernel A, the fused columns block and the ring run one source loop
 (``nbt::tiled_source_sweep``), so an Euler columns block equals the
 unfused block over Kernel A bit for bit; Kernel B, the two-sided sweep and
@@ -727,3 +730,65 @@ def test_periodic_run_goes_through_the_sr_kernel(cuda_device):
         assert (sr_kernel.launches, tiled_kernel.launches,
                 sym_kernel.launches) == (want, 0, 0)
         assert all(np.isfinite(ke) and ke > 0 for _, ke in res.kenergy_trace)
+
+
+@pytest.mark.parametrize("layout", ["pallas", "pallas_sym"])
+def test_sr_vjp_kernel_matches_plain(cuda_device, layout):
+    """The short-range sweep's VJP kernel against its plain version: gp and
+    gm within 1e-5 of each one's largest, grc2 within 1e-4 relative; two
+    launches, and a sweep in three bands, each repeat bit for bit."""
+    pk, bounds, sym, _ = _sr_inputs(cuda_device, layout)
+    g = torch.tensor(np.random.default_rng(7).standard_normal(
+        pk["ptab"].shape).astype(np.float32), device=cuda_device)
+    args = (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"], bounds, pk["rc2"],
+            g)
+    budget = -(-int(bounds[1]) // 3) * 4 * sr_kernel.VJP_PARTIAL_FLOATS
+    before = sr_kernel.vjp_launches
+    got = sr_kernel.sweep_vjp(*args, symmetric=sym)
+    again = sr_kernel.sweep_vjp(*args, symmetric=sym)
+    bands = [sr_kernel.sweep_vjp(*args, symmetric=sym, scratch_budget=budget)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sr_kernel.vjp_launches == before + 4
+    want = sr_kernel.sweep_vjp_plain(*args, symmetric=sym)
+    for i, tol in enumerate((1e-5, 1e-5, 1e-4)):
+        scale = float(want[i].abs().max())
+        assert scale > 0
+        for out in (got, bands[0]):
+            assert float((out[i] - want[i]).abs().max()) <= tol * scale
+        assert torch.equal(got[i], again[i])
+        assert torch.equal(bands[0][i], bands[1][i])
+
+
+def test_differentiable_p3m_on_card(cuda_device, monkeypatch):
+    """differentiable=True: the forward equals the non-differentiable call
+    in the pinned pallas layout bit for bit; the gradient through the VJP
+    kernel agrees with the plain backward's (the kernel swapped for its
+    plain version) within 1e-4 of its largest."""
+    pos, _, mass = distributions.plummer(8192, seed=3)
+    p = torch.tensor(pos, device=cuda_device)
+    m = torch.tensor(mass, device=cuda_device)
+    kw = dict(grid=64, cutoff_cells=4)
+    plan = pm.suggest_sr_plan(p, m, 64, 4, differentiable=True)
+    prev = pm.set_sr_layout("pallas")
+    try:
+        pinned = pm.accelerations(p, m, **kw, **plan)
+    finally:
+        pm.set_sr_layout(prev)
+    assert torch.equal(pm.accelerations(p, m, differentiable=True, **kw,
+                                        **plan), pinned)
+    grads = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(sr_kernel, "sweep_vjp",
+                                sr_kernel.sweep_vjp_plain)
+        fwd, vjp = sr_kernel.launches, sr_kernel.vjp_launches
+        q = p.clone().requires_grad_(True)
+        torch.mean(pm.accelerations(q, m, differentiable=True, **kw,
+                                    **plan) ** 2).backward()
+        assert sr_kernel.launches == fwd + 1
+        assert sr_kernel.vjp_launches == vjp + (not plain)
+        grads.append(q.grad)
+    scale = float(grads[1].abs().max())
+    assert scale > 0
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-4 * scale

@@ -164,3 +164,32 @@ def test_fused_cli_subprocess_golden(golden_dir):
     assert proc.returncode == 0, proc.stderr
     assert parse_trace(proc.stdout) == parse_golden_trace(
         os.path.join(golden_dir, "ver0_n128_s50.txt"))
+
+
+# The fused block runs the exact open-boundary sweep alone: every option of
+# the mesh tier is refused with it (the JAX package runs the exact block and
+# drops them without a word).
+@pytest.mark.parametrize("kw", [
+    dict(kernel="pm"),
+    dict(kernel="p3m"),
+    dict(kernel="pm", pm_boundary="periodic", pm_box=1.0),
+    dict(kernel="p3m", pm_boundary="periodic", pm_box=1.0),
+    dict(pm_sr_layout="pallas"),
+    dict(pm_replan=True),
+    dict(pm_cutoff=4),
+], ids=["pm", "p3m", "pm-periodic", "p3m-periodic", "sr-layout", "replan",
+        "cutoff"])
+def test_fused_refuses_the_mesh_tier(kw):
+    with pytest.raises(ValueError, match="--fused runs the exact"):
+        SimConfig(n=256, fused=True, platform="cpu", **kw)
+    SimConfig(n=256, platform="cpu", **dict(kw, kernel=kw.get("kernel", "p3m")))
+
+
+def test_fused_cli_refuses_p3m():
+    proc = subprocess.run(
+        [sys.executable, "-m", "nbody_tpu_torch", "128", "10", "--fused",
+         "--kernel", "p3m", "--platform", "cpu"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "--fused runs the exact" in proc.stderr and "--kernel p3m" in proc.stderr
+    assert not proc.stdout.strip()

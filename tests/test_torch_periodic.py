@@ -481,14 +481,15 @@ def test_periodic_config_and_refusals():
         SimConfig(kernel="pm", pm_box=1.0)
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         SimConfig(kernel="p3m", pm_boundary="periodic", pm_box=1.0, shards=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        make_accel_fn("p3m", differentiable=True, boundary="periodic",
-                      box_size=1.0)
+    # Differentiable periodic P3M runs (tests/test_torch_p3m_grad.py holds
+    # its gradient against the JAX package's).
     pos, mass = corner_blob(64, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        pm.accelerations(_t(pos), _t(mass), grid=32, cutoff_cells=4,
+    fn = make_accel_fn("p3m", differentiable=True, grid=32, boundary="periodic",
+                       box_size=1.0)
+    a = pm.accelerations(_t(pos), _t(mass), grid=32, cutoff_cells=4,
                          differentiable=True, boundary="periodic",
                          box_size=1.0)
+    assert torch.equal(fn(_t(pos), _t(mass)), a)
     with pytest.raises(ValueError, match="box/2"):
         pm.accelerations(_t(pos), _t(mass), grid=8, cutoff_cells=4,
                          boundary="periodic", box_size=1.0)

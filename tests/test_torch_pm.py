@@ -164,10 +164,11 @@ def test_pm_native_gradient_matches_jax_grad():
 
 
 def test_mesh_tier_refusals():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        make_accel_fn("p3m", differentiable=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        make_accel_fn("pm", differentiable=True, cutoff_cells=4)
+    # Differentiable P3M runs (tests/test_torch_p3m_grad.py holds it against
+    # the JAX package): make_accel_fn hands the flag to the mesh solver.
+    for kernel, opts in (("p3m", {}), ("pm", dict(cutoff_cells=4))):
+        fn = make_accel_fn(kernel, differentiable=True, **opts)
+        assert fn.keywords == dict(opts, differentiable=True)
     with pytest.raises(ValueError, match="backward_opts"):
         make_accel_fn("pm", backward_opts={"backward": "jnp"})
     pos, mass = _plummer(64, 1)
