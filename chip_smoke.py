@@ -195,8 +195,10 @@ Phases, each printing what it found; any failure exits non-zero:
     short-range sweep's VJP kernel (``csrc/sr_vjp.cu``) against its plain
     version in ``pallas`` and ``pallas_sym`` with a seeded cotangent: gp
     and gm within 1e-5 of each one's largest, grc2 within 1e-4 relative,
-    two launches bit for bit; per-call times of both (CUDA events) and the
-    pairs inside the cutoff, which the bound counts.  (b) The forward of
+    two launches bit for bit; per-call times of both (CUDA events), the
+    peak memory of a kernel call, the pairs inside the cutoff, which the
+    bound counts, and the share of (warp, other) steps each of the kernel's
+    two passes skips (``sr_kernel.vjp_skip_counts``).  (b) The forward of
     ``pm.accelerations(..., differentiable=True)`` equals the
     non-differentiable call in the pinned ``pallas`` layout bit for bit.
     (c) The gradient of mean(|a|^2) through ``make_accel_fn("p3m",
@@ -972,7 +974,8 @@ def periodic_phases(dev, tag: str, ms: dict, launches: dict) -> None:
 def vjp_check(label: str, tabs: dict, n_e: int, sym: bool, dev) -> tuple:
     """The SR VJP kernel against its plain version on one set of tables
     (``ptab, mtab, wl_t, wl_s, rc2``) with a seeded cotangent; fails on a
-    miss.  Returns (max abs error of gp and gm, kernel ms, plain ms)."""
+    miss.  Returns (max abs error of gp and gm, kernel ms, plain ms, MB the
+    first call took beyond what was allocated before it)."""
     import torch
 
     from nbody_tpu_torch.ops import sr_kernel
@@ -982,7 +985,12 @@ def vjp_check(label: str, tabs: dict, n_e: int, sym: bool, dev) -> tuple:
     bounds = torch.tensor([0, n_e], dtype=torch.int32, device=dev)
     args = (tabs["ptab"], tabs["mtab"], tabs["wl_t"], tabs["wl_s"], bounds,
             tabs["rc2"], g)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     got = sr_kernel.sweep_vjp(*args, symmetric=sym)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - held) / 2**20
     again = sr_kernel.sweep_vjp(*args, symmetric=sym)
     t0 = time.perf_counter()
     plain = sr_kernel.sweep_vjp_plain(*args, symmetric=sym)
@@ -997,20 +1005,22 @@ def vjp_check(label: str, tabs: dict, n_e: int, sym: bool, dev) -> tuple:
     print(f"sr vjp {label}: {n_e} entries; kernel vs plain gp {rel[0]:.3e}, "
           f"gm {rel[1]:.3e} of the largest, grc2 {rel[2]:.3e} relative; "
           f"repeats bit for bit: {same}; kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.1f} ms per call", flush=True)
+          f"{ms_p:.1f} ms per call; peak memory of a kernel call "
+          f"{peak_mb:.1f} MB above the {held / 2**20:.1f} MB held", flush=True)
     if not all(bool(torch.isfinite(t).all()) for t in got):
         fail(f"sr vjp {label}: non-finite output")
     if max(rel[:2]) > SR_VJP_TOL or rel[2] > SR_VJP_RC2_TOL:
         fail(f"sr vjp {label}: kernel disagrees with its plain version")
     if not same:
         fail(f"sr vjp {label}: two launches differ")
-    return max_abs, ms_k, ms_p
+    return max_abs, ms_k, ms_p, peak_mb
 
 
 def grad_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
     """Phase 22; fills the SR VJP kernel's figures in ``err``, ``ms`` and
     ``launches`` and returns its bound's pair counts."""
     import contextlib
+    import functools
     import io
     import re
     import warnings
@@ -1042,23 +1052,31 @@ def grad_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
         n_e = int(pk["n_e"])
         if n_e > pk["e_max"]:
             fail(f"sr vjp {layout}: the suggested plan drops entries")
-        max_abs, ms_k, ms_p = vjp_check(f"{layout} N={gate['n']}", pk, n_e,
-                                        sym, dev)
+        max_abs, ms_k, ms_p, peak_mb = vjp_check(
+            f"{layout} N={gate['n']}", pk, n_e, sym, dev)
         # The pairs the function needs at these inputs: each pair's distance
         # test, the full terms inside the cutoff, and (pallas_sym, entries
-        # off the diagonal) the reaction's.
+        # off the diagonal) the reaction's; and the (warp, other) steps each
+        # of the kernel's passes skips.
         tabs = (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"])
         bounds = torch.tensor([0, n_e], dtype=torch.int32, device=dev)
         off = (pk["wl_t"][:n_e] != pk["wl_s"][:n_e]).nonzero()[:, 0]
-        full = sr_kernel.skip_counts(*tabs, bounds, pk["rc2"], chunk=2048)
-        react = sr_kernel.skip_counts(*tabs, bounds, pk["rc2"], chunk=2048,
-                                      entries=off) if sym else {"inside": 0}
+        counts = functools.partial(sr_kernel.vjp_skip_counts, *tabs, bounds,
+                                   pk["rc2"], chunk=2048)
+        full = counts()
+        react = counts(entries=off) if sym else {"inside": 0}
         work[layout] = (full["pairs"], full["inside"], react["inside"],
                         pk["ptab"].shape[1], n_e)
+        skipped = {side: full[side] / full["steps"]
+                   for side in ("target", "source")}
         print(f"sr vjp {layout}: pairs {full['pairs']}, inside the cutoff "
-              f"{full['inside'] / full['pairs']:.4f} {tag}", flush=True)
+              f"{full['inside'] / full['pairs']:.4f}; (warp, other) steps a "
+              f"pass {full['steps']}, skipped: target pass "
+              f"{skipped['target']:.4f}, source pass {skipped['source']:.4f} "
+              f"{tag}", flush=True)
         if layout == "pallas":  # the layout the card's AD runs
             err["sr_vjp"], ms["sr_vjp"], ms["sr_vjp_plain"] = max_abs, ms_k, ms_p
+            ms["sr_vjp_peak_mb"], ms["sr_vjp_skipped"] = peak_mb, skipped
         del pk, tabs
 
     # 22(b). The differentiable forward equals the pinned pallas layout's.
@@ -1231,8 +1249,8 @@ def grad_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
         n_e = int(tabs["n_e"])
         if n_e > tabs["e_max"] or int(tabs["n_ghost"]) > tabs["gcap"]:
             fail(f"periodic sr vjp {layout}: the plan drops entries or ghosts")
-        _, ms_k, _ = vjp_check(f"periodic {layout} N={N_UNIFORM}", tabs, n_e,
-                               sym, dev)
+        _, ms_k, _, _ = vjp_check(f"periodic {layout} N={N_UNIFORM}", tabs,
+                                  n_e, sym, dev)
         if layout == "pallas":
             ms["sr_vjp_periodic"] = ms_k
         del tabs
@@ -2114,7 +2132,8 @@ def main() -> int:
          "nbody_tpu/parallel/ring_kernel.py:55", "ring"),
         ("mxu_accel_kernel (|r|^2 expansion, pallas_mxu)", "mxu.cu",
          "nbody_tpu/ops/pallas_mxu.py:48", "mxu"),
-        ("sr_vjp_pack_kernel+sr_vjp_pairs_kernel+sr_vjp_reduce_kernel+"
+        ("sr_vjp_pack_kernel+sr_vjp_pass_kernel<target>+"
+         "sr_vjp_pass_kernel<source>+sr_vjp_finalize_kernel x2+"
          "sr_vjp_combine_kernel+sr_vjp_sum_kernel (P3M short-range VJP, "
          "pallas layout)", "sr_vjp.cu",
          "nbody_tpu/ops/pm.py:1844 _sr_ad_bwd (XLA; no Pallas kernel)",
@@ -2137,10 +2156,14 @@ def main() -> int:
             "periodic_launches": launches["sr_periodic"],
             "ad_launches": launches["sr_ad"]}
            if key == "sr" else {}),
-        # The VJP's call on the periodic row's ghost-extended tables, and its
-        # main path's run: a 10-step rollout gradient with remat.
+        # The VJP's call on the periodic row's ghost-extended tables, its
+        # main path's run (a 10-step rollout gradient with remat), the
+        # share of (warp, other) steps each pass skips and a call's peak
+        # memory beyond what it was handed.
         **({"periodic_ms": ms["sr_vjp_periodic"],
-            "rollout_ms": ms["rollout_p3m"]} if key == "sr_vjp" else {}),
+            "rollout_ms": ms["rollout_p3m"],
+            "skipped_share": ms["sr_vjp_skipped"],
+            "peak_mb": ms["sr_vjp_peak_mb"]} if key == "sr_vjp" else {}),
     } for name, src, replaces, key in rows]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,12 @@
 // Shared pieces of the port's CUDA kernels: the reference's physics
 // constants, the inverse square root and cube of one pair distance, the
-// P3M sweep's warp-uniform skip predicate, the bodies of the two force
-// sweeps and the cooperative launcher.  The unfused kernels (sym.cu,
-// tiled.cu), the fused sample blocks (fused.cu), the two-sided sweep
-// (two_sided.cu), the ring (ring.cu) and the force VJP (vjp.cu) run the
-// same device functions, so they share one copy of the pair arithmetic.
+// P3M sweep's warp-uniform skip predicate and what its kernel shares with
+// its VJP's (staging, distance, taper, the box skip), the
+// bodies of the two force sweeps and the cooperative launcher.  The unfused
+// kernels (sym.cu, tiled.cu), the fused sample blocks (fused.cu), the
+// two-sided sweep (two_sided.cu), the ring (ring.cu) and the force VJP
+// (vjp.cu) run the same device functions, so they share one copy of the
+// pair arithmetic; so do the P3M sweep (sr.cu) and its VJP (sr_vjp.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -58,6 +60,102 @@ __device__ __forceinline__ float rsqrt_cube(float d2) {
 // warp-uniform skip).  Every lane of the warp calls it.
 __device__ __forceinline__ bool warp_all_beyond(float q) {
   return __all_sync(kFullMask, q >= 1.0f);
+}
+
+// ---------------------------------------------------------------------------
+// The P3M short-range sweep (sr.cu) and its VJP (sr_vjp.cu): their staging,
+// the pair distance and taper, and the schedule's box skip.
+
+constexpr int kSrSlab = 64;  // slots of a slab = threads of a group
+
+// One 16-byte asynchronous copy from device to shared memory (cp.async,
+// through L2 only), and its commit and wait: the calling thread's copies
+// have landed after cp_async_wait_all; a barrier then shows them to the
+// other threads.  Both addresses are 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Group g's named barrier (id 1 + g, 64 threads), by immediate ids, so a
+// kernel holds only the barriers it uses.  At most 4 groups a CTA.
+__device__ __forceinline__ void group_sync(int g) {
+  switch (g) {
+    case 0: asm volatile("bar.sync 1, 64;" ::: "memory"); break;
+    case 1: asm volatile("bar.sync 2, 64;" ::: "memory"); break;
+    case 2: asm volatile("bar.sync 3, 64;" ::: "memory"); break;
+    default: asm volatile("bar.sync 4, 64;" ::: "memory"); break;
+  }
+}
+
+// 1 - S(q) for q = r2 / rc2 >= 0, S the quintic taper of ops/pm.py, in
+// Horner form: 1 + q^3 (-10 + q (15 - 6 q)) at q clamped to 1.  At q >= 1
+// it is 1 - 1 = 0 exactly (15 - 6 = 9, 9 - 10 = -1, 1 - 1 = 0).  `m6` is
+// -6 held in a register (minus_six): an FMA takes one immediate, and 15
+// is the other.
+__device__ __forceinline__ float sr_keep(float q, float m6) {
+  const float qc = fminf(q, 1.0f);
+  const float p = fmaf(fmaf(m6, qc, 15.0f), qc, -10.0f);
+  return fmaf(qc * qc * qc, p, 1.0f);
+}
+
+// -6.0f from a move the compiler keeps in a register across the loops,
+// rather than one it rematerialises before every taper.
+__device__ __forceinline__ float minus_six() {
+  float v;
+  asm("mov.b32 %0, 0xc0c00000;" : "=f"(v));
+  return v;
+}
+
+// d2 = |d|^2 + eps^2 and q = |d|^2 / rc2 of the pair (dx, dy, dz), both
+// from one chain of FMAs: q = d2 / rc2 - eps^2 / rc2 (`eps_q`), so the
+// weight's rsqrt and its taper, and the skips' tests, read the same d2.
+// Each operation rounds monotonically in |dx|, |dy|, |dz|: a larger gap
+// gives a d2 and a q no smaller.
+struct SrDist {
+  float d2, q;
+};
+__device__ __forceinline__ SrDist sr_dist(float dx, float dy, float dz,
+                                          float inv_rc2, float eps_q) {
+  const float d2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, kSoftening2)));
+  return {d2, fmaf(d2, inv_rc2, eps_q)};
+}
+
+// The box skip: lane l takes `o`, slot l of a 32-wide subtile of the other
+// slab, and measures q of its gap to the box [lo, hi] of the warp's own
+// slots (x gap max(lo.x - o.x, o.x - hi.x, 0), and so on); the ballot keeps
+// the slots with q < 1.  For every other one each lane's |dx| >= the x gap
+// (and so on), so its q, rounded monotonically by sr_dist, is >= 1 too.
+__device__ __forceinline__ unsigned sr_box_ballot(float4 o, float3 lo,
+                                                  float3 hi, float inv_rc2,
+                                                  float eps_q) {
+  const float ex = fmaxf(fmaxf(lo.x - o.x, o.x - hi.x), 0.0f);
+  const float ey = fmaxf(fmaxf(lo.y - o.y, o.y - hi.y), 0.0f);
+  const float ez = fmaxf(fmaxf(lo.z - o.z, o.z - hi.z), 0.0f);
+  return __ballot_sync(kFullMask,
+                       sr_dist(ex, ey, ez, inv_rc2, eps_q).q < 1.0f);
+}
+
+// The first index of [lo, hi) whose value in the sorted `keys` is >= v.
+__device__ __forceinline__ int lower_bound(const int* keys, int lo, int hi,
+                                          int v) {
+  while (lo < hi) {
+    const int mid = lo + (hi - lo) / 2;
+    if (keys[mid] < v) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
 }
 
 // The pair deltas' precision, a compile-time flag of the pair arithmetic.

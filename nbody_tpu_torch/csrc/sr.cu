@@ -84,82 +84,34 @@
 
 namespace {
 
-constexpr int kSlab = 64;   // target slots of a slab = threads of a group
+constexpr int kSlab = nbt::kSrSlab;  // target slots of a slab = a group
 constexpr int kGroups = 2;  // groups of 64 threads a CTA
 constexpr int kUnit = 16;   // worklist entries a unit (one group's work)
+static_assert(kGroups <= 4, "nbt::group_sync has four barriers");
 
-// One 16-byte asynchronous copy from device to shared memory (cp.async,
-// through L2 only), and its commit and wait: the calling thread's copies
-// have landed after cp_async_wait_all; a barrier then shows them to the
-// other threads.  Both addresses are 16-byte aligned.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-// 1 - S(q) for q = r2 / rc2 >= 0, S the quintic taper of ops/pm.py, in
-// Horner form: 1 + q^3 (-10 + q (15 - 6 q)) at q clamped to 1.  At q >= 1
-// it is 1 - 1 = 0 exactly (15 - 6 = 9, 9 - 10 = -1, 1 - 1 = 0).  `m6` is
-// -6 held in a register (minus_six): an FMA takes one immediate, and 15
-// is the other.
-__device__ __forceinline__ float sr_keep(float q, float m6) {
-  const float qc = fminf(q, 1.0f);
-  const float p = fmaf(fmaf(m6, qc, 15.0f), qc, -10.0f);
-  return fmaf(qc * qc * qc, p, 1.0f);
-}
-
-// -6.0f from a move the compiler keeps in a register across the loops,
-// rather than one it rematerialises before every taper.
-__device__ __forceinline__ float minus_six() {
-  float v;
-  asm("mov.b32 %0, 0xc0c00000;" : "=f"(v));
-  return v;
-}
-
-// d2 = |d|^2 + eps^2 and q = |d|^2 / rc2 of the pair (dx, dy, dz), both
-// from one chain of FMAs: q = d2 / rc2 - eps^2 / rc2 (`eps_q`), so the
-// weight's rsqrt and its taper, and the skips' tests, read the same d2.
-// Each operation rounds monotonically in |dx|, |dy|, |dz|: a larger gap
-// gives a d2 and a q no smaller.
-struct SrDist {
-  float d2, q;
-};
-__device__ __forceinline__ SrDist sr_dist(float dx, float dy, float dz,
-                                          float inv_rc2, float eps_q) {
-  const float d2 =
-      fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, nbt::kSoftening2)));
-  return {d2, fmaf(d2, inv_rc2, eps_q)};
-}
+using nbt::cp_async16;
+using nbt::cp_async_commit;
+using nbt::cp_async_wait_all;
+using nbt::group_sync;
+using nbt::minus_six;
+using nbt::sr_dist;
+using nbt::sr_keep;
+using nbt::SrDist;
 
 // The forward sum of a target (t: x, y, z) over `N` sources src[0..N) in
 // order, every lane of the warp on the same source (a broadcast), with two
-// warp-uniform skips, both exact.  Per 32 sources, each lane takes one and
-// measures q of its gap to the box [lo, hi] of the warp's targets (x gap
-// max(lo.x - x, x - hi.x, 0), and so on), and a ballot keeps the sources
-// with q < 1: for every other one each lane's |dx| >= the x gap (and so
-// on), so its q, rounded monotonically by sr_dist, is >= 1 too.  Then each
-// kept source: d, d2 and q, and if q >= 1 on every lane (warp_all_beyond)
-// the weight is exactly 0 on every lane.
+// warp-uniform skips, both exact: per 32 sources the ballot of their gaps
+// to the box [lo, hi] of the warp's targets (nbt::sr_box_ballot), then for
+// each kept source d, d2 and q, and if q >= 1 on every lane
+// (warp_all_beyond) the weight is exactly 0 on every lane.
 template <int N>
 __device__ __forceinline__ void sr_forward(const float4* src, float4 t,
                                            float3 lo, float3 hi, int lane,
                                            float inv_rc2, float eps_q,
                                            float m6, float3& a) {
   for (int j0 = 0; j0 < N; j0 += 32) {
-    const float4 o = src[j0 + lane];
-    const float ex = fmaxf(fmaxf(lo.x - o.x, o.x - hi.x), 0.0f);
-    const float ey = fmaxf(fmaxf(lo.y - o.y, o.y - hi.y), 0.0f);
-    const float ez = fmaxf(fmaxf(lo.z - o.z, o.z - hi.z), 0.0f);
-    const unsigned near = __ballot_sync(
-        nbt::kFullMask, sr_dist(ex, ey, ez, inv_rc2, eps_q).q < 1.0f);
+    const unsigned near =
+        nbt::sr_box_ballot(src[j0 + lane], lo, hi, inv_rc2, eps_q);
 #pragma unroll
     for (int k = 0; k < 32; ++k) {
       if (!((near >> k) & 1u)) continue;  // beyond the box: every lane
@@ -206,18 +158,6 @@ __device__ __forceinline__ void sr_both_sides(const float4* sub, float4 t,
     b.x = __shfl_sync(nbt::kFullMask, b.x, from);
     b.y = __shfl_sync(nbt::kFullMask, b.y, from);
     b.z = __shfl_sync(nbt::kFullMask, b.z, from);
-  }
-}
-
-// Group g's named barrier (id 1 + g, 64 threads), by immediate ids, so the
-// kernel holds only the barriers it uses.
-__device__ __forceinline__ void group_sync(int g) {
-  static_assert(kGroups <= 4, "one case a group");
-  switch (g) {
-    case 0: asm volatile("bar.sync 1, 64;" ::: "memory"); break;
-    case 1: asm volatile("bar.sync 2, 64;" ::: "memory"); break;
-    case 2: asm volatile("bar.sync 3, 64;" ::: "memory"); break;
-    default: asm volatile("bar.sync 4, 64;" ::: "memory"); break;
   }
 }
 
@@ -404,20 +344,6 @@ sr_pairs_kernel(const float4* __restrict__ tab, int nslots,
   }
 }
 
-// The first entry of [lo, hi) whose target is >= t (wl_t is sorted).
-__device__ __forceinline__ int lower_bound(const int* wl_t, int lo, int hi,
-                                           int t) {
-  while (lo < hi) {
-    const int mid = lo + (hi - lo) / 2;
-    if (wl_t[mid] < t) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
 // Slab blockIdx.x * kGroups + threadIdx.y, slot threadIdx.x: if its run in
 // [bounds[0], bounds[1]) spans units c0 < c1, the sum tail[c0] + head[c0 +
 // 1] + ... + head[c1], in unit order.
@@ -431,8 +357,8 @@ sr_finalize_kernel(int nslab, const int* __restrict__ wl_t, int e_max,
   const int b0 = max(bounds[0], 0);
   const int b1 = min(bounds[1], e_max);
   if (b0 >= b1) return;
-  const int r0 = lower_bound(wl_t, b0, b1, t);
-  const int r1 = lower_bound(wl_t, r0, b1, t + 1);
+  const int r0 = nbt::lower_bound(wl_t, b0, b1, t);
+  const int r1 = nbt::lower_bound(wl_t, r0, b1, t + 1);
   if (r0 >= r1) return;
   const long long c0 = r0 / kUnit, c1 = (r1 - 1) / kUnit;
   if (c0 == c1) return;  // stored by sr_pairs_kernel

@@ -45,10 +45,6 @@ from .tiled_kernel import check_input, refuse_autograd
 launches = 0
 vjp_launches = 0
 
-# Floats of the VJP kernel's partials an entry: (gp x, y, z, gm, grc2) of
-# each target slot and (gp x, y, z, gm) of each source slot.
-VJP_PARTIAL_FLOATS = (5 + 4) * SLAB
-
 
 def _check_index(name: str, t: torch.Tensor, shape: tuple,
                  device: torch.device) -> None:
@@ -144,6 +140,52 @@ def skip_counts(ptab, mtab, wl_t, wl_s, bounds, rc2, symmetric: bool = False,
             out["skipped"] += int((skip & live[:, None, None]).sum())
             out["pairs"] += int(live.sum()) * SLAB * 32
             out["inside"] += int((~sub & live[:, None, None, None]).sum())
+    return out
+
+
+def kernel_q(d: torch.Tensor, inv_rc2) -> torch.Tensor:
+    """q of the pairs ``d`` (..., 3) as the kernels' ``nbt::sr_dist`` takes
+    it, one rounding an operation: d2 = ((dx^2 + eps^2) + dy^2) + dz^2 and
+    q = d2 / rc2 - eps^2 / rc2."""
+    d2 = ((d[..., 0] * d[..., 0] + SOFTENING_SQUARED) + d[..., 1] * d[..., 1]
+          ) + d[..., 2] * d[..., 2]
+    return d2 * inv_rc2 + (-SOFTENING_SQUARED * inv_rc2)
+
+
+def vjp_skip_counts(ptab, mtab, wl_t, wl_s, bounds, rc2, chunk: int = 256,
+                    entries: torch.Tensor | None = None) -> dict:
+    """The work of ``csrc/sr_vjp.cu``'s two passes over the unpaired
+    worklist, counted in plain PyTorch on the tables' device: each entry
+    takes 2 x 64 (warp, other) steps a pass, a warp being 32 slots of the
+    owner slab as ``split_order`` splits it (the target pass's owner is the
+    entry's target slab, the source pass's its source slab) and the other one
+    slot of the other slab, every lane on it.  A step is skipped when q >= 1
+    on every lane (the box ballot drops a subset of these, the vote the
+    rest), q as the kernel takes it (``kernel_q``).  ``entries`` (int64)
+    counts those worklist entries instead of all in ``bounds``.  Returns
+    ``{"steps", "target", "source", "pairs", "inside"}``: the steps a pass,
+    each pass's skipped steps, the pairs evaluated and those with q < 1, as
+    ints."""
+    tab = packed_table(ptab, mtab)
+    nslab = ptab.shape[1] // SLAB
+    slabs = tab[:nslab * SLAB].view(nslab, SLAB, 4)
+    split = slabs.gather(1, split_order(slabs)[..., None].expand(-1, -1, 4))
+    inv_rc2 = 1.0 / rc2
+    if entries is None:
+        lo, hi = max(int(bounds[0]), 0), min(int(bounds[1]), wl_t.shape[0])
+        entries = torch.arange(lo, hi, device=wl_t.device)
+    out = dict(steps=0, target=0, source=0, pairs=0, inside=0)
+    for c0 in range(0, entries.shape[0], chunk):
+        idx = entries[c0:c0 + chunk]
+        te, se = split[wl_t[idx].long()], split[wl_s[idx].long()]
+        beyond = kernel_q(se[:, None, :, :3] - te[:, :, None, :3],
+                          inv_rc2) >= 1.0  # (E, target, source)
+        n = idx.shape[0]
+        out["steps"] += n * 2 * SLAB
+        out["target"] += int(beyond.view(n, 2, 32, SLAB).all(dim=2).sum())
+        out["source"] += int(beyond.view(n, SLAB, 2, 32).all(dim=3).sum())
+        out["pairs"] += beyond.numel()
+        out["inside"] += int((~beyond).sum())
     return out
 
 
@@ -304,24 +346,16 @@ def sweep_vjp_plain(ptab, mtab, wl_t, wl_s, bounds, rc2, g,
     return gp, gm, grc2
 
 
-def vjp_band(e_max: int, device: torch.device, budget: int = 0) -> int:
-    """Worklist entries a band of the VJP kernel: as many as the partials
-    of ``budget`` bytes hold (0: 1/8 of the card's memory), at least one."""
-    if not budget:
-        budget = torch.cuda.get_device_properties(device).total_memory // 8
-    return max(1, min(e_max, budget // (4 * VJP_PARTIAL_FLOATS)))
-
-
-def band_order(wl, bounds, e0: int, e1: int, nslab: int) -> tuple:
-    """The fixed order in which the VJP kernel's reduce adds one side's
-    partials of the band [e0, e1): ``(perm, start)``, int32, where the
-    band's live entries (those in [bounds[0], bounds[1])) whose slab is q
-    are ``perm[start[q]:start[q + 1]]`` in worklist order (a stable sort of
-    the slabs, dead entries keyed past the last slab).  On the tables'
-    device, with no host sync."""
-    idx = torch.arange(e0, e1, dtype=torch.int32, device=wl.device)
+def band_order(wl, bounds, nslab: int) -> tuple:
+    """The order of the VJP kernel's source pass: ``(perm, start)``, int32,
+    where the live entries (those in [bounds[0], bounds[1])) whose slab in
+    ``wl`` is q are ``perm[start[q]:start[q + 1]]`` in worklist order (a
+    stable sort of the slabs, dead entries keyed past the last slab), so
+    ``start[nslab]`` counts the live entries.  On the tables' device, with
+    no host sync."""
+    idx = torch.arange(wl.shape[0], dtype=torch.int32, device=wl.device)
     live = (idx >= bounds[0]) & (idx < bounds[1])
-    key = torch.where(live, wl[e0:e1], nslab)
+    key = torch.where(live, wl, nslab)
     ordered, perm = torch.sort(key, stable=True)
     start = torch.searchsorted(
         ordered, torch.arange(nslab + 1, dtype=torch.int32,
@@ -329,12 +363,45 @@ def band_order(wl, bounds, e0: int, e1: int, nslab: int) -> tuple:
     return perm.to(torch.int32), start
 
 
-def sweep_vjp(ptab, mtab, wl_t, wl_s, bounds, rc2, g, symmetric: bool = False,
-              scratch_budget: int = 0) -> tuple:
+def vjp_scratch_floats(nslots: int, e_max: int, unit: int) -> int:
+    """Floats of ``csrc/sr_vjp.cu``'s scratch: the (x, y, z, m) and (g, 0)
+    tables and both sides' sums (8 + 5 + 4 a slot), then a head and a tail
+    partial ((5 + 4) x 64) for each unit of ``unit`` positions."""
+    return 17 * nslots + 2 * (5 + 4) * SLAB * -(-e_max // unit)
+
+
+def launch_vjp(lib, ptab, mtab, wl_t, wl_s, bounds, rc2, g,
+               symmetric: bool) -> tuple:
+    """One call of ``csrc/sr_vjp.cu``'s kernels from the loaded library
+    ``lib`` on CUDA tensors, on the current stream: ``(gp, gm, grc2)``.
+    ``sweep_vjp`` makes it with the package's library after checking its
+    inputs; ``scripts/sr_launch_shapes.py`` with copies of the source built
+    at other launch shapes."""
+    dev = ptab.device
+    nslots, e_max = ptab.shape[1], wl_t.shape[0]
+    gp = torch.empty((3, nslots), dtype=torch.float32, device=dev)
+    gm = torch.empty((nslots,), dtype=torch.float32, device=dev)
+    grc2 = torch.empty((), dtype=torch.float32, device=dev)
+    perm, start = band_order(wl_s, bounds, nslots // SLAB)
+    scratch = torch.empty(vjp_scratch_floats(nslots, e_max,
+                                             lib.nbt_sr_vjp_unit()),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.nbt_sr_vjp(
+            ptab.data_ptr(), mtab.data_ptr(), g.data_ptr(), nslots,
+            wl_t.data_ptr(), wl_s.data_ptr(), e_max, bounds.data_ptr(),
+            perm.data_ptr(), start.data_ptr(), rc2.data_ptr(), int(symmetric),
+            gp.data_ptr(), gm.data_ptr(), grc2.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "nbt_sr_vjp")
+    return gp, gm, grc2
+
+
+def sweep_vjp(ptab, mtab, wl_t, wl_s, bounds, rc2, g,
+              symmetric: bool = False) -> tuple:
     """The VJP of the unpaired sweep: the cotangent ``g`` (3, nslots) of
     its output -> ``(gp (3, nslots), gm (nslots,), grc2 ())``, f32, as
-    ``sweep_vjp_plain``.  ``scratch_budget``: bytes of per-entry partials a
-    band holds (0: 1/8 of the card's memory)."""
+    ``sweep_vjp_plain``."""
     global vjp_launches
     dev = ptab.device
     nslots = ptab.shape[1]
@@ -354,42 +421,10 @@ def sweep_vjp(ptab, mtab, wl_t, wl_s, bounds, rc2, g, symmetric: bool = False,
     if dev.type != "cuda":
         raise ValueError(f"sr vjp kernel runs on cuda or cpu, not {dev}")
     refuse_autograd("sr vjp kernel", ptab, mtab, rc2, g)
-    nslab = nslots // SLAB
-    gp = torch.empty((3, nslots), dtype=torch.float32, device=dev)
-    gm = torch.empty((nslots,), dtype=torch.float32, device=dev)
-    grc2 = torch.empty((), dtype=torch.float32, device=dev)
-    # The tables (x, y, z, m) and (g, 0), the sentinel slab's g zeroed,
-    # and the sums of each side's partials by slot.
-    tabs = torch.empty((2, nslots, 4), dtype=torch.float32, device=dev)
-    acc_t = torch.zeros((5, nslots), dtype=torch.float32, device=dev)
-    acc_s = torch.zeros((4, nslots), dtype=torch.float32, device=dev)
-    lib = build.library()
-    if lib.nbt_sr_vjp_partial_floats() != VJP_PARTIAL_FLOATS:
-        raise RuntimeError("csrc/sr_vjp.cu's partials differ from "
-                           f"VJP_PARTIAL_FLOATS={VJP_PARTIAL_FLOATS}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        build.check(lib.nbt_sr_vjp_pack(
-            ptab.data_ptr(), mtab.data_ptr(), g.data_ptr(), nslots,
-            tabs.data_ptr(), stream), "nbt_sr_vjp_pack")
-        band = vjp_band(e_max, dev, scratch_budget) if e_max else 1
-        part = torch.empty((min(band, e_max), VJP_PARTIAL_FLOATS),
-                           dtype=torch.float32, device=dev)
-        for e0 in range(0, e_max, band):
-            e1 = min(e0 + band, e_max)
-            perm_t, start_t = band_order(wl_t, bounds, e0, e1, nslab)
-            perm_s, start_s = band_order(wl_s, bounds, e0, e1, nslab)
-            build.check(lib.nbt_sr_vjp_band(
-                tabs.data_ptr(), nslots, wl_t.data_ptr(), wl_s.data_ptr(), e0,
-                e1 - e0, bounds.data_ptr(), rc2.data_ptr(), int(symmetric),
-                part.data_ptr(), perm_t.data_ptr(), start_t.data_ptr(),
-                perm_s.data_ptr(), start_s.data_ptr(), acc_t.data_ptr(),
-                acc_s.data_ptr(), stream), "nbt_sr_vjp_band")
-        build.check(lib.nbt_sr_vjp_finish(
-            acc_t.data_ptr(), acc_s.data_ptr(), nslots, gp.data_ptr(),
-            gm.data_ptr(), grc2.data_ptr(), stream), "nbt_sr_vjp_finish")
-    vjp_launches += 1  # one a call: its pack, bands and finish
-    return gp, gm, grc2
+    out = launch_vjp(build.library(), ptab, mtab, wl_t, wl_s, bounds, rc2, g,
+                     symmetric)
+    vjp_launches += 1  # one a call: its pack, passes, finalizes and finish
+    return out
 
 
 class _SweepPlainVJP(torch.autograd.Function):

@@ -15,8 +15,8 @@ unchanged one loads at once.  There is no fast-math flag: divides are
 IEEE-rounded under nvcc's default ``-prec-div`` where a kernel asks for one
 (the pair-symmetric reduce's division by G m), and the pair loops take
 ``rsqrt.approx`` by name (with a Newton step, ``nbt::rsqrt_newton``, in the
-exact sweeps, the force VJP and the short-range sweep's VJP; alone in the
-mxu kernel and the P3M short-range sweep).  A missing ``nvcc`` raises; nothing falls back.
+exact sweeps and the force VJP; alone in the mxu kernel, the P3M
+short-range sweep and its VJP).  A missing ``nvcc`` raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -41,8 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C function -> argument types; every function returns an int, a
-# cudaError_t but for nbt_tiled_targets, nbt_sr_unit and
-# nbt_sr_vjp_partial_floats.
+# cudaError_t but for nbt_tiled_targets, nbt_sr_unit and nbt_sr_vjp_unit.
 SIGNATURES = {
     # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, bf16, stream
     "nbt_tiled_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P),
@@ -62,16 +61,12 @@ SIGNATURES = {
     "nbt_sr_sweep": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
     # -> the worklist entries a unit of the sweep (sizes its scratch)
     "nbt_sr_unit": (),
-    # ptab, mtab, g, nslots, tabs, stream
-    "nbt_sr_vjp_pack": (_P, _P, _P, _I, _P, _P),
-    # tabs, nslots, wl_t, wl_s, e0, nb, bounds, rc2, symmetric, part,
-    # perm_t, start_t, perm_s, start_s, acc_t, acc_s, stream
-    "nbt_sr_vjp_band": (_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
-                        _P, _P, _P, _P),
-    # acc_t, acc_s, nslots, gp, gm, grc2, stream
-    "nbt_sr_vjp_finish": (_P, _P, _I, _P, _P, _P, _P),
-    # -> the floats of the SR VJP's partials an entry (sizes its scratch)
-    "nbt_sr_vjp_partial_floats": (),
+    # ptab, mtab, g, nslots, wl_t, wl_s, e_max, bounds, perm, start, rc2,
+    # symmetric, gp, gm, grc2, scratch, stream
+    "nbt_sr_vjp": (_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+                   _P, _P, _P),
+    # -> the positions a unit of the SR VJP's passes (sizes its scratch)
+    "nbt_sr_vjp_unit": (),
     # pos_t, mass_t, nt, pos_s, mass_s, ns, block, band, part_t, part_s,
     # out_t, out_s, bf16, stream
     "nbt_two_sided": (_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P),

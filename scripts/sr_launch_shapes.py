@@ -1,27 +1,39 @@
 #!/usr/bin/env python3
-"""The P3M short-range kernel's launch shape and work counts.
+"""The P3M short-range kernel's and its VJP's launch shapes and work counts.
 
     python scripts/sr_launch_shapes.py            # launch shapes, one card
-    python scripts/sr_launch_shapes.py --tree DIR  # another checkout's kernel
+    python scripts/sr_launch_shapes.py --tree DIR  # another checkout's kernels
     python scripts/sr_launch_shapes.py --stats [--device cpu] [--sample 2000]
 
 All three take the Plummer sphere of the JAX package's P3M gate (N=262144,
-seed 7, ng=128, cutoff 4), each layout at its suggested plan.
+seed 7, ng=128, cutoff 4), each layout at its suggested plan; the VJP
+takes the two unpaired layouts, ``pallas`` and ``pallas_sym``, with a
+seeded cotangent, at the gate and, on the card, on the ghost-extended
+tables of ``bench.py:48-49``'s periodic row (the reference initial
+conditions at N=1048576 boxed at L = 1, ng=128, cutoff 4), with the peak
+memory of one call beyond what was allocated before it.
 
-``csrc/sr.cu`` fixes its launch shape at compile time: ``kGroups`` groups
-of 64 threads a CTA, each taking one unit of ``kUnit`` worklist entries.
-With no option this script rewrites those two constants in a copy of the
-source for every shape of groups (1, 2, 3) by unit (8, 16, 32), builds
-each copy with the package's nvcc flags into ``build/exp/sr_shapes/`` (one
-nvcc each, all started together), and prints the mean time of ten
-launches of each shape (CUDA events) in every layout beside the package's
-kernel.  Each shape's output is held against the package's kernel within
-2e-5 of the largest occupied slot: the shape changes only the summation
-order.  ``--tree DIR`` instead times only the package kernel of another
-checkout (``nbody_tpu_torch`` imported from DIR, its kernels built into
-DIR's ``build/``), through the public wrapper, whose signature every
-version keeps, so two commits compare in one call on one card.  The first
-line is the card's name and power limit.  Needs a CUDA card and nvcc.
+``csrc/sr.cu`` and ``csrc/sr_vjp.cu`` fix their launch shapes at compile
+time: ``kGroups`` groups of 64 threads a CTA, each taking one unit of
+``kUnit`` worklist entries (positions, in the VJP's passes).  With no
+option this script rewrites those two constants in a copy of each source
+for every shape of groups (1, 2, 3) by unit (8, 16, 32), builds each copy
+with the package's nvcc flags into ``build/exp/sr_shapes/`` (one nvcc
+each, all started together), and prints the mean time of ten launches of
+each shape (CUDA events) in every layout beside the package's kernel.
+The sweep of each shape is held against the package's kernel within 2e-5
+of the largest occupied slot (the shape changes only the summation order),
+and the VJP of each shape, and of the package (also with ``--tree``),
+against the plain VJP (``sweep_vjp_plain``): gp and gm within 1e-5 of the
+largest, the error printed beside the time.  ``--tree DIR``
+instead times only the package kernels of another checkout
+(``nbody_tpu_torch`` imported from DIR, its kernels built into DIR's
+``build/``), through the public wrappers ``sweep`` and ``sweep_vjp``, whose
+signatures every version keeps, so two commits compare in one call on one
+card; it also prints a digest of each sweep's output in the layouts that
+repeat bit for bit (no reaction atomics), so two trees' outputs compare bit
+for bit.  The first line is the card's name and power limit.  Needs a CUDA
+card and nvcc.
 
 ``--stats`` runs on any device (the CPU by default) and prints, for each
 layout, the work of the sweep: worklist entries and pairs an entry, the
@@ -32,15 +44,19 @@ schedules: the slab's slots in order with every lane on one source, the
 kernel's split of each slab into two compact warps
 (``ops/sr_kernel.split_order``) with every lane on one source, and the
 kernel's own schedule (``ops/sr_kernel.skip_counts``: the reaction's
-rotation where a step takes both sides).  The shares come from
-``--sample`` entries drawn with a fixed seed (0: every entry).  Imports
-nothing of JAX.
+rotation where a step takes both sides).  For ``pallas`` and
+``pallas_sym`` it also prints the VJP kernel's work
+(``ops/sr_kernel.vjp_skip_counts``): its (warp, other) steps a pass and the
+share of them that the target pass and the source pass each skip.  The
+shares come from ``--sample`` entries drawn with a fixed seed (0: every
+entry).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import os
 import re
 import subprocess
@@ -50,7 +66,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (1, 2, 3)
 UNITS = (8, 16, 32)
 LAYOUTS = ("pallas_paired", "pallas", "pallas_sym", "pallas_paired_sym")
+VJP_LAYOUTS = ("pallas", "pallas_sym")  # the unpaired ones, which AD runs
 GATE = dict(n=262144, seed=7, grid=128, cutoff=4)  # bench.py:102-103
+PERIODIC = dict(n=1048576, box=1.0)  # bench.py:48-49, at the gate's grid
 
 
 def gate_inputs(device: str):
@@ -80,41 +98,87 @@ def gate_inputs(device: str):
     return pm, sr_kernel, out
 
 
+def periodic_inputs() -> dict:
+    """{layout: (tables, bounds, sym)} of the periodic row on the card, for
+    the VJP's layouts, each at its suggested differentiable plan."""
+    import torch
+
+    from nbody_tpu_torch import make_state
+    from nbody_tpu_torch.ops import pm
+
+    ref = make_state(PERIODIC["n"], device="cuda")
+    bkw = dict(boundary="periodic", box_size=PERIODIC["box"])
+    out = {}
+    for layout in VJP_LAYOUTS:
+        sym = pm.SR_LAYOUTS[layout][0]
+        plan = pm.suggest_sr_plan(ref.pos, ref.mass, GATE["grid"],
+                                  GATE["cutoff"], layout=layout,
+                                  differentiable=True, **bkw)
+        tabs = pm._periodic_sr_tables(ref.pos, ref.mass, GATE["grid"],
+                                      PERIODIC["box"], GATE["cutoff"],
+                                      symmetric=sym, **plan)
+        if int(tabs["n_e"]) > tabs["e_max"]:
+            raise RuntimeError(f"periodic {layout}: the plan drops entries")
+        bounds = torch.stack([torch.zeros_like(tabs["n_e"]), tabs["n_e"]])
+        out[layout] = (tabs, bounds, sym)
+    return out
+
+
+def peak_mb(fn) -> float:
+    """MB that one call of ``fn`` allocates beyond what was held before."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 2**20
+
+
 def build_shapes(out_dir: str) -> dict:
-    """(groups, unit) -> the loaded ctypes library of a copy of csrc/sr.cu
-    built with that launch shape."""
+    """(source, groups, unit) -> the loaded ctypes library of a copy of
+    csrc/<source>.cu built with that launch shape, for source sr and
+    sr_vjp."""
     from nbody_tpu_torch.utils import build
 
-    src = (build.CSRC_DIR / "sr.cu").read_text()
     os.makedirs(out_dir, exist_ok=True)
     nvcc = build.find_nvcc()
     jobs = {}
-    for g in GROUPS:
-        for u in UNITS:
-            text, n_sub = re.subn(r"constexpr int kGroups = \d+;",
-                                  f"constexpr int kGroups = {g};", src)
-            text, m_sub = re.subn(r"constexpr int kUnit = \d+;",
-                                  f"constexpr int kUnit = {u};", text)
-            if (n_sub, m_sub) != (1, 1):
-                raise RuntimeError("csrc/sr.cu no longer declares kGroups "
-                                   "and kUnit once each")
-            cu = os.path.join(out_dir, f"sr_g{g}_u{u}.cu")
-            with open(cu, "w") as f:
-                f.write(text)
-            so = cu[:-3] + ".so"
-            cmd = [nvcc, *build.NVCC_FLAGS, "-shared", "-I",
-                   str(build.CSRC_DIR), "-o", so, cu]
-            jobs[(g, u)] = (so, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
+    for name in ("sr", "sr_vjp"):
+        src = (build.CSRC_DIR / f"{name}.cu").read_text()
+        for g in GROUPS:
+            for u in UNITS:
+                text, n_sub = re.subn(r"constexpr int kGroups = \d+;",
+                                      f"constexpr int kGroups = {g};", src)
+                text, m_sub = re.subn(r"constexpr int kUnit = \d+;",
+                                      f"constexpr int kUnit = {u};", text)
+                if (n_sub, m_sub) != (1, 1):
+                    raise RuntimeError(f"csrc/{name}.cu no longer declares "
+                                       "kGroups and kUnit once each")
+                cu = os.path.join(out_dir, f"{name}_g{g}_u{u}.cu")
+                with open(cu, "w") as f:
+                    f.write(text)
+                so = cu[:-3] + ".so"
+                cmd = [nvcc, *build.NVCC_FLAGS, "-shared", "-I",
+                       str(build.CSRC_DIR), "-o", so, cu]
+                jobs[(name, g, u)] = (so, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
     libs = {}
     for shape, (so, proc) in jobs.items():
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for shape {shape}:\n{out}")
+        if shape[0] == "sr_vjp":  # the registers and spills of each shape
+            print(f"{shape}: " + "; ".join(
+                line.strip() for line in out.splitlines()
+                if "registers" in line or "spill" in line), flush=True)
         lib = ctypes.CDLL(so)
-        lib.nbt_sr_sweep.argtypes = list(build.SIGNATURES["nbt_sr_sweep"])
-        lib.nbt_sr_sweep.restype = ctypes.c_int
+        for fn in (("nbt_sr_sweep", "nbt_sr_unit") if shape[0] == "sr"
+                   else ("nbt_sr_vjp", "nbt_sr_vjp_unit")):
+            getattr(lib, fn).argtypes = list(build.SIGNATURES[fn])
+            getattr(lib, fn).restype = ctypes.c_int
         libs[shape] = lib
     return libs
 
@@ -166,6 +230,10 @@ def card() -> str:
         capture_output=True, text=True, timeout=60).stdout.strip()
 
 
+def digest(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def shapes(tree_only: bool) -> int:
     import torch
 
@@ -186,7 +254,9 @@ def shapes(tree_only: bool) -> int:
         ms_pkg = cuda_ms(lambda: sr_kernel.sweep(*tabs, symmetric=sym,
                                                  paired=paired))
         times = []
-        for (g, u), lib in libs.items():
+        for (src, g, u), lib in libs.items():
+            if src != "sr":
+                continue
             got = launch(lib, pk, bounds, sym, paired)
             diff = float((got - ref)[:, occ].abs().max())
             if diff > 2e-5 * scale:
@@ -196,10 +266,54 @@ def shapes(tree_only: bool) -> int:
                 return 1
             t = cuda_ms(lambda lib=lib: launch(lib, pk, bounds, sym, paired))
             times.append(f"groups {g} unit {u} {t:.4f}")
+        bits = "" if sym else f" (output sha256 {digest(ref)})"
         print(f"sr {layout}, {int(pk['n_e'])} entries: the package's kernel "
-              f"{ms_pkg:.4f} ms" + "".join(f"; {t}" for t in times) +
+              f"{ms_pkg:.4f} ms{bits}" + "".join(f"; {t}" for t in times) +
               f" (ms) [{name}]", flush=True)
         del ref
+        if layout not in VJP_LAYOUTS:
+            continue
+        gen = torch.Generator("cuda").manual_seed(11)
+        args = (*tabs, torch.randn(pk["ptab"].shape, device="cuda",
+                                   generator=gen))
+        plain = sr_kernel.sweep_vjp_plain(*args, symmetric=sym)
+
+        def err(got):  # of gp and gm, a share of the plain one's largest
+            return max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(got[:2], plain[:2]))
+
+        e_pkg = err(sr_kernel.sweep_vjp(*args, symmetric=sym))
+        mb = peak_mb(lambda: sr_kernel.sweep_vjp(*args, symmetric=sym))
+        ms_pkg = cuda_ms(lambda: sr_kernel.sweep_vjp(*args, symmetric=sym))
+        times = []
+        for (src, g, u), lib in libs.items():
+            if src != "sr_vjp":
+                continue
+            diff = err(sr_kernel.launch_vjp(lib, *args, symmetric=sym))
+            if diff > 1e-5:
+                print(f"FAIL: vjp {layout} groups {g} unit {u} disagrees "
+                      f"with the plain VJP ({diff:.3e})", file=sys.stderr)
+                return 1
+            t = cuda_ms(lambda lib=lib: sr_kernel.launch_vjp(
+                lib, *args, symmetric=sym))
+            times.append(f"groups {g} unit {u} {t:.4f} ({diff:.2e})")
+        print(f"sr vjp {layout}, {int(pk['n_e'])} entries: the package's "
+              f"kernel {ms_pkg:.4f} ms ({e_pkg:.2e}), peak {mb:.1f} MB" +
+              "".join(f"; {t}" for t in times) + f" (ms, and gp and gm "
+              f"against the plain VJP, of its largest) [{name}]", flush=True)
+        del args, plain
+    del inputs
+    for layout, (tabs, bounds, sym) in periodic_inputs().items():
+        gen = torch.Generator("cuda").manual_seed(11)
+        args = (tabs["ptab"], tabs["mtab"], tabs["wl_t"], tabs["wl_s"], bounds,
+                tabs["rc2"], torch.randn(tabs["ptab"].shape, device="cuda",
+                                         generator=gen))
+        mb = peak_mb(lambda: sr_kernel.sweep_vjp(*args, symmetric=sym))
+        ms_pkg = cuda_ms(lambda: sr_kernel.sweep_vjp(*args, symmetric=sym))
+        print(f"sr vjp periodic {layout}, {int(tabs['n_e'])} entries: the "
+              f"package's kernel {ms_pkg:.4f} ms, peak {mb:.1f} MB [{name}]",
+              flush=True)
+        del args
     return 0
 
 
@@ -240,6 +354,14 @@ def stats(device: str, sample: int) -> int:
               f"{plain:.4f}, split {split['skipped'] / split['steps']:.4f}, "
               f"the kernel's schedule "
               f"{kernel['skipped'] / kernel['steps']:.4f}", flush=True)
+        if layout in VJP_LAYOUTS:
+            vjp = sr_kernel.vjp_skip_counts(*args, entries=pick)
+            print(f"{layout} vjp: (warp, other) steps a pass "
+                  f"{vjp['steps']} over the sampled entries "
+                  f"({vjp['steps'] / pick.shape[0] * n_e:.4g} in all); "
+                  f"skipped: target pass {vjp['target'] / vjp['steps']:.4f}, "
+                  f"source pass {vjp['source'] / vjp['steps']:.4f}",
+                  flush=True)
     return 0
 
 

@@ -9,8 +9,9 @@ corner blobs of both packages) and handed to both.  Tolerances:
 * ``sweep_vjp_plain`` against autograd through a dense, loop-free sweep
   (tests/test_p3m.py:452-470's check): gp, gm and grc2 within 1e-5 of each
   one's largest magnitude, in both unpaired layouts; the VJP kernel's
-  schedule (per-entry partials, bands, each side's fixed order), emulated
-  here, within the same bound.
+  schedule (a target and a source pass, units, head and tail partials, the
+  warp split, both skips), emulated here, within the same bound; every
+  step a skip drops has terms exactly 0.
 * the differentiable forward equals the non-differentiable one bit for bit
   (tests/test_p3m.py:444, :1425): the same sweep runs.
 * full-solve gradients of mean(|a|^2) against ``jax.grad``: 1e-4 of the
@@ -34,6 +35,7 @@ the port's kernel backward against on the card, where JAX is not installed.
 import functools
 import hashlib
 import os
+import re
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,6 +63,7 @@ torch.set_num_threads(2)
 SLAB = pm.SLAB
 TOL = 1e-4
 FIXTURE = os.path.join(ROOT, "tests", "golden", "torch_p3m_grad_n16384.npz")
+SR_VJP_CU = os.path.join(ROOT, "nbody_tpu_torch", "csrc", "sr_vjp.cu")
 FIXTURE_CFG = dict(n=16384, seed=7, grid=64, cutoff=4, box=1.0)
 # tests/test_p3m.py:426 (open), :485 (the pinned layouts), :1412 (periodic).
 OPEN = dict(grid=16, cutoff_cells=4, capacity=64)
@@ -205,87 +208,263 @@ def test_vjp_plain_matches_autograd(layout):
         assert _max_err(a, b) <= 1e-5, name
 
 
+def _vjp_unit() -> int:
+    """The kernel's positions a unit, as csrc/sr_vjp.cu declares it."""
+    with open(SR_VJP_CU) as f:
+        return int(re.search(r"constexpr int kUnit = (\d+);", f.read())[1])
+
+
+def _long_runs(pk, n_e):
+    """The tables of ``pk`` under a made-up t-major worklist whose runs span
+    many units on both sides: slab 0 takes every slab three times as its
+    sources, and every other slab takes slab 0 five times, then itself;
+    dead entries follow up to the plan's e_max."""
+    nslab = pk["ptab"].shape[1] // SLAB
+    pairs = [(0, s) for s in range(nslab) for _ in range(3)]
+    pairs += [(t, s) for t in range(1, nslab) for s in [0] * 5 + [t]]
+    e_max = max(len(pairs), pk["e_max"])
+    wl = torch.zeros((2, e_max), dtype=torch.int32)
+    wl[:, :len(pairs)] = torch.tensor(pairs, dtype=torch.int32).t()
+    return dict(pk, wl_t=wl[0].contiguous(), wl_s=wl[1].contiguous()), \
+        len(pairs)
+
+
+def _keep(q):
+    """The kernels' sr_keep: 1 - S(q) as 1 + q^3 (-10 + q (15 - 6 q)),
+    q clamped to 1."""
+    qc = torch.clamp(q, max=1.0)
+    return (qc * qc * qc) * ((-6.0 * qc + 15.0) * qc - 10.0) + 1.0
+
+
+def _emulate_pass(tab, gtab, own_of, other_of, react_of, lo, hi, unit,
+                  source, inv_rc2, stats):
+    """One pass of csrc/sr_vjp.cu over positions [lo, hi) (position r: its
+    owner slab, other slab and whether it takes the reaction), as the kernel
+    schedules it: units of ``unit`` positions cut into segments at run ends,
+    each owner slab split into two compact warps (sr_kernel.split_order),
+    per (warp, other) step the box ballot then the vote, both checked to
+    drop only terms that are exactly 0, the lane's factored sums, and a
+    whole run's sums stored or a head or tail partial left for the
+    finalize.  Returns (sums (rows, nslab, 64), visits per position);
+    ``stats`` counts steps and each skip's drops."""
+    nslab = tab.shape[0]
+    rows = 4 if source else 5
+    eps_q = -SOFTENING_SQUARED * inv_rc2
+    split = sr_kernel.split_order(tab)
+    acc = torch.zeros(rows, nslab, SLAB)
+    visits = torch.zeros(max(hi, 0), dtype=torch.int64)
+    part = {}
+    for u in range(lo // unit, -(-hi // unit)):
+        e0, e1 = max(u * unit, lo), min(u * unit + unit, hi)
+        r = e0
+        while r < e1:
+            own = own_of[r]
+            end = r + 1
+            while end < e1 and own_of[end] == own:
+                end += 1
+            starts = r == lo or own_of[r - 1] != own
+            ends = end == hi or own_of[end] != own
+            visits[r:end] += 1
+            slots = split[own]  # thread k -> its slot
+            me, gme = tab[own, slots], gtab[own, slots]  # (64, 4), (64, 3)
+            box = me[:, :3].view(2, 32, 3)
+            blo, bhi = box.amin(1), box.amax(1)  # (warp, 3)
+            wm, m, r_sum = (torch.zeros(SLAB) for _ in range(3))
+            g_sum, d_sum = torch.zeros(SLAB, 3), torch.zeros(SLAB, 3)
+            for k in range(r, end):
+                o, go = tab[other_of[k]], gtab[other_of[k]]  # slot order
+                d = (me[:, None, :3] - o[None, :, :3] if source
+                     else o[None, :, :3] - me[:, None, :3])  # (lane, other)
+                d2 = ((d[..., 0] * d[..., 0] + SOFTENING_SQUARED)
+                      + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+                q = d2 * inv_rc2 + eps_q
+                gap = torch.clamp(torch.maximum(blo[:, None] - o[None, :, :3],
+                                                o[None, :, :3] - bhi[:, None]),
+                                  min=0.0)  # (warp, other, 3)
+                by_box = sr_kernel.kernel_q(gap, inv_rc2) >= 1.0
+                beyond = (q >= 1.0).view(2, 32, SLAB).all(dim=1)
+                assert bool((beyond | ~by_box).all()), "the box is no bound"
+                u_ = torch.rsqrt(d2)
+                u2, u3 = u_ * u_, u_ * u_ * u_
+                qc = q.clamp(max=1.0)
+                qq = qc * (1.0 - qc)
+                a2 = u3 * (qq * qq) * (60.0 * inv_rc2)
+                w = _keep(q) * u3
+                c2 = -3.0 * w * u2 - a2
+                k2 = a2 * qc
+                drop = beyond[:, None, :].expand(2, 32, SLAB).reshape(SLAB,
+                                                                      SLAB)
+                for t_ in (w, c2, k2):
+                    stats["dropped_max"] = max(stats["dropped_max"],
+                                               float(t_[drop].abs().max())
+                                               if bool(drop.any()) else 0.0)
+                keep = (~drop).to(w.dtype)
+                w, c2, k2 = w * keep, c2 * keep, k2 * keep
+                stats["steps"] += 2 * SLAB
+                stats["box"] += int(by_box.sum())
+                stats["vote"] += int((beyond & ~by_box).sum())
+                if source:  # d = p_j - p_i, j the lane's, i the other
+                    gid = (go[None] * d).sum(-1)
+                    hd = me[:, 3, None] * gid
+                    if react_of[k]:
+                        hd = hd - o[None, :, 3] * (gme[:, None] * d).sum(-1)
+                        wm += (w * o[None, :, 3]).sum(1)
+                    g_sum += (w[..., None] * go[None]).sum(1)
+                    m += (w * gid).sum(1)
+                else:
+                    hd = o[None, :, 3] * (gme[:, None] * d).sum(-1)
+                    if react_of[k]:
+                        gjd = (go[None] * d).sum(-1)
+                        hd = hd - me[:, 3, None] * gjd
+                        g_sum += (w[..., None] * go[None]).sum(1)
+                        m += (w * gjd).sum(1)
+                    wm += (w * o[None, :, 3]).sum(1)
+                    r_sum += (k2 * hd).sum(1)
+                d_sum += ((c2 * hd)[..., None] * d).sum(1)
+            if source:
+                out = torch.cat([(me[:, 3, None] * g_sum - gme * wm[:, None]
+                                  + d_sum).t(), m[None]])
+            else:
+                out = torch.cat([-(gme * wm[:, None] - me[:, 3, None] * g_sum
+                                   + d_sum).t(), -m[None], 0.5 * r_sum[None]])
+            if starts and ends:
+                acc[:, own, slots] = out
+            else:
+                part[(u, 1 if starts else 0)] = (own, slots, out)
+            r = end
+    # The finalize: a run's partials in unit order, each read once.
+    used = set()
+    runs = {}
+    for r in range(lo, hi):
+        runs.setdefault(own_of[r], []).append(r)
+    for own, pos in runs.items():
+        c0, c1 = pos[0] // unit, pos[-1] // unit
+        assert pos == list(range(pos[0], pos[-1] + 1)), "a run is cut"
+        if c0 == c1:
+            continue
+        _, slots, total = part[(c0, 1)]
+        used.add((c0, 1))
+        for c in range(c0 + 1, c1 + 1):
+            total = total + part[(c, 0)][2]
+            used.add((c, 0))
+        acc[:, own, slots] = total
+    assert used == set(part), "a partial is written and never read"
+    return acc, visits
+
+
 def _emulate_vjp_kernel(ptab, mtab, wl_t, wl_s, bounds, rc2, g, symmetric,
-                        band):
-    """csrc/sr_vjp.cu's schedule in plain PyTorch: per-entry partials of
-    the target side (gp, gm, grc2's term) and the source side (gp, gm), a
-    NaN for every entry outside the bounds, each side's partials added per
-    slab in sr_kernel.band_order's order, band by band."""
+                        unit, stats=None):
+    """csrc/sr_vjp.cu in plain PyTorch: the target pass over the bounds in
+    worklist order, the source pass over sr_kernel.band_order's transposed
+    order, each with its units, split, skips and finalize
+    (``_emulate_pass``), then the two sides added a slot and grc2's terms
+    summed.  Checks that each pass visits every live entry once."""
+    stats = {} if stats is None else stats
     nslots = ptab.shape[1]
     nslab = nslots // SLAB
     g = g.clone()
     g[:, -SLAB:] = 0.0
-    tab = torch.cat([ptab, mtab[None]]).reshape(4, nslab, SLAB)
-    gt = g.reshape(3, nslab, SLAB)
-    acc_t = torch.zeros(5, nslab, SLAB)
-    acc_s = torch.zeros(4, nslab, SLAB)
-    e_max = wl_t.shape[0]
-    for e0 in range(0, e_max, band):
-        e1 = min(e0 + band, e_max)
-        te, se = wl_t[e0:e1].long(), wl_s[e0:e1].long()
-        pi, pj = tab[:, te][:, :, :, None], tab[:, se][:, :, None, :]
-        gi, gj = gt[:, te][:, :, :, None], gt[:, se][:, :, None, :]
-        d = pj[:3] - pi[:3]  # (3, entry, i, j)
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        q = r2 * (1.0 / rc2)
-        inside = (q < 1.0).to(r2.dtype)
-        u = torch.rsqrt(r2 + SOFTENING_SQUARED)
-        u3 = u * u * u
-        qc = q.clamp(max=1.0)
-        ds = 30.0 * (qc * (1.0 - qc)) ** 2
-        w = inside * (1.0 - pm._taper(qc)) * u3
-        dw = inside * (-1.5 * w * u * u - u3 * ds / rc2)
-        k = inside * u3 * ds * qc / rc2
-        off = ((se != te) & symmetric).to(r2.dtype)[:, None, None]
-        h = pj[3] * gi - off * pi[3] * gj
-        hd = (h * d).sum(dim=0)
-        v = w * h + 2.0 * dw * hd * d
-        part = torch.cat([
-            -v.sum(dim=3), (-off * w * (gj * d).sum(dim=0)).sum(dim=2)[None],
-            (k * hd).sum(dim=2)[None],  # the target side, (5, entry, 64)
-            v.sum(dim=2), (w * (gi * d).sum(dim=0)).sum(dim=1)[None]])
-        idx = torch.arange(e0, e1)
-        live = (idx >= bounds[0]) & (idx < bounds[1])
-        part[:, ~live] = float("nan")
-        for acc, wl, rows in ((acc_t, wl_t, slice(0, 5)),
-                              (acc_s, wl_s, slice(5, 9))):
-            perm, start = sr_kernel.band_order(wl, bounds, e0, e1, nslab)
-            for slab in range(nslab):
-                for r in range(int(start[slab]), int(start[slab + 1])):
-                    acc[:, slab] += part[rows, perm[r]]
-    gp = (acc_t[:3] + acc_s[:3]).reshape(3, -1)
-    gm = (acc_t[3] + acc_s[3]).reshape(-1)
-    return gp, gm, acc_t[4].sum()
+    tab = torch.cat([ptab, mtab[None]]).t().reshape(nslab, SLAB, 4)
+    gtab = g.t().reshape(nslab, SLAB, 3)
+    inv_rc2 = 1.0 / rc2
+    t_l, s_l = wl_t.tolist(), wl_s.tolist()
+    e_max = len(t_l)
+    b0, b1 = max(int(bounds[0]), 0), min(int(bounds[1]), e_max)
+    react = [symmetric and t != s for t, s in zip(t_l, s_l)]
+    perm, start = sr_kernel.band_order(wl_s, bounds, nslab)
+    live = int(start[nslab])
+    p_l = perm.tolist()
+    sums = []
+    for side in ("target", "source"):
+        st = stats.setdefault(side, dict(steps=0, box=0, vote=0,
+                                         dropped_max=0.0))
+        if side == "target":
+            acc, visits = _emulate_pass(tab, gtab, t_l, s_l, react, b0, b1,
+                                        unit, False, inv_rc2, st)
+            assert bool((visits[b0:b1] == 1).all())
+        else:
+            acc, visits = _emulate_pass(
+                tab, gtab, [s_l[e] for e in p_l], [t_l[e] for e in p_l],
+                [react[e] for e in p_l], 0, live, unit, True, inv_rc2, st)
+            seen = torch.zeros(e_max, dtype=torch.int64)
+            seen[perm[:live].long()] += visits[:live]
+            assert bool((seen[b0:b1] == 1).all())
+            assert int(seen.sum()) == b1 - b0
+        sums.append(acc.reshape(acc.shape[0], -1))
+    acc_t, acc_s = sums
+    return acc_t[:3] + acc_s[:3], acc_t[3] + acc_s[3], acc_t[4].sum()
 
 
-@pytest.mark.parametrize("layout", ["pallas", "pallas_sym"])
-@pytest.mark.parametrize("band", [7, 1 << 20])
-def test_vjp_kernel_schedule_emulated(layout, band):
-    """The kernel's partials, bands and fixed-order reduces, emulated with
-    bounds that cut the worklist at both ends, give the plain VJP."""
+def _vjp_case(layout, kind):
     sym = pm.SR_LAYOUTS[layout][0]
     pk, n_e = _sweep_inputs(n=512, ng=16, seed=4, symmetric=sym)
+    if kind == "long runs":
+        pk, n_e = _long_runs(pk, n_e)
     g = _t(np.random.default_rng(5).standard_normal(pk["ptab"].shape)
            .astype(np.float32))
     bounds = torch.tensor([3, n_e - 5], dtype=torch.int32)
-    args = (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"], bounds,
-            pk["rc2"], g)
+    return (pk["ptab"], pk["mtab"], pk["wl_t"], pk["wl_s"], bounds,
+            pk["rc2"], g), sym
+
+
+@pytest.mark.parametrize("kind", ["plan", "long runs"])
+@pytest.mark.parametrize("layout", ["pallas", "pallas_sym"])
+@pytest.mark.parametrize("unit", [3, "kernel"])
+def test_vjp_kernel_schedule_emulated(layout, unit, kind):
+    """The kernel's two passes, units, head and tail partials, finalize,
+    transposed order, split and skips, emulated with bounds that cut the
+    worklist at both ends, give the plain VJP; on the plan's worklist and on
+    one whose runs span many units on both sides."""
+    args, sym = _vjp_case(layout, kind)
+    unit = _vjp_unit() if unit == "kernel" else unit
     want = sr_kernel.sweep_vjp_plain(*args, symmetric=sym)
-    got = _emulate_vjp_kernel(*args, symmetric=sym, band=band)
+    got = _emulate_vjp_kernel(*args, symmetric=sym, unit=unit)
     for name, a, b in zip(("gp", "gm", "grc2"), got, want):
         assert bool(torch.isfinite(a).all()), name
         assert _max_err(a, b) <= 1e-5, name
 
 
+@pytest.mark.parametrize("layout", ["pallas", "pallas_sym"])
+def test_vjp_skipped_steps_have_zero_terms(layout):
+    """Every (warp, other) step that the box ballot or the vote drops has
+    w, w' and k exactly 0 on every lane, in both passes, with the kernel's
+    q; each skip drops some steps of each pass."""
+    args, sym = _vjp_case(layout, "long runs")
+    stats = {}
+    _emulate_vjp_kernel(*args, symmetric=sym, unit=_vjp_unit(), stats=stats)
+    for side in ("target", "source"):
+        st = stats[side]
+        assert st["dropped_max"] == 0.0, side
+        assert st["box"] > 0 and st["vote"] > 0, (side, st)
+        assert st["box"] + st["vote"] < st["steps"], side
+
+
+def test_vjp_skip_counts_match_the_emulation():
+    """sr_kernel.vjp_skip_counts (which chip_smoke.py and
+    scripts/sr_launch_shapes.py --stats print) counts each pass's steps and
+    dropped steps as the emulated kernel takes them."""
+    for layout in ("pallas", "pallas_sym"):
+        args, sym = _vjp_case(layout, "plan")
+        stats = {}
+        _emulate_vjp_kernel(*args, symmetric=sym, unit=_vjp_unit(),
+                            stats=stats)
+        got = sr_kernel.vjp_skip_counts(*args[:6])
+        for side in ("target", "source"):
+            st = stats[side]
+            assert got["steps"] == st["steps"], side
+            assert got[side] == st["box"] + st["vote"], side
+        assert 0 < got["inside"] < got["pairs"] == got["steps"] * 32
+
+
 def test_band_order_is_stable_and_drops_dead_entries():
     wl = torch.tensor([2, 0, 2, 1, 0, 2, 1], dtype=torch.int32)
     bounds = torch.tensor([1, 6], dtype=torch.int32)
-    perm, start = sr_kernel.band_order(wl, bounds, 1, 7, 3)
+    perm, start = sr_kernel.band_order(wl, bounds, 3)
     assert perm.dtype == start.dtype == torch.int32
-    # Band entries 1..6 hold slabs 0, 2, 1, 0, 2, 6 is dead: slab 0 at band
-    # positions 0 and 3, slab 1 at 2, slab 2 at 1 and 4.
+    # Entries 1..5 hold slabs 0, 2, 1, 0, 2; 0 and 6 are dead: slab 0 at
+    # entries 1 and 4, slab 1 at 3, slab 2 at 2 and 5.
     assert start.tolist() == [0, 2, 3, 5]
-    assert perm[:5].tolist() == [0, 3, 2, 1, 4]
+    assert perm[:5].tolist() == [1, 4, 3, 2, 5]
 
 
 def test_sweep_ad_forward_and_backward_on_the_cpu():
