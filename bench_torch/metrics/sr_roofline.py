@@ -1,0 +1,25 @@
+"""sr_roofline: the short-range sum's least time a step over its measured
+time.  Least: the unordered pairs inside the cutoff radius (counted here in
+plain torch, on the stretch's first and last states, the mean) at 38 flop
+(31 a pair and 7 for the reaction) at the fp32 peak, or 28 bytes a body at
+the memory peak if larger; measured: the device time a step inside the
+span around the short-range kernel's entry (``sr_kernel.sweep``)."""
+
+from harness import yardstick
+
+SPANS = {"sr": "nbody_tpu_torch.ops.sr_kernel:sweep"}
+
+
+def read(ctx):
+    t = ctx.trace
+    cfg = ctx.cell.config
+    if t is None or "cutoff_cells" not in cfg:
+        return None
+    us = t.device_us(*SPANS) / ctx.run.steps
+    if us <= 0:
+        return None
+    counts = [yardstick.sr_pairs(pos, mass, cfg["grid"], cfg["cutoff_cells"])
+              for pos, mass in ctx.stretch_states]
+    pairs = sum(c[0] for c in counts) / len(counts)
+    bodies = sum(c[1] for c in counts) / len(counts)
+    return 100.0 * yardstick.sr_step_seconds(pairs, bodies) * 1e6 / us

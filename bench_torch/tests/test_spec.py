@@ -1,0 +1,68 @@
+"""BENCHMARK.json and the files it names: every cell loads, every metric has
+a reader, and the names keep to the benchmark's rules."""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import sys
+
+import pytest
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+from harness import check, reference, spec  # noqa: E402
+
+with open(os.path.join(spec.ROOT, "BENCHMARK.json")) as f:
+    BENCH = json.load(f)
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+WORKLOADS = [w["name"] for w in BENCH["workloads"]]
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_cell_loads(workload):
+    cell = spec.load(workload)
+    e2e = {m.name for m in cell.end_to_end}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    assert cell.per_layer
+    assert all(m.moves in e2e for m in cell.per_layer)
+    assert callable(reference.solver(cell.config["solver"]).forces)
+    assert "program" in cell.config["control"] or cell.config["control"] == {
+        "reference": "bf16"}
+    assert cell.traffic["n"] > 0 and cell.traffic["block_steps"] > 0
+    assert 1 <= cell.check["reference_blocks"] <= cell.traffic[
+        "segment_blocks"]
+    assert set(cell.check["limits"]) <= set(check.NUMBERS)
+    # Each limit lies between the readings it was set from, with more room
+    # above the program's than below the control's.
+    for v in cell.check["limits"].values():
+        assert 0 < v["lower"] < v["limit"] < v["upper"]
+        assert v["limit"] / v["lower"] > v["upper"] / v["limit"]
+
+
+def test_names_files_and_readers():
+    metrics = BENCH["end_to_end"] + BENCH["per_layer"]
+    names = ([c["name"] for c in BENCH["configs"]] + WORKLOADS
+             + [m["name"] for m in metrics]
+             + [w["traffic"] for w in BENCH["workloads"]])
+    assert all(NAME.match(n) for n in names)
+    assert len(set(WORKLOADS)) == len(WORKLOADS)
+    for c in BENCH["configs"]:
+        assert c["file"].startswith(BENCH["paths"][0] + "/")
+        with open(os.path.join(spec.ROOT, c["file"])) as f:
+            assert json.load(f)["name"] == c["name"]
+    for m in metrics:
+        assert callable(spec.reader(m["name"]))
+    # Every span a metric reads names the program's function as
+    # "module:function" or "runner:attribute".
+    spans = spec.spans([spec.Metric(m["name"], m["unit"], None)
+                        for m in BENCH["per_layer"]])
+    assert spans and all(len(t.split(":")) == 2 for t in spans.values())
+    assert any(m["name"] == "setup_s" for m in BENCH["end_to_end"])
+
+
+def test_unknown_workload():
+    with pytest.raises(KeyError):
+        spec.load("no-such-cell")
