@@ -437,6 +437,7 @@ def mesh_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
         tiled_kernel,
         vjp_kernel,
     )
+    from nbody_tpu_torch.utils import spans
 
     # 12. The P3M short-range kernel against its plain version.
     gate = P3M_GATE
@@ -544,15 +545,16 @@ def mesh_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
     counters = (sr_kernel, tiled_kernel, sym_kernel, fused_block, vjp_kernel)
     for mod in counters:
         mod.launches = 0
-    syncs = pm.host_syncs
+    syncs = spans.counts["host_syncs"]
     res = run(SimConfig(n=n, nsteps=16, sfreq=8, kernel="p3m",
                         distribution="plummer", seed=gate["seed"]), quiet=True)
     counts = tuple(mod.launches for mod in counters)
+    syncs = spans.counts["host_syncs"] - syncs
     launches["sr"] = counts[0]
     kes = [ke for _, ke in res.kenergy_trace]
     step_ms = [1e3 * b / 8 for (_, _, _, b, _) in res.samples]
     print(f"p3m run N={n} plummer, 16 steps: sr/tiled/sym/fused/vjp launches "
-          f"{counts}, {pm.host_syncs - syncs} host syncs; ms per step "
+          f"{counts}, {syncs} host syncs; ms per step "
           f"{', '.join(f'{t:.3f}' for t in step_ms)}; energies "
           f"{', '.join(f'{k:.6g}' for k in kes)} {tag}", flush=True)
     if counts != (24, 0, 0, 0, 0):
@@ -792,7 +794,7 @@ def periodic_phases(dev, tag: str, ms: dict, launches: dict) -> None:
         tiled_kernel,
         vjp_kernel,
     )
-    from nbody_tpu_torch.utils import build
+    from nbody_tpu_torch.utils import build, spans
 
     ng, cutoff, box = PERIODIC["grid"], PERIODIC["cutoff"], PERIODIC["box"]
     bkw = dict(boundary="periodic", box_size=box)
@@ -944,15 +946,16 @@ def periodic_phases(dev, tag: str, ms: dict, launches: dict) -> None:
     for kernel, want in (("p3m", 12), ("pm", 0)):
         for mod in counters:
             mod.launches = 0
-        syncs = pm.host_syncs
+        syncs = spans.counts["host_syncs"]
         res = run(SimConfig(n=N_UNIFORM, nsteps=8, sfreq=4, kernel=kernel,
                             pm_boundary="periodic", pm_box=box), quiet=True)
         counts = tuple(mod.launches for mod in counters)
+        syncs = spans.counts["host_syncs"] - syncs
         kes = [ke for _, ke in res.kenergy_trace]
         step_ms = [1e3 * b / 4 for (_, _, _, b, _) in res.samples]
         print(f"periodic {kernel} run N={N_UNIFORM} reference, L={box}, 8 "
               f"steps: sr/tiled/sym/fused/vjp launches {counts}, "
-              f"{pm.host_syncs - syncs} host syncs; ms per step "
+              f"{syncs} host syncs; ms per step "
               f"{', '.join(f'{t:.3f}' for t in step_ms)}; energies "
               f"{', '.join(f'{k:.6g}' for k in kes)} {tag}", flush=True)
         if counts != (want, 0, 0, 0, 0):

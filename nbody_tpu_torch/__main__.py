@@ -40,7 +40,9 @@ Options:
     --json PATH                    also write the run result as JSON ('-' =
                                    stdout)
     --profile-dir DIR              write a torch.profiler trace of the
-                                   sample blocks into DIR
+                                   sample blocks into DIR, with the
+                                   program's nbt.* spans (block, accel,
+                                   mesh and P3M stages, sync.*, health)
     --debug-nans                   raise FloatingPointError on a non-finite
                                    position, velocity or energy after a block
     --list-devices                 print the CUDA devices and the CPU, exit
@@ -157,7 +159,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write the run result as JSON ('-' = stdout)")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the sample blocks "
-                        "into DIR")
+                        "into DIR; it holds the program's nbt.* spans "
+                        "(utils/spans.py: the block, each force call, the "
+                        "mesh and P3M stages, every host sync as nbt.sync.*, "
+                        "the P3M health check)")
     p.add_argument("--debug-nans", action="store_true",
                    help="raise on a non-finite position, velocity or energy "
                         "after a sample block")

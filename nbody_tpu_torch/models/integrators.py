@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..state import ParticleState
+from ..utils import spans
 from .gravity import AccelFn, kinetic_energy
 
 INTEGRATORS = ("euler", "leapfrog")
@@ -37,22 +38,27 @@ def advance(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
     """``steps`` steps from (pos, vel), returned as new tensors.  With an
     ``env``, every force evaluation is ``accel_fn(pos, mass, mesh_env=env)``."""
     dtf, half = step_sizes(dt)
-    if env is not None:
-        accel_fn = functools.partial(accel_fn, mesh_env=env)
+    force = functools.partial(accel_fn, mesh_env=env) if env is not None \
+        else accel_fn
+
+    def accel(pos):
+        with spans.span("accel"):
+            return force(pos, mass)
+
     if integrator == "euler":
         for _ in range(steps):
-            acc = accel_fn(pos, mass)
+            acc = accel(pos)
             vel = vel + acc * dtf
             pos = pos + vel * dtf
         return pos, vel
     if integrator == "leapfrog":
         # One extra force evaluation per block re-seeds the carried
         # acceleration (state holds no acc between blocks).
-        acc = accel_fn(pos, mass)
+        acc = accel(pos)
         for _ in range(steps):
             vel_h = vel + acc * half  # kick
             pos = pos + vel_h * dtf  # drift
-            acc = accel_fn(pos, mass)
+            acc = accel(pos)
             vel = vel_h + acc * half  # kick
         return pos, vel
     raise ValueError(f"unknown integrator {integrator!r}; options: {INTEGRATORS}")
@@ -72,7 +78,10 @@ def make_block_fn(accel_fn: AccelFn, dt: float, block_steps: int,
             f"unknown integrator {integrator!r}; options: {INTEGRATORS}")
 
     def block(state: ParticleState):
-        env = env_fn(state.pos, state.mass) if env_fn else None
+        env = None
+        if env_fn:
+            with spans.span("mesh.env"):
+                env = env_fn(state.pos, state.mass)
         pos, vel = advance(state.pos, state.vel, state.mass, accel_fn, dt,
                            block_steps, integrator, env=env)
         new = ParticleState(pos=pos, vel=vel, mass=state.mass, n=state.n)

@@ -32,8 +32,13 @@ What differs from the JAX package:
   zeroed on its own axis: JAX's ``ifftn(...).real`` drops that entry (its
   Hermitian part is zero), which a half-spectrum ``irfftn`` cannot do.
 * The overflow ``lax.cond`` is a Python branch on ``bool(has_over)``: one
-  host sync per P3M step (counted in ``host_syncs``).  Computing both
-  branches instead would cost seven extra (2 ng)^3 transforms a step.
+  host sync per P3M step (``sync.p3m_overflow``, counted in
+  ``utils/spans.counts``).  Computing both branches instead would cost
+  seven extra (2 ng)^3 transforms a step.
+* Every host sync of the solver and its plan sits in a ``spans.sync``,
+  the explicit reads and the copies of small constants from pageable host
+  memory (which wait for the stream) alike; each stage of a step sits in a
+  ``spans.span`` (``mesh.*``, ``p3m.*``, ``sr``).
 * The short-range dispatch: on a CUDA tensor the hand kernel in the layout
   ``SR_SYMMETRIC`` / ``SR_PAIRED_ROWS`` (paired rows only on the card, as
   the JAX package pairs them only on its accelerator); on the CPU the plain
@@ -66,6 +71,7 @@ import math
 import torch
 
 from ..types import G_NEWTON, SOFTENING_SQUARED
+from ..utils import spans
 
 DEFAULT_GRID = 128
 # P3M split radius in cell-list cells (R_c ~ cutoff_cells grid spacings).
@@ -96,11 +102,29 @@ SR_LAYOUTS: dict = {
     "pallas_paired_sym": (True, True),
 }
 
-# Host syncs taken by the P3M overflow branch (one per solve).
-host_syncs = 0
-
 _I32 = torch.int32
 _F32 = torch.float32
+
+
+def _const(values, dtype, device, site: str) -> torch.Tensor:
+    """A constant from the host on ``device``: on the card the copy from
+    pageable memory waits for the stream, a host sync (``sync.<site>``)."""
+    with spans.sync(site):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _read(x, site: str) -> int:
+    """``int(x)`` of a 0-d device tensor: a host sync (``sync.<site>``)."""
+    with spans.sync(site):
+        return int(x)
+
+
+def _stage(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)`` inside the span ``name``, opened around the call
+    so that a profiler range wrapped around ``fn`` itself stays innermost:
+    the profiler credits each kernel to the innermost range only."""
+    with spans.span(name):
+        return fn(*args, **kw)
 
 
 def sr_layout_state() -> tuple:
@@ -253,7 +277,8 @@ def _inverse(specs, ng: int):
 def _pm_force_grids(rho_hat, h, ng: int, spectra=None):
     """Plain-PM acceleration grids a(c) = -(rho * f)(c) per component."""
     kx, ky, kz = spectra or _force_kernel_spectra(h, ng)
-    return _inverse((rho_hat * kx, rho_hat * ky, rho_hat * kz), ng)
+    return _stage("mesh.ifft", _inverse,
+                  (rho_hat * kx, rho_hat * ky, rho_hat * kz), ng)
 
 
 def _p3m_force_grids(rho_hat, rho_over_hat_fn, h, ng: int, rc2,
@@ -263,15 +288,18 @@ def _p3m_force_grids(rho_hat, rho_over_hat_fn, h, ng: int, rc2,
     ``comp_grids`` carries the binned mass's complement field for
     overflowed targets; without, the seven extra transforms are skipped
     and ``comp_grids`` is None.
-    ``has_over`` is a Python bool: the caller's one host sync."""
+    ``has_over`` is a Python bool: the caller's overflow sync."""
     (kx, ky, kz), (sx, sy, sz) = spectra or _p3m_spectra(h, ng, rc2)
     if has_over:
         roh = rho_over_hat_fn()
-        g = _inverse((rho_hat * kx + roh * sx, rho_hat * ky + roh * sy,
-                      rho_hat * kz + roh * sz), ng)
+        g = _stage("mesh.ifft", _inverse,
+                   (rho_hat * kx + roh * sx, rho_hat * ky + roh * sy,
+                    rho_hat * kz + roh * sz), ng)
         rest = rho_hat - roh
-        return g, _inverse((rest * sx, rest * sy, rest * sz), ng)
-    return _inverse((rho_hat * kx, rho_hat * ky, rho_hat * kz), ng), None
+        return g, _stage("mesh.ifft", _inverse,
+                         (rest * sx, rest * sy, rest * sz), ng)
+    return _stage("mesh.ifft", _inverse,
+                  (rho_hat * kx, rho_hat * ky, rho_hat * kz), ng), None
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +319,7 @@ def _robust_box(pos, mass):
     stride = max(1, pos.shape[1] // 65536)
     nanpos = torch.where(real[:, ::stride], pos[:, ::stride], math.nan)
     q = torch.nanquantile(
-        nanpos, torch.tensor([0.005, 0.995], dtype=_F32, device=pos.device),
+        nanpos, _const([0.005, 0.995], _F32, pos.device, "box_quantiles"),
         dim=1)  # (2, 3)
     return _box_from_stats(lo_exact, hi_exact, q[0][:, None], q[1][:, None])
 
@@ -473,7 +501,7 @@ def _sr_ranges(slab_lo, slab_hi, nc: int, sub: int, e_max: int,
     n_cells = nc * nc * nc
     offs = sorted((ox * nc + oy) * nc for ox in range(-sub, sub + 1)
                   for oy in range(-sub, sub + 1))
-    off_arr = torch.tensor(offs, dtype=_I32, device=dev)[None, :]
+    off_arr = _const(offs, _I32, dev, "worklist_offsets")[None, :]
     n_rows = len(offs)
     has = slab_lo < n_cells
     lo_w = slab_lo[:, None] + (off_arr - sub)
@@ -644,10 +672,9 @@ def _periodic_phi_spectrum(box, ng: int, device):
     (the uniform background's subtraction)."""
     kx, ky, kz = _periodic_axes(box, ng, device)
     k2 = kx * kx + ky * ky + kz * kz
-    eps = torch.sqrt(torch.tensor(SOFTENING_SQUARED, dtype=_F32,
-                                  device=device))
+    eps = torch.sqrt(_const(SOFTENING_SQUARED, _F32, device, "periodic_eps"))
     g = _xk1(eps * torch.sqrt(k2))
-    h3 = torch.tensor(_f32_quotient(box, ng), dtype=_F32, device=device) ** 3
+    h3 = _const(_f32_quotient(box, ng), _F32, device, "periodic_h3") ** 3
     phi = (_F32_4PI * g) / k2.clamp_min(1e-30) / h3
     return torch.where(k2 > 0, phi, 0.0)
 
@@ -674,7 +701,8 @@ def _pm_force_grids_periodic(rho_hat, box, ng: int, spectra=None):
     by +i k_j phi_hat (a = +grad of the potential sum under this module's
     a_i = sum_j m_j (x_j - x_i) u^3 convention), one irfftn a component."""
     spectra = spectra or _pm_force_spectra_periodic(box, ng, rho_hat.device)
-    return _periodic_inverse([rho_hat * s for s in spectra], ng)
+    return _stage("mesh.ifft", _periodic_inverse,
+                  [rho_hat * s for s in spectra], ng)
 
 
 def _cic_weights_periodic(pos, box, ng: int):
@@ -786,10 +814,10 @@ def _ghost_images(pos_w, mass, box, rc, gcap: int):
                            out_int32=True).clamp(max=bcap - 1)
     valid = slots < cumg[-1]
     rank = (slots - (cumg[p] - gc_b[p])).clamp(0, 6)
-    table = torch.tensor(_GHOST_COMBO_TABLE, dtype=torch.int64, device=dev)
+    table = _const(_GHOST_COMBO_TABLE, torch.int64, dev, "ghost_table")
     ci = table[mask_b[p].long(), rank.long()]
     pi = torch.where(valid, bidx[p], slots % n)  # spread, as in _sr_pack
-    combos = torch.tensor(_GHOST_COMBOS, dtype=_I32, device=dev).t()  # (3, 7)
+    combos = _const(_GHOST_COMBOS, _I32, dev, "ghost_combos").t()  # (3, 7)
     shift = torch.where(combos[:, ci] == 1, sig[:, pi], 0)  # (3, gcap)
     gpos = torch.where(valid[None, :], pos_w[:, pi] + L * shift.to(_F32), 0.0)
     gmass = torch.where(valid, mass[pi], 0.0)
@@ -817,7 +845,7 @@ def _periodic_geom(ng: int, cutoff_cells: int, box: float, device):
     tensor, lo_cell and span_tot (3, 1) f32."""
     nc, sub = _periodic_cells(ng, cutoff_cells)
     cs = box / nc
-    rc = torch.tensor(sub * cs, dtype=_F32, device=device)
+    rc = _const(sub * cs, _F32, device, "periodic_rc")
     lo_cell = torch.full((3, 1), -sub * cs, dtype=_F32, device=device)
     span_tot = torch.full((3, 1), box + 2 * sub * cs, dtype=_F32,
                           device=device)
@@ -830,7 +858,8 @@ def _periodic_ghost_bin(src_w, mass, box, rc, nc_tot: int, lo_cell, span_tot,
     layout ``[sources | ghosts(gcap)]``, or ``[sources | ghosts(gcap) |
     targets]`` when distinct targets join as massless receivers.  Returns
     ``(pos_bin, m_bin, cid, n_ghost)``."""
-    gpos, gmass, n_ghost = _ghost_images(src_w, mass, box, rc, gcap)
+    gpos, gmass, n_ghost = _stage("mesh.ghosts", _ghost_images, src_w, mass,
+                                  box, rc, gcap)
     if tgt_w is None:
         pos_bin = torch.cat([src_w, gpos], dim=1)
         m_bin = torch.cat([mass, gmass])
@@ -858,22 +887,25 @@ def _periodic_sr_tables(pos_src, mass_src, grid: int, box: float,
     does, and ``src_w, tgt_w, pslot, binned, n_ghost, gcap, s_max``."""
     pos_src, mass_src = pos_src.to(_F32), mass_src.to(_F32)
     ng = int(grid)
-    nc, sub, rc, nc_tot, lo_cell, span_tot = _periodic_geom(
-        ng, int(cutoff_cells), float(box), pos_src.device)
-    src_w = _wrap_box(pos_src, box)
-    tgt_w = src_w if pos_tgt is None else _wrap_box(pos_tgt.to(_F32), box)
-    ns = pos_src.shape[1]
-    gcap = _ghost_cap(ns, sr_ghosts)
-    pos_bin, m_bin, cid, n_ghost = _periodic_ghost_bin(
-        src_w, mass_src, box, rc, nc_tot, lo_cell, span_tot, gcap,
-        tgt_w=None if pos_tgt is None else tgt_w)
-    n_cells = nc_tot ** 3
-    cap, s_max, e_max = _sr_sizing(ns, pos_bin.shape[1], n_cells, capacity,
-                                   sr_slabs, sr_entries)
-    ptab, mtab, slab_lo, slab_hi, pslot, binned = _sr_pack(
-        cid, pos_bin, m_bin, n_cells, cap, s_max)
-    wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc_tot, sub, e_max,
-                                 symmetric=symmetric, paired=paired)
+    with spans.span("p3m.bin"):
+        nc, sub, rc, nc_tot, lo_cell, span_tot = _periodic_geom(
+            ng, int(cutoff_cells), float(box), pos_src.device)
+        src_w = _wrap_box(pos_src, box)
+        tgt_w = src_w if pos_tgt is None else _wrap_box(pos_tgt.to(_F32),
+                                                        box)
+        ns = pos_src.shape[1]
+        gcap = _ghost_cap(ns, sr_ghosts)
+        pos_bin, m_bin, cid, n_ghost = _periodic_ghost_bin(
+            src_w, mass_src, box, rc, nc_tot, lo_cell, span_tot, gcap,
+            tgt_w=None if pos_tgt is None else tgt_w)
+        n_cells = nc_tot ** 3
+        cap, s_max, e_max = _sr_sizing(ns, pos_bin.shape[1], n_cells,
+                                       capacity, sr_slabs, sr_entries)
+        ptab, mtab, slab_lo, slab_hi, pslot, binned = _sr_pack(
+            cid, pos_bin, m_bin, n_cells, cap, s_max)
+    with spans.span("p3m.worklist"):
+        wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc_tot, sub, e_max,
+                                     symmetric=symmetric, paired=paired)
     return dict(ptab=ptab, mtab=mtab, wl_t=wl_t, wl_s=wl_s, n_e=n_e,
                 e_max=e_max, rc2=rc * rc, src_w=src_w, tgt_w=tgt_w,
                 pslot=pslot, binned=binned, n_ghost=n_ghost, gcap=gcap,
@@ -917,13 +949,15 @@ def _periodic_p3m_force_grids(rho_hat, rho_over_hat_fn, comb, comp, ng: int,
     """(acc_grids, comp_grids) of periodic P3M, as _p3m_force_grids: under
     overflow the unbinned sources' full force rides rho C - roh S and the
     targets' complement field is (roh - rho) S; without, comp_grids is
-    None.  ``has_over`` is a Python bool: the caller's one host sync."""
+    None.  ``has_over`` is a Python bool: the caller's overflow sync."""
     if has_over:
         roh = rho_over_hat_fn()
-        g = _periodic_inverse([rho_hat * c - roh * s
-                               for c, s in zip(comb, comp)], ng)
-        return g, _periodic_inverse([(roh - rho_hat) * s for s in comp], ng)
-    return _periodic_inverse([rho_hat * c for c in comb], ng), None
+        g = _stage("mesh.ifft", _periodic_inverse,
+                   [rho_hat * c - roh * s for c, s in zip(comb, comp)], ng)
+        return g, _stage("mesh.ifft", _periodic_inverse,
+                         [(roh - rho_hat) * s for s in comp], ng)
+    return _stage("mesh.ifft", _periodic_inverse,
+                  [rho_hat * c for c in comb], ng), None
 
 
 def periodic_potential_energy(pos, mass, box: float,
@@ -950,9 +984,12 @@ def _periodic_between(pos_tgt, pos_src, mass_src, ng: int, box: float,
     CIC deposit, ng^3 rfftn, the closed-form spectra, wrapped CIC gather.
     Differentiable through autograd (the wrap is the identity almost
     everywhere; the spectra are constants)."""
-    rho_hat = torch.fft.rfftn(_deposit_periodic(pos_src, mass_src, box, ng))
+    rho = _stage("mesh.deposit", _deposit_periodic, pos_src, mass_src, box,
+                 ng)
+    rho_hat = _stage("mesh.fft", torch.fft.rfftn, rho)
     acc_grids = _pm_force_grids_periodic(rho_hat, box, ng, spectra)
-    return _gather_periodic(acc_grids, pos_tgt, box, ng) * G_NEWTON
+    return _stage("mesh.gather", _gather_periodic, acc_grids, pos_tgt, box,
+                  ng) * G_NEWTON
 
 
 def _periodic_p3m_between(pos_tgt, pos_src, mass_src, same_set: bool,
@@ -971,7 +1008,6 @@ def _periodic_p3m_between(pos_tgt, pos_src, mass_src, same_set: bool,
     forces through the complement field.  A ghost that overflowed while its
     parent binned does not turn the complement on (it would count the
     parent's field twice)."""
-    global host_syncs
     sym, pr = _active_sr_layout(pos_src.is_cuda, differentiable)
     tabs = _periodic_sr_tables(
         pos_src, mass_src, ng, box, cutoff_cells, capacity, sr_slabs,
@@ -984,15 +1020,17 @@ def _periodic_p3m_between(pos_tgt, pos_src, mass_src, same_set: bool,
     over = (~binned_src & (mass_src > 0)).any()
     if not same_set:
         over = over | (~binned[ns + gcap:]).any()
-    has_over = bool(over)  # the one host sync
-    host_syncs += 1
-    rho_hat = torch.fft.rfftn(_deposit_periodic(src_w, mass_src, box, ng))
+    with spans.sync("p3m_overflow"):
+        has_over = bool(over)  # the branch's host sync
+    rho = _stage("mesh.deposit", _deposit_periodic, src_w, mass_src, box, ng)
+    rho_hat = _stage("mesh.fft", torch.fft.rfftn, rho)
     comb, comp = spectra or _periodic_p3m_spectra(box, ng, tabs["rc2"])
     acc_grids, comp_grids = _periodic_p3m_force_grids(
         rho_hat,
-        lambda: torch.fft.rfftn(_deposit_periodic(src_w, m_over, box, ng)),
+        lambda: _stage("mesh.fft", torch.fft.rfftn, _stage(
+            "mesh.deposit", _deposit_periodic, src_w, m_over, box, ng)),
         comb, comp, ng, has_over)
-    acc = _gather_periodic(acc_grids, tgt_w, box, ng)
+    acc = _stage("mesh.gather", _gather_periodic, acc_grids, tgt_w, box, ng)
     n_e, e_max = tabs["n_e"], tabs["e_max"]
     bounds = torch.stack([torch.zeros_like(n_e), n_e.clamp(max=e_max)])
     atab = _sr_sweep(tabs["ptab"], tabs["mtab"], tabs["wl_t"], tabs["wl_s"],
@@ -1000,7 +1038,8 @@ def _periodic_p3m_between(pos_tgt, pos_src, mass_src, same_set: bool,
     tgt = slice(0, ns) if same_set else slice(ns + gcap, None)
     a_sr = _gather_slots(atab, tabs["pslot"][tgt], binned[tgt])
     if has_over:
-        a_comp = _gather_periodic(comp_grids, tgt_w, box, ng)
+        a_comp = _stage("mesh.gather", _gather_periodic, comp_grids, tgt_w,
+                        box, ng)
     else:
         a_comp = torch.zeros_like(tgt_w)
     acc = acc + torch.where(binned[tgt][None, :], a_sr, a_comp)
@@ -1071,11 +1110,12 @@ def _sr_sweep(ptab, mtab, wl_t, wl_s, bounds, rc2, symmetric: bool,
     which carries the VJP (the JAX package's ``_sr_sweep_pallas_ad``)."""
     from . import sr_kernel
 
-    if differentiable:
-        return sr_kernel.sweep_ad(ptab, mtab, wl_t, wl_s, bounds, rc2,
-                                  symmetric=symmetric)
-    return sr_kernel.sweep(ptab, mtab, wl_t, wl_s, bounds, rc2,
-                           symmetric=symmetric, paired=paired)
+    with spans.span("sr"):
+        if differentiable:
+            return sr_kernel.sweep_ad(ptab, mtab, wl_t, wl_s, bounds, rc2,
+                                      symmetric=symmetric)
+        return sr_kernel.sweep(ptab, mtab, wl_t, wl_s, bounds, rc2,
+                               symmetric=symmetric, paired=paired)
 
 
 def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
@@ -1096,7 +1136,6 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
     ``differentiable`` runs P3M's sweep with its VJP, paired rows off
     (_sr_sweep); plain pm differentiates through autograd either way.
     Extra registry options (tiles) are accepted and ignored."""
-    global host_syncs
     ng = int(grid)
     if ng < 8:
         raise ValueError(f"pm grid must be >= 8, got {ng}")
@@ -1117,71 +1156,78 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
             int(cutoff_cells), capacity, sr_slabs, sr_entries, sr_ghosts,
             differentiable=differentiable, spectra=p_spec)
     spectra = None
-    if mesh_env:
-        spectra = _check_mesh_env(mesh_env, ng, cutoff_cells)
-        lo_box, hi_box = mesh_env["lo_box"], mesh_env["hi_box"]
-    else:
-        lo_box, hi_box = _robust_box(pos_src, mass_src)
-    span = hi_box - lo_box
-    in_src = _inside(pos_src, lo_box, hi_box)
-    in_tgt = _inside(pos_tgt, lo_box, hi_box)
-    m_in = mass_src * in_src
-    M_in, com_in, octs = _outlier_moments(pos_src, mass_src, m_in, lo_box,
-                                          hi_box)
-    # ng-3 usable cells: one margin cell each side plus the CIC corner.
-    h = (span / float(ng - 3))[:, 0]
-    inv_h = 1.0 / h[:, None]
-    lo = lo_box - h[:, None]
-    rho = _deposit(pos_src, m_in, lo, inv_h, ng)
+    with spans.span("mesh.box"):
+        if mesh_env:
+            spectra = _check_mesh_env(mesh_env, ng, cutoff_cells)
+            lo_box, hi_box = mesh_env["lo_box"], mesh_env["hi_box"]
+        else:
+            lo_box, hi_box = _robust_box(pos_src, mass_src)
+        span = hi_box - lo_box
+        in_src = _inside(pos_src, lo_box, hi_box)
+        in_tgt = _inside(pos_tgt, lo_box, hi_box)
+        m_in = mass_src * in_src
+        M_in, com_in, octs = _outlier_moments(pos_src, mass_src, m_in,
+                                              lo_box, hi_box)
+        # ng-3 usable cells: one margin cell each side plus the CIC corner.
+        h = (span / float(ng - 3))[:, 0]
+        inv_h = 1.0 / h[:, None]
+        lo = lo_box - h[:, None]
+    rho = _stage("mesh.deposit", _deposit, pos_src, m_in, lo, inv_h, ng)
     m = 2 * ng
-    rho_hat = torch.fft.rfftn(rho, s=(m, m, m))
+    rho_hat = _stage("mesh.fft", torch.fft.rfftn, rho, s=(m, m, m))
     if cutoff_cells:
         nc, sub = _cell_grid_params(ng, cutoff_cells)
         n_cells = nc * nc * nc
         ns = pos_src.shape[1]
-        if same_set:
-            pos_bin, m_bin, inc = pos_src, m_in, m_in > 0
-        else:
-            pos_bin = torch.cat([pos_src, pos_tgt], dim=1)
-            m_bin = torch.cat([m_in, torch.zeros_like(pos_tgt[0])])
-            inc = torch.cat([m_in > 0, in_tgt > 0])
-        cap, s_max, e_max = _sr_sizing(ns, pos_bin.shape[1], n_cells,
-                                       capacity, sr_slabs, sr_entries)
-        rc2 = _sr_rc2(span, nc, sub)
-        cid = _bin_cids(pos_bin, lo_box, span, nc, inc)
-        ptab, mtab, slab_lo, slab_hi, pslot, binned_all = _sr_pack(
-            cid, pos_bin, m_bin, n_cells, cap, s_max)
-        binned = binned_all[:ns]
-        m_over = torch.where(binned, 0.0, m_in)
-        has_over = bool((~binned_all & inc).any())  # the one host sync
-        host_syncs += 1
+        with spans.span("p3m.bin"):
+            if same_set:
+                pos_bin, m_bin, inc = pos_src, m_in, m_in > 0
+            else:
+                pos_bin = torch.cat([pos_src, pos_tgt], dim=1)
+                m_bin = torch.cat([m_in, torch.zeros_like(pos_tgt[0])])
+                inc = torch.cat([m_in > 0, in_tgt > 0])
+            cap, s_max, e_max = _sr_sizing(ns, pos_bin.shape[1], n_cells,
+                                           capacity, sr_slabs, sr_entries)
+            rc2 = _sr_rc2(span, nc, sub)
+            cid = _bin_cids(pos_bin, lo_box, span, nc, inc)
+            ptab, mtab, slab_lo, slab_hi, pslot, binned_all = _sr_pack(
+                cid, pos_bin, m_bin, n_cells, cap, s_max)
+            binned = binned_all[:ns]
+            m_over = torch.where(binned, 0.0, m_in)
+            over = (~binned_all & inc).any()
+        with spans.sync("p3m_overflow"):
+            has_over = bool(over)  # the branch's host sync
         acc_grids, comp_grids = _p3m_force_grids(
             rho_hat,
-            lambda: torch.fft.rfftn(_deposit(pos_src, m_over, lo, inv_h, ng),
-                                    s=(m, m, m)),
+            lambda: _stage("mesh.fft", torch.fft.rfftn, _stage(
+                "mesh.deposit", _deposit, pos_src, m_over, lo, inv_h, ng),
+                s=(m, m, m)),
             h, ng, rc2, has_over, spectra=spectra)
     else:
         acc_grids = _pm_force_grids(rho_hat, h, ng, spectra=spectra)
-    acc = _gather(acc_grids, pos_tgt, lo, inv_h, ng)
+    acc = _stage("mesh.gather", _gather, acc_grids, pos_tgt, lo, inv_h, ng)
     if cutoff_cells:
-        sym, pr = _active_sr_layout(ptab.is_cuda, differentiable)
-        wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc, sub, e_max,
-                                     symmetric=sym, paired=pr)
-        bounds = torch.stack([torch.zeros_like(n_e),
-                              n_e.clamp(max=e_max)])
+        with spans.span("p3m.worklist"):
+            sym, pr = _active_sr_layout(ptab.is_cuda, differentiable)
+            wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc, sub, e_max,
+                                         symmetric=sym, paired=pr)
+            bounds = torch.stack([torch.zeros_like(n_e),
+                                  n_e.clamp(max=e_max)])
         atab = _sr_sweep(ptab, mtab, wl_t, wl_s, bounds, rc2, sym, pr,
                          differentiable)
         tgt_slot = pslot if same_set else pslot[ns:]
         tgt_binned = binned_all if same_set else binned_all[ns:]
         a_sr = _gather_slots(atab, tgt_slot, tgt_binned)
         if has_over:
-            a_comp = _gather(comp_grids, pos_tgt, lo, inv_h, ng)
+            a_comp = _stage("mesh.gather", _gather, comp_grids, pos_tgt, lo,
+                            inv_h, ng)
         else:
             a_comp = torch.zeros_like(pos_tgt)
         acc = acc + torch.where(tgt_binned[None, :], a_sr, a_comp)
-    acc = torch.where(in_tgt > 0, acc, _monopole(pos_tgt, M_in, com_in))
-    for M_k, com_k in octs:
-        acc = acc + _monopole(pos_tgt, M_k, com_k)
+    with spans.span("mesh.box"):
+        acc = torch.where(in_tgt > 0, acc, _monopole(pos_tgt, M_in, com_in))
+        for M_k, com_k in octs:
+            acc = acc + _monopole(pos_tgt, M_k, com_k)
     return acc * G_NEWTON
 
 
@@ -1328,8 +1374,8 @@ def suggest_capacity(pos, mass, grid: int = DEFAULT_GRID,
     """Host-side cell capacity: the measured max cell occupancy times
     ``headroom``, a power of two in [64, max_capacity]."""
     _check_boundary(boundary, box_size)
-    occ = int(_max_occupancy(pos, mass, int(grid), int(cutoff_cells),
-                             boundary, box_size))
+    occ = _read(_max_occupancy(pos, mass, int(grid), int(cutoff_cells),
+                               boundary, box_size), "plan")
     cap = 64
     while cap < headroom * occ and cap < max_capacity:
         cap *= 2
@@ -1352,7 +1398,8 @@ def ghost_overflow_count(pos, mass, grid: int = DEFAULT_GRID,
     their whole short-range term (no complement makes up for them): raise
     ``sr_ghosts`` or re-run suggest_sr_plan."""
     gcap = _ghost_cap(pos.shape[1], sr_ghosts)
-    n = int(_ghost_count(pos, mass, grid, cutoff_cells, box_size))
+    n = _read(_ghost_count(pos, mass, grid, cutoff_cells, box_size),
+              "ghost_overflow")
     return max(0, n - gcap)
 
 
@@ -1430,7 +1477,7 @@ def suggest_sr_plan(pos, mass, grid: int = DEFAULT_GRID,
                                             box_size=box_size)
     s, e4, g = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
                                boundary, box_size)
-    s_planned = _pow2_at_least(int(s) * headroom)
+    s_planned = _pow2_at_least(_read(s, "plan") * headroom)
     if layout == "full":
         sym, pr = False, False
     elif layout is None:
@@ -1441,11 +1488,11 @@ def suggest_sr_plan(pos, mass, grid: int = DEFAULT_GRID,
                              f"{tuple(SR_LAYOUTS)} or 'full'")
         sym, want_pr = SR_LAYOUTS[layout]
         pr = want_pr and pos.is_cuda and not differentiable
-    e = int(e4[int(sym) + 2 * int(pr)])
+    e = _read(e4[int(sym) + 2 * int(pr)], "plan")
     plan = {"capacity": cap, "sr_slabs": s_planned,
             "sr_entries": _pow2_at_least(e * headroom)}
     if boundary == "periodic":
-        plan["sr_ghosts"] = min(_pow2_at_least(int(g) * headroom),
+        plan["sr_ghosts"] = min(_pow2_at_least(_read(g, "plan") * headroom),
                                 7 * pos.shape[1])
     return plan
 
@@ -1479,7 +1526,7 @@ def sr_entry_overflow(pos, mass, grid: int = DEFAULT_GRID,
     sym, pr = _active_sr_layout(pos.is_cuda, differentiable)
     e4 = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
                          boundary, box_size)[1]
-    return max(0, int(e4[int(sym) + 2 * int(pr)]) - e_max)
+    return max(0, _read(e4[int(sym) + 2 * int(pr)], "entry_overflow") - e_max)
 
 
 def force_error_vs_exact(pos, mass, grid: int = DEFAULT_GRID,

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ..types import SOFTENING_SQUARED
-from ..utils import build
+from ..utils import build, spans
 from .pm import SLAB, _taper
 from .tiled_kernel import check_input, refuse_autograd
 
@@ -442,8 +442,9 @@ class _SweepPlainVJP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _ad_grads(ctx, sweep_vjp_plain(*_ad_args(ctx), g.contiguous(),
-                                              symmetric=ctx.symmetric))
+        with spans.span("sr.vjp"):
+            return _ad_grads(ctx, sweep_vjp_plain(
+                *_ad_args(ctx), g.contiguous(), symmetric=ctx.symmetric))
 
 
 class _SweepKernelVJP(_SweepPlainVJP):
@@ -453,8 +454,9 @@ class _SweepKernelVJP(_SweepPlainVJP):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return _ad_grads(ctx, sweep_vjp(*_ad_args(ctx), g.contiguous(),
-                                        symmetric=ctx.symmetric))
+        with spans.span("sr.vjp"):
+            return _ad_grads(ctx, sweep_vjp(*_ad_args(ctx), g.contiguous(),
+                                            symmetric=ctx.symmetric))
 
 
 def _ad_args(ctx):

@@ -5,8 +5,12 @@ Owns the run lifecycle of the reference's ``GSimulation::start()``
 state, print the header, run the sample-block loop with per-block timing
 and GFlop/s statistics, print the footer.
 
-* A sample block (sfreq steps) runs on the device with no host sync; the
-  host syncs once per block, when it reads the kinetic energy.
+* A sample block (sfreq steps) of the exact kernels runs on the device
+  with no host sync; the host syncs once per block, when it reads the
+  kinetic energy.  The mesh tiers sync inside the step too (``ops/pm.py``);
+  every sync sits in a counted ``utils/spans.sync``, and the block, the
+  force calls and the health check in ``spans.span`` ranges, which a
+  ``torch.profiler`` session (``profile_dir``) records.
 * A warm-up block runs before the clock starts: it builds the CUDA kernels
   and runs one block, and its result is discarded.
 * ``SimConfig.fused`` runs each sample block as one launch of the fused
@@ -22,8 +26,9 @@ and GFlop/s statistics, print the footer.
   the run: E0 is taken before the header and E1 after the footer, both
   outside the clock.
 * ``SimConfig.profile_dir`` writes a ``torch.profiler`` trace of the
-  sample blocks (CPU and, on the card, CUDA activity) into the directory,
-  as the JAX engine's ``jax.profiler.trace``; ``SimConfig.debug_nans``
+  run, set-up (``nbt.setup.*``) and sample blocks (CPU and, on the card,
+  CUDA activity) into the directory, as the JAX engine's
+  ``jax.profiler.trace``; ``SimConfig.debug_nans``
   raises ``FloatingPointError`` when a sample block ends with a non-finite
   position, velocity or kinetic energy, checked where the host reads the
   energy.
@@ -70,7 +75,7 @@ from .models.gravity import (
     make_fused_block_fn,
     potential_energy,
 )
-from .utils import reporting
+from .utils import reporting, spans
 from .utils.flops import step_gflops
 from .utils.timer import WallTime
 
@@ -182,10 +187,12 @@ class _DeviceRunner:
 
     def prepare(self) -> None:
         cfg = self.cfg
-        self.state = make_state(
-            cfg.n, pad_multiple=cfg.pad_multiple(),
-            distribution=cfg.distribution, seed=cfg.seed, device=self.device,
-        )
+        with spans.span("setup.state"):
+            self.state = make_state(
+                cfg.n, pad_multiple=cfg.pad_multiple(),
+                distribution=cfg.distribution, seed=cfg.seed,
+                device=self.device,
+            )
         resolved = cfg.resolved_kernel()
         if resolved == "p3m" or (resolved == "pm" and cfg.pm_cutoff):
             # The plan sizes static tables and the worklist from the
@@ -195,7 +202,8 @@ class _DeviceRunner:
                 from .ops import pm
 
                 self._sr_layout_prev = pm.set_sr_layout(cfg.pm_sr_layout)
-            cfg.resolve_sr_plan(self.state.pos, self.state.mass)
+            with spans.span("setup.plan"):
+                cfg.resolve_sr_plan(self.state.pos, self.state.mass)
             self._sr_health = cfg.nsteps > 0
             self.accel_fn = make_accel_fn(cfg.kernel, **cfg.kernel_opts())
         if cfg.shards > 1:
@@ -206,8 +214,10 @@ class _DeviceRunner:
             self.state, _ = shard_state(self.state, cfg.shards, self.mesh)
         # Warm-up: builds the kernels at first use and runs one block; the
         # block does not touch its input, so the state stays as it was.
-        _, ke = self._block_for(min(cfg.sfreq, cfg.nsteps))(self.state)
-        float(ke)
+        with spans.span("setup.warm"):
+            _, ke = self._block_for(min(cfg.sfreq, cfg.nsteps))(self.state)
+            with spans.sync("ke"):
+                float(ke)
 
     # Cell-overflow fraction above which the measured P3M plan is declared
     # degraded (overflowed particles fall back to mesh-quality forces).
@@ -221,6 +231,10 @@ class _DeviceRunner:
         (never shrink) and rebuild the blocks."""
         if not self._sr_health:
             return
+        with spans.span("health"):
+            self._check_sr_health()
+
+    def _check_sr_health(self) -> None:
         from .ops import pm
 
         cfg = self.cfg
@@ -228,8 +242,10 @@ class _DeviceRunner:
         pos, mass = self.state.pos, self.state.mass
         bkw = dict(boundary=cfg.pm_boundary, box_size=cfg.pm_box)
         periodic = cfg.pm_boundary == "periodic"
-        frac = float(pm.cell_overflow_fraction(pos, mass, grid, cutoff,
-                                               cfg.pm_capacity, **bkw))
+        frac = pm.cell_overflow_fraction(pos, mass, grid, cutoff,
+                                         cfg.pm_capacity, **bkw)
+        with spans.sync("cell_overflow"):
+            frac = float(frac)
         # Dropped ghosts and worklist entries lose their whole short-range
         # term, so any is degradation.
         ghosts = pm.ghost_overflow_count(
@@ -290,10 +306,12 @@ class _DeviceRunner:
         self.accel_fn = make_accel_fn(cfg.kernel, **cfg.kernel_opts())
 
     def run_block(self, steps: int) -> float:
-        self.state, ke = self._block_for(steps)(self.state)
-        # float() copies the block's kinetic energy to the host: the one
-        # sync per sample block.
-        return float(ke)
+        with spans.span("block"):
+            self.state, ke = self._block_for(steps)(self.state)
+            # float() copies the block's kinetic energy to the host: the
+            # block's own sync.
+            with spans.sync("ke"):
+                return float(ke)
 
     def check_finite(self, ke: float, step: int) -> None:
         """``--debug-nans``: raise if the block ending at ``step`` left a
@@ -301,7 +319,10 @@ class _DeviceRunner:
         state = self.state
         for name, xs in (("position", state.pos), ("velocity", state.vel)):
             for x in xs if isinstance(xs, tuple) else (xs,):
-                if not bool(torch.isfinite(x).all()):
+                finite = torch.isfinite(x).all()
+                with spans.sync("finite"):
+                    finite = bool(finite)
+                if not finite:
                     raise FloatingPointError(
                         f"--debug-nans: non-finite {name} after step {step}")
         if not math.isfinite(ke):
@@ -310,9 +331,9 @@ class _DeviceRunner:
                 f"{step}")
 
     def profile(self):
-        """A ``torch.profiler`` context over the sample blocks that writes
-        its trace into ``SimConfig.profile_dir`` on exit, or a null
-        context."""
+        """A ``torch.profiler`` context over the run, set-up included,
+        that writes its trace into ``SimConfig.profile_dir`` on exit, or a
+        null context."""
         if not self.cfg.profile_dir:
             return contextlib.nullcontext()
         from torch.profiler import ProfilerActivity, profile
@@ -349,7 +370,9 @@ class _DeviceRunner:
 def run(cfg: SimConfig, out=None, quiet: bool = False) -> RunResult:
     runner = _DeviceRunner(cfg)
     try:
-        return _run_prepared(runner, cfg, out, quiet)
+        # The profile holds set-up's spans (nbt.setup.*) and the blocks'.
+        with runner.profile():
+            return _run_prepared(runner, cfg, out, quiet)
     finally:
         # A forced SR layout applies to this run only.
         runner.finish()
@@ -370,30 +393,29 @@ def _run_prepared(runner: _DeviceRunner, cfg: SimConfig, out,
     dev = 0.0
     nf = 0
 
-    with runner.profile():
-        t0 = timer.start()
-        s = 0
-        while s < cfg.nsteps:
-            steps = min(cfg.sfreq, cfg.nsteps - s)
-            b0 = timer.start()
-            ke = runner.run_block(steps)
-            b1 = timer.stop()
-            s += steps
-            if cfg.debug_nans:
-                runner.check_finite(ke, s)
-            if steps == cfg.sfreq and s % cfg.sfreq == 0:
-                nf += 1
-                block_secs = b1 - b0
-                block_gf = gflops * cfg.sfreq / block_secs
-                t_phys = float(np.float32(s) * np.float32(cfg.dt))
-                samples.append((s, t_phys, ke, block_secs, block_gf))
-                emit(reporting.stats_row(s, t_phys, ke, block_secs, block_gf),
-                     out)
-                runner.check_sr_health()
-                if nf > 2:
-                    av += block_gf
-                    dev += block_gf * block_gf
-        t1 = timer.stop()
+    t0 = timer.start()
+    s = 0
+    while s < cfg.nsteps:
+        steps = min(cfg.sfreq, cfg.nsteps - s)
+        b0 = timer.start()
+        ke = runner.run_block(steps)
+        b1 = timer.stop()
+        s += steps
+        if cfg.debug_nans:
+            runner.check_finite(ke, s)
+        if steps == cfg.sfreq and s % cfg.sfreq == 0:
+            nf += 1
+            block_secs = b1 - b0
+            block_gf = gflops * cfg.sfreq / block_secs
+            t_phys = float(np.float32(s) * np.float32(cfg.dt))
+            samples.append((s, t_phys, ke, block_secs, block_gf))
+            emit(reporting.stats_row(s, t_phys, ke, block_secs, block_gf),
+                 out)
+            runner.check_sr_health()
+            if nf > 2:
+                av += block_gf
+                dev += block_gf * block_gf
+    t1 = timer.stop()
 
     total = t1 - t0
     if nf > 2:

@@ -12,11 +12,16 @@ env for the mesh tiers) and prints:
 * the device time of one block summed over its kernels and copies
   (``torch.profiler``) and the idle share, 1 - device time / wall time;
 * the kernels that take the most device time;
-* for the mesh cells, the device time of each stage inside the profiled
-  block (the kernels inside the device-side span of a profiler range
-  around each stage function), per step, and the rest (the forward
-  transform, the elementwise work, the box and monopoles), and every
-  transform kernel of the block, whichever stage ran it;
+* for the mesh cells and differentiable P3M, the device time of each
+  stage inside the profiled block, per step: each kernel counts for the
+  innermost of the program's own ``nbt.*`` spans
+  (``nbody_tpu_torch/utils/spans.py``: ``mesh.env``, ``mesh.box``,
+  ``mesh.deposit``, ``mesh.fft``, ``mesh.ifft``, ``mesh.gather``,
+  ``mesh.ghosts``, ``p3m.bin``, ``p3m.worklist``, ``sr``, the backward's
+  ``sr.vjp``, and ``accel`` and ``block`` for what no stage holds; "none"
+  for the rest of a backward) whose device
+  interval holds it; and every transform kernel of the block, whichever
+  stage ran it; and the host syncs a step (``spans.counts``);
 * for the mesh cells, each stage of one step alone (CUDA events, mean of
   10): the block env (box and kernel spectra), the robust box, the deposit,
   the forward transform, the three inverse transforms, the gather, the
@@ -87,43 +92,15 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _stage_hooks(periodic: bool = False):
-    """(label, module, attribute) of the mesh step's stages, as the solver
-    calls them: each is wrapped in a profiler range for one block.  The
-    periodic step has no block env (one is built a run), and adds the ghost
-    images (their prefix sums and searchsorted decode)."""
-    from nbody_tpu_torch.ops import pm, sr_kernel
-
-    if periodic:
-        mesh = (("deposit", pm, "_deposit_periodic"),
-                ("3 irfftn", pm, "_periodic_inverse"),
-                ("gather", pm, "_gather_periodic"),
-                ("ghosts", pm, "_ghost_images"))
-    else:
-        mesh = (("block env", pm, "make_mesh_env"),
-                ("deposit", pm, "_deposit"), ("3 irfftn", pm, "_inverse"),
-                ("gather", pm, "_gather"))
-    return mesh + (("pack", pm, "_sr_pack"), ("worklist", pm, "_sr_ranges"),
-                   ("sr kernel", sr_kernel, "sweep"))
-
-
-def _ranged(label: str, fn):
-    import torch
-
-    def call(*args, **kwargs):
-        with torch.profiler.record_function(f"stage:{label}"):
-            return fn(*args, **kwargs)
-
-    return call
-
-
 def profile_block(label: str, block, state, steps: int,
-                  stages: str = "") -> None:
+                  stages: bool = False) -> None:
     """Wall time, device time and idle share of one block; top kernels;
-    with ``stages`` ("open" or "periodic"), the device time of each mesh
-    stage inside the profiled block."""
+    with ``stages``, the device time of each of the program's spans inside
+    the profiled block."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from nbody_tpu_torch.utils.spans import PREFIX
 
     block(state)
     torch.cuda.synchronize()
@@ -134,23 +111,15 @@ def profile_block(label: str, block, state, steps: int,
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     wall = statistics.median(walls)
-    hooks = _stage_hooks(stages == "periodic") if stages else ()
-    saved = [getattr(mod, attr) for _, mod, attr in hooks]
-    for (name, mod, attr), fn in zip(hooks, saved):
-        setattr(mod, attr, _ranged(name, fn))
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            block(state)
-            torch.cuda.synchronize()
-    finally:
-        for (_, mod, attr), fn in zip(hooks, saved):
-            setattr(mod, attr, fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        block(state)
+        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    # The stage ranges also show on the device timeline as annotations:
+    # The program's spans also show on the device timeline as annotations:
     # they are spans, not kernels.
     kernels = [e for e in prof.events() if e.device_type == cuda
-               and not e.name.startswith("stage:")]
+               and not e.name.startswith(PREFIX)]
     busy = 1e-3 * sum(e.device_time_total for e in kernels)
     by_name: dict = {}
     for e in kernels:
@@ -162,26 +131,27 @@ def profile_block(label: str, block, state, steps: int,
     for name, (n, t) in top:
         print(f"    {t:9.3f} ms  {n:5d} x  {name[:90]}", flush=True)
     if stages:
-        # A stage's range spans its kernels on the device timeline (one
-        # stream, so no other stage's kernel runs inside it): each kernel
-        # counts for the stage whose span holds it.
-        spans = [(e.time_range.start, e.time_range.end, e.name[6:])
+        # A span's device interval runs from its first kernel to its last
+        # (one stream, so no other stage's kernel runs inside it), and the
+        # spans nest (block > accel > mesh.deposit): each kernel counts for
+        # the shortest span that holds it.
+        spans = [(e.time_range.end - e.time_range.start, e.time_range.start,
+                  e.time_range.end, e.name[len(PREFIX):])
                  for e in prof.events() if e.device_type == cuda
-                 and e.name.startswith("stage:")]
-        per = {name: 0.0 for name, _, _ in hooks}
+                 and e.name.startswith(PREFIX)]
+        per: dict = {}
         for k in kernels:
             mid = 0.5 * (k.time_range.start + k.time_range.end)
-            for s0, s1, name in spans:
-                if s0 <= mid <= s1:
-                    per[name] += 1e-3 * k.device_time_total
-                    break
+            name = min(((d, n) for d, s0, s1, n in spans if s0 <= mid <= s1),
+                       default=(0, "none"))[1]
+            per[name] = per.get(name, 0.0) + 1e-3 * k.device_time_total
         fft = 1e-3 * sum(k.device_time_total for k in kernels
                          if "fft" in k.name)
         print(f"{label} stages in the block (profiler, device ms per step): "
-              + ", ".join(f"{k} {v / steps:.3f}" for k, v in per.items())
-              + f", rest {(busy - sum(per.values())) / steps:.3f}; every "
-              f"transform kernel, wherever it ran {fft / steps:.3f}",
-              flush=True)
+              + ", ".join(f"{k} {v / steps:.3f}" for k, v in
+                          sorted(per.items(), key=lambda kv: -kv[1]))
+              + f"; every transform kernel, wherever it ran "
+              f"{fft / steps:.3f}", flush=True)
 
 
 def mesh_stages(label: str, runner) -> None:
@@ -338,8 +308,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from nbody_tpu_torch import SimConfig
-    from nbody_tpu_torch.ops import pm
     from nbody_tpu_torch.simulation import _DeviceRunner
+    from nbody_tpu_torch.utils import spans
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -379,14 +349,16 @@ def main() -> int:
         runner.prepare()
         mesh = runner._mesh_env_fn() is not None
         periodic = runner.cfg.pm_boundary == "periodic"
-        stages = ("periodic" if periodic else "open") if mesh else ""
-        syncs = pm.host_syncs
+        syncs = spans.counts["host_syncs"]
         try:
             profile_block(f"{label}, {steps} steps", runner._block_for(steps),
-                          runner.state, steps, stages=stages)
+                          runner.state, steps, stages=mesh)
+            syncs = spans.counts["host_syncs"] - syncs
             if mesh:
-                print(f"{label}: {(pm.host_syncs - syncs) / (7 * steps):.0f} "
-                      "host syncs a step", flush=True)
+                # Seven blocks: the warm one, five timed, one profiled.
+                print(f"{label}: {syncs / (7 * steps):.3f} host syncs a step "
+                      "(the block's, its KE read and health check not "
+                      "included)", flush=True)
                 (periodic_mesh_stages if periodic else mesh_stages)(label,
                                                                      runner)
         finally:
@@ -427,9 +399,9 @@ def grad_cells() -> None:
             q = p.clone().requires_grad_(True)
             return torch.mean(fn(q, m) ** 2)
 
-        profile_block(f"{label}, forward", forward, None, 1)
+        profile_block(f"{label}, forward", forward, None, 1, stages=True)
         profile_block(f"{label}, forward and backward",
-                      lambda s: forward(s).backward(), None, 1)
+                      lambda s: forward(s).backward(), None, 1, stages=True)
         if bkw:
             continue
         rollout = make_rollout_fn(fn, 0.01, 10)
@@ -441,7 +413,7 @@ def grad_cells() -> None:
             torch.sum((rollout(p, v0, m)[0] - target) ** 2).backward()
 
         profile_block(f"{label}, 10-step rollout gradient", rollout_grad,
-                      None, 10)
+                      None, 10, stages=True)
 
 
 def call_cells() -> None:

@@ -32,8 +32,10 @@ targets a lane, at every R its launchers pick, and an Euler rows block
 equals the unfused block over Kernel B bit for bit at each of them.
 """
 
+import contextlib
 import json
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -57,7 +59,8 @@ from nbody_tpu_torch.ops import (
 )
 from nbody_tpu_torch.parallel import make_mesh, ring_kernel
 from nbody_tpu_torch.parallel.decompose import shard_state
-from nbody_tpu_torch.simulation import run
+from nbody_tpu_torch.simulation import _DeviceRunner, run
+from nbody_tpu_torch.utils import spans
 from nbody_tpu_torch.utils.reporting import parse_trace
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -679,12 +682,66 @@ def test_banded_sweeps_equal_one_band(cuda_device):
 
 
 def test_profile_dir_traces_the_card(cuda_device, tmp_path):
-    """--profile-dir on the card: the trace holds the blocks' kernels."""
+    """--profile-dir on the card: the trace holds the blocks' kernels and
+    the program's spans from set-up on."""
     run(SimConfig(n=256, nsteps=100, profile_dir=str(tmp_path),
                   debug_nans=True), quiet=True)
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     assert any("sym_pairs_kernel" in name for name in names)
+    assert {"nbt.setup.state", "nbt.setup.warm", "nbt.block",
+            "nbt.sync.finite"} <= {e.get("name", "") for e in events}
+
+
+@pytest.mark.parametrize("cell", ["p3m open", "p3m periodic", "direct"])
+def test_every_sync_is_counted(cuda_device, monkeypatch, cell):
+    """Every synchronizing CUDA op of a block and its health check sits in
+    a counted ``spans.sync``: under ``set_sync_debug_mode("warn")`` each
+    warning comes while one is open, and there are as many as the
+    ``host_syncs`` counter's delta."""
+    kw = {"p3m open": dict(kernel="p3m", distribution="plummer", seed=7,
+                           pm_grid=64, dt=0.01),
+          "p3m periodic": dict(kernel="p3m", pm_boundary="periodic",
+                               pm_box=1.0, pm_grid=64, dt=0.01),
+          "direct": dict()}[cell]
+    steps = 50 if cell == "direct" else 4
+    runner = _DeviceRunner(SimConfig(n=16384, nsteps=2 * steps, sfreq=steps,
+                                     **kw))
+    runner.prepare()
+    runner.run_block(steps)
+    runner.check_sr_health()
+    open_sites = []
+    sync = spans.sync
+
+    @contextlib.contextmanager
+    def marked(site):
+        with sync(site):
+            open_sites.append(site)
+            try:
+                yield
+            finally:
+                open_sites.pop()
+
+    monkeypatch.setattr(spans, "sync", marked)
+    seen = []
+
+    def show(message, *_args, **_kw):
+        if "synchronizing CUDA operation" in str(message):
+            seen.append(open_sites[-1] if open_sites else None)
+
+    before = spans.counts["host_syncs"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            runner.run_block(steps)
+            runner.check_sr_health()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    runner.finish()
+    assert None not in seen
+    assert len(seen) == spans.counts["host_syncs"] - before > 0
 
 
 def _periodic_state(kind, n=4096, seed=5):

@@ -49,6 +49,7 @@ from nbody_tpu_torch import SimConfig  # noqa: E402
 from nbody_tpu_torch.models import distributions  # noqa: E402
 from nbody_tpu_torch.models.gravity import make_accel_fn  # noqa: E402
 from nbody_tpu_torch.ops import pm  # noqa: E402
+from nbody_tpu_torch.utils import spans  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -251,8 +252,8 @@ def test_periodic_accelerations_match_jax(kind, box):
 
 def test_periodic_overflow_branch_matches_jax():
     """Capacity 8 on the blob: real sources overflow, the complement branch
-    runs (one host sync a solve), and distinct targets take the between
-    form."""
+    runs (one overflow sync a solve, counted at its site), and distinct
+    targets take the between form."""
     pos, mass = corner_blob(1024, 7)
     p, m = _t(pos), _t(mass)
     kw = dict(grid=32, cutoff_cells=4, capacity=8, boundary="periodic",
@@ -260,9 +261,9 @@ def test_periodic_overflow_branch_matches_jax():
     assert float(pm.cell_overflow_fraction(p, m, 32, 4, 8,
                                            boundary="periodic",
                                            box_size=1.0)) > 0.1
-    syncs = pm.host_syncs
+    syncs = spans.counts["sync.p3m_overflow"]
     got = pm.accelerations(p, m, **kw)
-    assert pm.host_syncs == syncs + 1
+    assert spans.counts["sync.p3m_overflow"] == syncs + 1
     want = _jax_acc(jnp.asarray(pos), jnp.asarray(mass), **kw)
     assert _rel(got.numpy(), want) <= 1e-4
     tgt = _uniform(200, 9)[0]

@@ -1,0 +1,255 @@
+"""The port's spans and counters (``nbody_tpu_torch/utils/spans.py``) on the
+CPU: free without a profiler, on the profiler's timeline with one, nested
+as the step nests, one ``nbt.sync.*`` range for each count of
+``host_syncs``, and no change to what a block computes."""
+
+from __future__ import annotations
+
+import ast
+import glob
+import json
+import os
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from nbody_tpu_torch import SimConfig
+from nbody_tpu_torch.simulation import _DeviceRunner
+from nbody_tpu_torch.utils import spans
+
+PACKAGE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "nbody_tpu_torch")
+
+MESH_STAGES = ("nbt.mesh.box", "nbt.mesh.deposit", "nbt.mesh.fft",
+               "nbt.mesh.ifft", "nbt.mesh.gather", "nbt.p3m.bin",
+               "nbt.p3m.worklist", "nbt.sr")
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread, so that repeated CPU blocks sum in one order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _runner(**kw) -> _DeviceRunner:
+    runner = _DeviceRunner(SimConfig(platform="cpu", **kw))
+    runner.prepare()
+    return runner
+
+
+def _p3m(**kw) -> _DeviceRunner:
+    return _runner(n=512, nsteps=8, sfreq=4, kernel="p3m", pm_grid=16,
+                   distribution="plummer", dt=0.01, **kw)
+
+
+def _traced(fn):
+    """Run ``fn`` under a CPU profiler: (the spans' events, sorted by start,
+    as (start, end, name), the host_syncs delta)."""
+    before = spans.counts["host_syncs"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events() if e.name.startswith("nbt."))
+    return events, spans.counts["host_syncs"] - before
+
+
+def _inside(inner, outers) -> bool:
+    return any(s <= inner[0] and inner[1] <= e for s, e, _ in outers)
+
+
+def test_span_without_a_profiler_is_the_flag_check(monkeypatch):
+    """Without a session ``span`` returns one shared no-op context and never
+    reaches ``record_function``, which costs microseconds a call even when
+    nothing records."""
+    assert not torch.autograd._profiler_enabled()
+
+    def refused(name):
+        raise AssertionError(f"record_function({name!r}) without a profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    assert spans.span("block") is spans.span("accel") is spans._OFF
+    with spans.span("block"), spans.sync("ke"):
+        pass
+    monkeypatch.undo()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with spans.span("block"):
+            pass
+    assert [e.name for e in prof.events()] == ["nbt.block"]
+
+
+def test_sync_counts_without_a_profiler():
+    before = dict(spans.counts)
+    with spans.sync("ke"):
+        pass
+    assert spans.counts["host_syncs"] == before.get("host_syncs", 0) + 1
+    assert spans.counts["sync.ke"] == before.get("sync.ke", 0) + 1
+    spans.reset()
+    assert not spans.counts
+
+
+def test_record_function_only_behind_the_guard():
+    """The package calls ``record_function`` in the span module alone."""
+    files = [f for f in glob.glob(os.path.join(PACKAGE, "**", "*.py"),
+                                  recursive=True)
+             if "record_function" in open(f).read()]
+    assert files == [os.path.join(PACKAGE, "utils", "spans.py")]
+
+
+def test_direct_block_spans():
+    runner = _runner(n=256, nsteps=50, sfreq=50)
+    events, syncs = _traced(lambda: runner.run_block(50))
+    blocks = [e for e in events if e[2] == "nbt.block"]
+    accels = [e for e in events if e[2] == "nbt.accel"]
+    assert len(blocks) == 1 and len(accels) == 50
+    assert all(_inside(a, blocks) for a in accels)
+    assert [e[2] for e in events if e[2].startswith("nbt.sync.")] == [
+        "nbt.sync.ke"]
+    assert syncs == 1
+    # No health check without a mesh tier.
+    events, syncs = _traced(runner.check_sr_health)
+    assert events == [] and syncs == 0
+
+
+def test_p3m_block_spans():
+    runner = _p3m()
+    events, syncs = _traced(lambda: runner.run_block(4))
+    names = [e[2] for e in events]
+    accels = [e for e in events if e[2] == "nbt.accel"]
+    assert len(accels) == 4 and names.count("nbt.mesh.env") == 1
+    for stage in MESH_STAGES:
+        got = [e for e in events if e[2] == stage]
+        assert got and all(_inside(e, accels) for e in got), stage
+    assert names.count("nbt.sync.p3m_overflow") == 4
+    assert names.count("nbt.sync.ke") == 1
+    assert sum(n.startswith("nbt.sync.") for n in names) == syncs
+    # Overflow and worklist offsets a step; the env's box, the KE a block.
+    assert syncs == 2 * 4 + 2
+
+    events, syncs = _traced(runner.check_sr_health)
+    health = [e for e in events if e[2] == "nbt.health"]
+    reads = [e for e in events if e[2].startswith("nbt.sync.")]
+    assert len(health) == 1 and all(_inside(e, health) for e in reads)
+    assert {"nbt.sync.cell_overflow", "nbt.sync.entry_overflow"} <= {
+        e[2] for e in reads}
+    assert len(reads) == syncs == 2 + 2 + 4
+
+
+def test_periodic_p3m_block_syncs_match_the_counter():
+    runner = _runner(n=512, nsteps=8, sfreq=4, kernel="p3m", pm_grid=16,
+                     pm_boundary="periodic", pm_box=1.0, dt=0.01)
+    for fn in (lambda: runner.run_block(4), runner.check_sr_health):
+        events, syncs = _traced(fn)
+        names = [e[2] for e in events]
+        assert sum(n.startswith("nbt.sync.") for n in names) == syncs > 0
+    assert "nbt.sync.ghost_overflow" in names
+    assert "nbt.mesh.ghosts" in names
+
+
+@pytest.mark.parametrize("kind", ["direct", "p3m"])
+def test_block_is_bitwise_the_same_traced(one_thread, kind):
+    make = (lambda: _runner(n=256, nsteps=50, sfreq=50)) if kind == "direct" \
+        else _p3m
+    steps = 50 if kind == "direct" else 4
+    plain, traced = make(), make()
+    ke = plain.run_block(steps)
+    with profile(activities=[ProfilerActivity.CPU]):
+        ke_traced = traced.run_block(steps)
+    assert ke_traced == ke
+    assert torch.equal(traced.state.pos, plain.state.pos)
+    assert torch.equal(traced.state.vel, plain.state.vel)
+
+
+def _wrapped_targets() -> dict:
+    """label -> ``module:function`` or ``runner:attribute`` of every span the
+    benchmark's metric files wrap (their ``SPANS``), read from the source:
+    the benchmark's modules are not imported here."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(
+            os.path.dirname(PACKAGE), "bench_torch", "metrics", "*.py"))):
+        for node in ast.parse(open(path).read()).body:
+            if isinstance(node, ast.Assign) and any(
+                    getattr(t, "id", None) == "SPANS" for t in node.targets):
+                out.update(ast.literal_eval(node.value))
+    return out
+
+
+def test_spans_sit_around_the_wrapped_stage_functions():
+    """The benchmark's per-layer metrics wrap some of the program's
+    functions in profiler ranges of their own (``SPANS`` in
+    ``bench_torch/metrics/``), and the profiler credits each kernel to the
+    innermost range only: no program span other than a sync's may open
+    inside one of those functions, or the wrapped range loses its
+    kernels."""
+    import importlib
+
+    direct, p3m = _runner(n=256, nsteps=50, sfreq=50), _p3m()
+    saved = []
+
+    def ranged(label, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function("outer:" + label):
+                return fn(*args, **kwargs)
+        return call
+
+    try:
+        for label, target in _wrapped_targets().items():
+            where, attr = target.split(":")
+            # A runner's force function is wrapped where it is one
+            # kernel's call, the direct sum: a P3M force call holds the
+            # mesh stages by design.
+            owner = direct if where == "runner" else importlib.import_module(
+                where)
+            saved.append((owner, attr, getattr(owner, attr)))
+            setattr(owner, attr, ranged(label, saved[-1][2]))
+        for runner in (direct, p3m):
+            runner._blocks.clear()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            direct.run_block(50)
+            p3m.run_block(4)
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+    events = [(e.time_range.start, e.time_range.end, e.name)
+              for e in prof.events()]
+    outer = [e for e in events if e[2].startswith("outer:")]
+    assert bool(outer) == bool(saved)
+    inner = [e for e in events if e[2].startswith("nbt.")
+             and not e[2].startswith("nbt.sync.")]
+    assert not [e[2] for e in inner if _inside(e, outer)]
+
+
+def test_profile_dir_holds_the_setup_spans(tmp_path):
+    """``--profile-dir`` covers the run from set-up on: its trace holds
+    ``nbt.setup.*`` beside the blocks' and the health check's spans."""
+    from nbody_tpu_torch import run
+
+    run(SimConfig(n=512, nsteps=8, sfreq=4, kernel="p3m", pm_grid=16,
+                  distribution="plummer", dt=0.01, platform="cpu",
+                  profile_dir=str(tmp_path)), quiet=True)
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert {"nbt.setup.state", "nbt.setup.plan", "nbt.setup.warm",
+            "nbt.block", "nbt.health", "nbt.sr"} <= names
+
+
+def test_sr_vjp_span_in_the_backward():
+    """The short-range sweep's backward opens ``nbt.sr.vjp``, on autograd's
+    thread, after the forward's ``nbt.sr``."""
+    from nbody_tpu_torch.models import distributions
+    from nbody_tpu_torch.models.gravity import make_accel_fn
+
+    pos, _, mass = (torch.tensor(a) for a in distributions.plummer(256,
+                                                                   seed=18))
+    fn = make_accel_fn("p3m", differentiable=True, grid=16, capacity=64)
+    q = pos.clone().requires_grad_(True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.mean(fn(q, mass) ** 2).backward()
+    events = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.name in ("nbt.sr", "nbt.sr.vjp"))
+    assert [n for _, n in events] == ["nbt.sr", "nbt.sr.vjp"]
