@@ -47,6 +47,13 @@ What differs from the JAX package:
   card the reaction's atomics add in no fixed order, and the default layout
   repeats bit for bit.  The VMEM gate, the Mosaic probe and ``SR_FLUSH_RUNS``
   of the JAX package are TPU machinery and are not ported.
+* Each cell's slotted particles are packed in the order of a sub-cell
+  Morton key (``_subcell_key``), not in input order, so that a slab's
+  warps and sources are compact and ``csrc/sr.cu``'s exact skips engage in
+  dense cells.  Which particles bin, overflow and take slots, the slab
+  bounds and the worklist equal the JAX package's bit for bit; ``ptab``,
+  ``mtab`` and ``pslot`` equal its tables reordered within each cell, and
+  the sweep sums the same pairs in another order.
 * ``sr_entry_overflow`` sizes periodic tables from the slots the solver
   bins (sources and ghost cap), where the JAX package's uses the sources.
 * ``differentiable=True`` (P3M, open or periodic): paired rows are off on
@@ -79,6 +86,11 @@ DEFAULT_CUTOFF_CELLS = 4
 
 # Slots per slab: the dense pair-block edge of the short-range sweep.
 SLAB = 64
+
+# Bits of the sub-cell key that orders each cell's packed particles: a
+# 2^3 sub-grid a cell, 3 bits an axis interleaved (_subcell_key; more bits
+# skip no more steps at the P3M gate).
+_KEY_BITS = 9
 
 # Short-range sweep layout: pair-symmetric worklist (each unordered slab
 # pair once, with a reaction) and paired rows (two slabs per 128-wide
@@ -402,6 +414,19 @@ def _bin_cids(pos, lo_box, span, nc: int, inc):
     return torch.where(inc, cid, nc * nc * nc)
 
 
+def _subcell_key(pos, lo_box, span, nc: int):
+    """(N,) int32 Morton key of each particle's place inside its cell: the
+    low 3 bits of its coordinates on the grid refined 8 times (whose high
+    bits are ``_cell_coords``'s, as scaling by a power of two is exact),
+    interleaved, x the highest bit of each triple (as the cell id is
+    x-major).  Below 2^_KEY_BITS."""
+    q = _cell_coords(pos, lo_box, _inv_cell(span, nc) * 8, nc * 8) & 7
+    # Spread 3 bits b2 b1 b0 to b2 0 0 b1 0 0 b0.
+    q = (q | (q << 4)) & 0b1000011
+    q = (q | (q << 2)) & 0b1001001
+    return (q[0] << 2) | (q[1] << 1) | q[2]
+
+
 def _sr_rc2(span, nc: int, sub: int):
     """Squared cutoff: ``sub`` cell widths of the shortest box axis."""
     rc = span[:, 0].min() * float(sub) / float(nc)
@@ -430,14 +455,14 @@ def _default_sr_plan(n_bin: int):
 # Packing and worklist
 
 
-def _sr_pack(cid, pos, mass, n_cells: int, cap: int, s_max: int):
-    """Packed slab tables: SLAB consecutive cid-sorted particles per slab.
+def _sr_slots(cid, n_cells: int, cap: int, s_max: int):
+    """Which particles take slots, by the JAX package's rule: a stable sort
+    by cell id, each cell's first ``cap`` particles in input order, and the
+    first s_max*SLAB of those.
 
     ``cid`` (Ns,) int32 in [0, n_cells]; ``n_cells`` marks excluded
-    particles, and particles past a cell's capacity are excluded too.
-    Returns ``(ptab (3, (s_max+1)*SLAB), mtab, slab_lo (s_max,), slab_hi,
-    pslot (Ns,), binned (Ns,))``; slab ``s_max`` is the zero-mass sentinel.
-    The sort is stable, as JAX's, so the tables equal the JAX package's."""
+    particles.  Returns ``(slab_lo (s_max,), slab_hi, binned (Ns,))``,
+    equal to the JAX package's; none depends on the order inside a cell."""
     dev = cid.device
     ns = cid.shape[0]
     order = torch.argsort(cid, stable=True).to(_I32)
@@ -454,26 +479,48 @@ def _sr_pack(cid, pos, mass, n_cells: int, cap: int, s_max: int):
     n_bin = vi.sum(dtype=_I32)
     dest = torch.where(valid, nv, n_bin + (ar - nv))
     pord = torch.empty_like(ar).scatter_(0, dest.long(), ar)
-    perm = order[pord]
     pc = torch.where(valid, sc, n_cells)[pord]
-    nslots = (s_max + 1) * SLAB
-    ok = (ar < n_bin) & (ar < s_max * SLAB)
-    slot = torch.where(ok, ar, nslots - 1)
-    kk = torch.arange(nslots, dtype=_I32, device=dev)
-    okk = (kk < n_bin) & (kk < s_max * SLAB)
-    # Slots past the particles read spread indices, masked below: the
-    # gather's backward (an accumulating index_put_) then sums no long run
-    # of one index, which it would add one element at a time.
-    src = perm[kk % ns]
-    ptab = torch.where(okk[None, :], pos[:, src], 0.0)
-    mtab = torch.where(okk, mass[src], 0.0)
-    pslot = torch.zeros_like(ar).scatter_(0, perm.long(), slot)
-    binned = pslot != (nslots - 1)
+    slotted = valid & (nv < s_max * SLAB)
+    binned = torch.zeros_like(slotted).scatter_(0, order.long(), slotted)
     sidx = torch.arange(s_max, dtype=_I32, device=dev) * SLAB
     has = sidx < n_bin
     last = torch.minimum(sidx + (SLAB - 1), n_bin - 1).clamp(0, ns - 1)
     slab_lo = torch.where(has, pc[sidx.clamp(max=ns - 1)], n_cells)
     slab_hi = torch.where(has, pc[last], n_cells)
+    return slab_lo, slab_hi, binned
+
+
+def _sr_pack(cid, pos, mass, n_cells: int, cap: int, s_max: int, key):
+    """Packed slab tables: the slotted particles (``_sr_slots``), SLAB a
+    slab, in cell id order and in ``key`` order (``_subcell_key``) inside
+    each cell.
+
+    Returns ``(ptab (3, (s_max+1)*SLAB), mtab, slab_lo (s_max,), slab_hi,
+    pslot (Ns,), binned (Ns,))``; slab ``s_max`` is the zero-mass sentinel.
+    ``slab_lo``, ``slab_hi`` and ``binned`` equal the JAX package's;
+    ``ptab``, ``mtab`` and ``pslot`` are its tables reordered within each
+    cell, and equal them under a zero key."""
+    dev = cid.device
+    ns = cid.shape[0]
+    slab_lo, slab_hi, binned = _sr_slots(cid, n_cells, cap, s_max)
+    # A stable sort of the binned particles by (cid, key) to the front,
+    # ties in input order; the rest follow, and no output reads their
+    # order.  The int32 sort key holds: n_cells <= 44^3 (_cell_grid_params'
+    # nc <= 40, plus 2 ghost cells a side), under 2^(31 - _KEY_BITS).
+    perm = torch.argsort(torch.where(binned, (cid << _KEY_BITS) | key,
+                                     n_cells << _KEY_BITS), stable=True)
+    n_slot = binned.sum(dtype=_I32)
+    nslots = (s_max + 1) * SLAB
+    ar = torch.arange(ns, dtype=_I32, device=dev)
+    slot = torch.where(ar < n_slot, ar, nslots - 1)
+    okk = torch.arange(nslots, dtype=_I32, device=dev) < n_slot
+    # Slots past the particles read spread indices, masked below: the
+    # gather's backward (an accumulating index_put_) then sums no long run
+    # of one index, which it would add one element at a time.
+    src = perm[torch.arange(nslots, device=dev) % ns]
+    ptab = torch.where(okk[None, :], pos[:, src], 0.0)
+    mtab = torch.where(okk, mass[src], 0.0)
+    pslot = torch.zeros_like(ar).scatter_(0, perm.long(), slot)
     return ptab, mtab, slab_lo, slab_hi, pslot, binned
 
 
@@ -582,8 +629,9 @@ def sr_pack_inputs(pos, mass, grid: int = DEFAULT_GRID,
     cap, s_max, e_max = _sr_sizing(ns, ns, n_cells, capacity, sr_slabs,
                                    sr_entries)
     cid = _bin_cids(pos, lo_box, span, nc, inc)
+    key = _subcell_key(pos, lo_box, span, nc)
     ptab, mtab, slab_lo, slab_hi, _, _ = _sr_pack(cid, pos, mass, n_cells,
-                                                  cap, s_max)
+                                                  cap, s_max, key)
     wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc, sub, e_max,
                                  symmetric=symmetric, paired=paired)
     return dict(ptab=ptab, mtab=mtab, wl_t=wl_t, wl_s=wl_s, n_e=n_e,
@@ -902,7 +950,8 @@ def _periodic_sr_tables(pos_src, mass_src, grid: int, box: float,
         cap, s_max, e_max = _sr_sizing(ns, pos_bin.shape[1], n_cells,
                                        capacity, sr_slabs, sr_entries)
         ptab, mtab, slab_lo, slab_hi, pslot, binned = _sr_pack(
-            cid, pos_bin, m_bin, n_cells, cap, s_max)
+            cid, pos_bin, m_bin, n_cells, cap, s_max,
+            _subcell_key(pos_bin, lo_cell, span_tot, nc_tot))
     with spans.span("p3m.worklist"):
         wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc_tot, sub, e_max,
                                      symmetric=symmetric, paired=paired)
@@ -1191,7 +1240,8 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
             rc2 = _sr_rc2(span, nc, sub)
             cid = _bin_cids(pos_bin, lo_box, span, nc, inc)
             ptab, mtab, slab_lo, slab_hi, pslot, binned_all = _sr_pack(
-                cid, pos_bin, m_bin, n_cells, cap, s_max)
+                cid, pos_bin, m_bin, n_cells, cap, s_max,
+                _subcell_key(pos_bin, lo_box, span, nc))
             binned = binned_all[:ns]
             m_over = torch.where(binned, 0.0, m_in)
             over = (~binned_all & inc).any()
@@ -1434,8 +1484,8 @@ def _sr_plan_counts(pos, mass, grid: int, cutoff: int, cap: int,
         m_b = mass * _inside(pos, lo_box, hi_box)
         pos_b, cid = pos, _bin_cids(pos, lo_box, hi_box - lo_box, nc, m_b > 0)
         n_ghost = torch.zeros((), dtype=_I32, device=pos.device)
-    _, _, slab_lo, slab_hi, _, binned = _sr_pack(
-        cid, pos_b, m_b, nc ** 3, int(cap), pos_b.shape[1] // SLAB + 2)
+    slab_lo, slab_hi, binned = _sr_slots(
+        cid, nc ** 3, int(cap), pos_b.shape[1] // SLAB + 2)
     n_e4 = _count_all_layouts(slab_lo, slab_hi, nc, sub)
     return binned.sum(dtype=_I32) // SLAB + 2, n_e4, n_ghost
 

@@ -4,6 +4,7 @@
     python scripts/sr_launch_shapes.py            # launch shapes, one card
     python scripts/sr_launch_shapes.py --tree DIR  # another checkout's kernels
     python scripts/sr_launch_shapes.py --stats [--device cpu] [--sample 2000]
+        [--capacity 16384]
 
 All three take the Plummer sphere of the JAX package's P3M gate (N=262144,
 seed 7, ng=128, cutoff 4), each layout at its suggested plan; the VJP
@@ -44,7 +45,13 @@ schedules: the slab's slots in order with every lane on one source, the
 kernel's split of each slab into two compact warps
 (``ops/sr_kernel.split_order``) with every lane on one source, and the
 kernel's own schedule (``ops/sr_kernel.skip_counts``: the reaction's
-rotation where a step takes both sides).  For ``pallas`` and
+rotation where a step takes both sides).  It also prints the share of
+those steps the kernel's schedule keeps (runs) on the tables as packed,
+each cell's particles in sub-cell key order, and on the same pack with
+each cell back in input order (the same pack under a zero key, as the
+JAX package packs): what the order buys.  ``--capacity`` sets the
+cell capacity (0: each layout's suggested plan; the benchmark's P3M cells
+run 16384).  For ``pallas`` and
 ``pallas_sym`` it also prints the VJP kernel's work
 (``ops/sr_kernel.vjp_skip_counts``): its (warp, other) steps a pass and the
 share of them that the target pass and the source pass each skip.  The
@@ -61,6 +68,7 @@ import os
 import re
 import subprocess
 import sys
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (1, 2, 3)
@@ -71,8 +79,9 @@ GATE = dict(n=262144, seed=7, grid=128, cutoff=4)  # bench.py:102-103
 PERIODIC = dict(n=1048576, box=1.0)  # bench.py:48-49, at the gate's grid
 
 
-def gate_inputs(device: str):
-    """(pm, sr_kernel, {layout: (packed inputs, bounds, sym, paired)})."""
+def gate_inputs(device: str, capacity: int = 0):
+    """(pm, sr_kernel, {layout: (packed inputs, bounds, sym, paired)}), at
+    the plan suggested for ``capacity`` (0: the suggested capacity)."""
     import torch
 
     from nbody_tpu_torch.models import distributions
@@ -87,7 +96,7 @@ def gate_inputs(device: str):
         # On the CPU the plan is sized for the unpaired worklist, which is
         # longer than the paired one: nothing drops.
         plan = pm.suggest_sr_plan(p, m, GATE["grid"], GATE["cutoff"],
-                                  layout=layout)
+                                  capacity=capacity, layout=layout)
         pk = pm.sr_pack_inputs(p, m, grid=GATE["grid"],
                                cutoff_cells=GATE["cutoff"], symmetric=sym,
                                paired=paired, **plan)
@@ -317,14 +326,19 @@ def shapes(tree_only: bool) -> int:
     return 0
 
 
-def stats(device: str, sample: int) -> int:
+def stats(device: str, sample: int, capacity: int = 0) -> int:
     import numpy as np
     import torch
 
-    pm, sr_kernel, inputs = gate_inputs(device)
+    pm, sr_kernel, inputs = gate_inputs(device, capacity)
+    # The same pack with each cell in input order: a zero sub-cell key.
+    with mock.patch.object(pm, "_subcell_key", lambda p, *_: torch.zeros(
+            p.shape[1], dtype=torch.int32, device=p.device)):
+        unordered = gate_inputs(device, capacity)[2]
     print(f"P3M gate: Plummer N={GATE['n']}, seed {GATE['seed']}, ng "
-          f"{GATE['grid']}, cutoff {GATE['cutoff']}; shares over "
-          f"{sample or 'all'} entries a layout, on {device}", flush=True)
+          f"{GATE['grid']}, cutoff {GATE['cutoff']}, capacity "
+          f"{capacity or 'as suggested'}; shares over {sample or 'all'} "
+          f"entries a layout, on {device}", flush=True)
     for layout, (pk, bounds, sym, paired) in inputs.items():
         n_e = int(pk["n_e"])
         width = 2 * pm.SLAB if paired else pm.SLAB
@@ -345,6 +359,12 @@ def stats(device: str, sample: int) -> int:
         plain = _ordered_counts(sr_kernel, pk, paired, pick)
         kernel = sr_kernel.skip_counts(*args, symmetric=sym, paired=paired,
                                        entries=pick)
+        base_pk = unordered[layout][0]
+        if not torch.equal(base_pk["wl_s"], pk["wl_s"]):
+            raise RuntimeError(f"{layout}: the order changed the worklist")
+        base = sr_kernel.skip_counts(base_pk["ptab"], base_pk["mtab"],
+                                     *args[2:], symmetric=sym, paired=paired,
+                                     entries=pick)
         print(f"{layout}: {n_e} entries x {pm.SLAB * width} pairs = "
               f"{n_e * pm.SLAB * width:.4g} pairs evaluated; runs "
               f"{int(lens.numel())}, longest {int(lens.max())}, mean "
@@ -354,6 +374,10 @@ def stats(device: str, sample: int) -> int:
               f"{plain:.4f}, split {split['skipped'] / split['steps']:.4f}, "
               f"the kernel's schedule "
               f"{kernel['skipped'] / kernel['steps']:.4f}", flush=True)
+        print(f"{layout}: (warp, source) steps the kernel keeps: as packed "
+              f"(sub-cell order) {1 - kernel['skipped'] / kernel['steps']:.4f}"
+              f", each cell in input order "
+              f"{1 - base['skipped'] / base['steps']:.4f}", flush=True)
         if layout in VJP_LAYOUTS:
             vjp = sr_kernel.vjp_skip_counts(*args, entries=pick)
             print(f"{layout} vjp: (warp, other) steps a pass "
@@ -394,10 +418,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cpu", help="--stats: the device")
     ap.add_argument("--sample", type=int, default=2000,
                     help="--stats: entries a layout (0: every entry)")
+    ap.add_argument("--capacity", type=int, default=0,
+                    help="--stats: the cell capacity (0: as suggested)")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree or ROOT))
     if args.stats:
-        return stats(args.device, args.sample)
+        return stats(args.device, args.sample, args.capacity)
     return shapes(tree_only=args.tree is not None)
 
 

@@ -201,15 +201,17 @@ def mesh_stages(label: str, runner) -> None:
         nc, sub = pm._cell_grid_params(grid, cutoff)
         inc = (mass * pm._inside(pos, lo_box, hi_box)) > 0
         cid = pm._bin_cids(pos, lo_box, span, nc, inc)
+        key = pm._subcell_key(pos, lo_box, span, nc)
         cap, s_max, e_max = cfg.pm_capacity, cfg.pm_sr_slabs, cfg.pm_sr_entries
-        tabs = pm._sr_pack(cid, pos, mass, nc ** 3, cap, s_max)
+        tabs = pm._sr_pack(cid, pos, mass, nc ** 3, cap, s_max, key)
         sym, paired = pm._active_sr_layout(pos.is_cuda)
         wl_t, wl_s, n_e = pm._sr_ranges(tabs[2], tabs[3], nc, sub, e_max,
                                         symmetric=sym, paired=paired)
         bounds = torch.stack([torch.zeros_like(n_e), n_e.clamp(max=e_max)])
         rc2 = pm._sr_rc2(span, nc, sub)
-        ms["pack"] = cuda_ms(lambda: pm._sr_pack(cid, pos, mass, nc ** 3, cap,
-                                                 s_max))
+        ms["pack"] = cuda_ms(lambda: pm._sr_pack(
+            cid, pos, mass, nc ** 3, cap, s_max,
+            pm._subcell_key(pos, lo_box, span, nc)))
         ms["worklist"] = cuda_ms(lambda: pm._sr_ranges(
             tabs[2], tabs[3], nc, sub, e_max, symmetric=sym, paired=paired))
         ms["sr kernel"] = cuda_ms(lambda: sr_kernel.sweep(

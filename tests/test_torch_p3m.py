@@ -6,7 +6,9 @@ Inputs are the bit-equal Plummer spheres of both packages.  Tolerances:
 
 * ``_sr_pack`` (all six outputs, on the same cell ids) and ``_sr_ranges``
   (``wl_t``, ``wl_s``, ``n_e`` in all four layouts, on the same slab
-  bounds): bit for bit, since both are integer index work and gathers.
+  bounds): bit for bit, since both are integer index work and gathers;
+  with the sub-cell key, ``ptab``, ``mtab`` and ``pslot`` bit for bit
+  against the JAX package's reordered within each cell by a numpy key.
 * the plain sweep against JAX's ``_sr_sweep`` (unpaired layouts) and
   ``_sr_sweep_pallas(interpret=True)`` (paired layouts): occupied slots
   within 2e-5 of the largest value, as tests/test_p3m.py holds the Pallas
@@ -42,6 +44,7 @@ from nbody_tpu.ops import pm as jax_pm  # noqa: E402
 from nbody_tpu_torch.init import make_state  # noqa: E402
 from nbody_tpu_torch.models import distributions  # noqa: E402
 from nbody_tpu_torch.ops import pm, sr_kernel  # noqa: E402
+from tests.torch_pack_util import reorder_pack_np, subcell_key_np  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -72,34 +75,46 @@ def _plummer(n, seed):
 
 
 def _cids(pos, mass, ng, cutoff=4):
-    """The solver's cell ids of a self-solve, from the JAX package."""
+    """The solver's cell ids of a self-solve, from the JAX package, and
+    its mesh box (lo, span)."""
     p, m = jnp.asarray(pos), jnp.asarray(mass)
     nc, sub = jax_pm._cell_grid_params(ng, cutoff)
     lo, hi = jax_pm._robust_box(p, m)
     inc = (m * jax_pm._inside(p, lo, hi)) > 0
-    return np.asarray(jax_pm._bin_cids(p, lo, hi - lo, nc, inc)), nc, sub
+    return (np.asarray(jax_pm._bin_cids(p, lo, hi - lo, nc, inc)), nc, sub,
+            np.asarray(lo), np.asarray(hi - lo))
 
 
 @pytest.mark.parametrize("n,ng,cap,s_max", [(2048, 64, 128, 40),
                                             (1024, 32, 8, 24),
                                             (700, 16, 64, 6)])
 def test_sr_pack_bit_equal(n, ng, cap, s_max):
+    """Under a zero key the pack is the JAX package's; with the sub-cell key
+    the slab bounds and the binned set still are, and the tables are its
+    tables with each cell reordered by the key."""
     # (1024, 32, cap 8): cells overflow; (700, 16, s_max 6): slabs overflow.
     pos, mass = _plummer(n, 3)
-    cid, nc, _ = _cids(pos, mass, ng)
-    got = pm._sr_pack(_t(cid), _t(pos), _t(mass), nc ** 3, cap, s_max)
-    want = _jax_pack(jnp.asarray(cid), jnp.asarray(pos), jnp.asarray(mass),
-                     nc ** 3, cap, s_max)
-    for g, w in zip(got, want):
-        assert g.dtype in (torch.int32, torch.float32, torch.bool)
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    cid, nc, _, lo, span = _cids(pos, mass, ng)
+    want = [np.asarray(w) for w in _jax_pack(
+        jnp.asarray(cid), jnp.asarray(pos), jnp.asarray(mass), nc ** 3, cap,
+        s_max)]
+    key = pm._subcell_key(_t(pos), _t(lo), _t(span), nc)
+    want_key = subcell_key_np(pos, lo, span, nc)
+    np.testing.assert_array_equal(key.numpy(), want_key)
+    keyed = reorder_pack_np(*want, cid, want_key)
+    assert not np.array_equal(keyed[4], want[4])  # the key moves slots
+    for k, w in ((torch.zeros_like(key), want), (key, keyed)):
+        got = pm._sr_pack(_t(cid), _t(pos), _t(mass), nc ** 3, cap, s_max, k)
+        for g, w_i in zip(got, w):
+            assert g.dtype in (torch.int32, torch.float32, torch.bool)
+            np.testing.assert_array_equal(g.numpy(), w_i)
 
 
 @pytest.mark.parametrize("sym,paired", [(False, False), (True, False),
                                         (False, True), (True, True)])
 def test_sr_ranges_bit_equal(sym, paired):
     pos, mass = _plummer(2048, 5)
-    cid, nc, sub = _cids(pos, mass, 64)
+    cid, nc, sub = _cids(pos, mass, 64)[:3]
     slab_lo, slab_hi = _jax_pack(jnp.asarray(cid), jnp.asarray(pos),
                                  jnp.asarray(mass), nc ** 3, 256, 34)[2:4]
     for e_max in (4096, 100):  # the second drops entries past e_max

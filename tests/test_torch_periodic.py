@@ -13,7 +13,9 @@ Inputs come from numpy seeds and go through both packages.  Tolerances:
 * deposit and gather: cell ids and fractions bit-equal, values 1e-6.
 * ghost images: equal multisets and ``n_ghost``; under truncation a
   sub-multiset with every slot filled and the same ``n_ghost``.
-* the pack and worklist on the ghost-extended grid: bit for bit.
+* the pack and worklist on the ghost-extended grid: bit for bit, the
+  tables against the JAX package's reordered within each cell by a numpy
+  sub-cell key.
 * accelerations: 1e-4 relative norm (``rfftn`` here, ``fftn`` in JAX);
   against the fp64 k-space sum, tests/test_pm.py's and tests/test_p3m.py's
   bounds; the potential energy 1e-5; the native gradient of plain PM 1e-4.
@@ -50,6 +52,7 @@ from nbody_tpu_torch.models import distributions  # noqa: E402
 from nbody_tpu_torch.models.gravity import make_accel_fn  # noqa: E402
 from nbody_tpu_torch.ops import pm  # noqa: E402
 from nbody_tpu_torch.utils import spans  # noqa: E402
+from tests.torch_pack_util import reorder_pack_np, subcell_key_np  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -189,15 +192,16 @@ def _jax_tables(pos_src, mass_src, ng, box, cap, s_max, e_max, gcap,
     packed = jax_pm._sr_pack(cid, pos_bin, m_bin, nc_tot ** 3, cap, s_max)
     wl = jax_pm._sr_ranges(packed[2], packed[3], nc_tot, sub, e_max,
                            symmetric=symmetric, paired=paired)
-    return packed, wl, n_ghost
+    return packed, wl, n_ghost, (pos_bin, cid, lo_cell, span_tot)
 
 
 @pytest.mark.parametrize("state,between", [("uniform", False),
                                            ("blob", False), ("blob", True)])
 def test_periodic_pack_bit_equal(state, between):
     """The pack and worklist on the ghost-extended grid equal the JAX
-    package's bit for bit, same-set and with distinct targets; the blob's
-    capacity 16 overflows its cells."""
+    package's bit for bit, same-set and with distinct targets, the tables
+    once each cell is put in sub-cell key order; the blob's capacity 16
+    overflows its cells."""
     box, ng = (0.7, 32) if state == "uniform" else (1.0, 32)
     pos, mass = _uniform(1024, 4, box) if state == "uniform" else \
         corner_blob(512, 3)
@@ -211,14 +215,19 @@ def test_periodic_pack_bit_equal(state, between):
             sr_entries=e_max, sr_ghosts=2048,
             pos_tgt=None if tgt is None else _t(tgt), symmetric=sym,
             paired=paired)
-        packed, wl, n_ghost = _jax_tables(
+        packed, wl, n_ghost, (pos_bin, cid, lo, span) = _jax_tables(
             jnp.asarray(pos), jnp.asarray(mass), ng, box, cap, s_max, e_max,
             2048, sym, paired, None if tgt is None else jnp.asarray(tgt))
+        nc_tot = jax_pm._periodic_geom(ng, 4, box)[3]
+        key = subcell_key_np(pos_bin, lo, span, nc_tot)
+        packed = [np.asarray(w) for w in packed]
+        keyed = reorder_pack_np(*packed, np.asarray(cid), key)
+        assert not np.array_equal(keyed[4], packed[4])
         got = [tabs[k] for k in ("ptab", "mtab")] + [None, None] + [
             tabs[k] for k in ("pslot", "binned")]
-        for g, w in zip(got, packed):
+        for g, w in zip(got, keyed):
             if g is not None:
-                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+                np.testing.assert_array_equal(g.numpy(), w)
         for k, w in zip(("wl_t", "wl_s", "n_e"), wl):
             np.testing.assert_array_equal(tabs[k].numpy(), np.asarray(w))
         assert int(tabs["n_ghost"]) == int(n_ghost)

@@ -13,6 +13,10 @@ arithmetic is its schedule, which these tests model step by step:
 * the two warp-uniform skips, a source beyond the warp's bounding box and
   a (warp, source) step with q >= 1 on every lane: both drop only weights
   that are exactly 0;
+* the sub-cell order of the packed tables (``pm._subcell_key``): each
+  cell's slots in key order, the particles binned as the JAX package bins
+  them, and fewer (warp, source) steps kept than in input order on a
+  clustered state;
 * the reaction summed over a warp's targets for each source.
 
 Tolerances: the emulated schedule equals the plain sweep within 2e-5 of
@@ -36,6 +40,7 @@ from nbody_tpu.ops import pm as jax_pm
 from nbody_tpu_torch.models import distributions
 from nbody_tpu_torch.ops import pm, sr_kernel
 from nbody_tpu_torch.types import SOFTENING_SQUARED
+from tests.torch_pack_util import subcell_key_np
 
 torch.set_num_threads(2)
 
@@ -303,3 +308,78 @@ def test_skip_counts_match_the_schedule():
         if sym:
             both = sr_kernel.skip_counts(*args, symmetric=True, paired=paired)
             assert both["skipped"] / both["steps"] < skipped / steps
+
+
+def _gate_tables():
+    """The default layout's tables of a clustered Plummer sphere (N=16384,
+    seed 7, grid 128, cutoff 4, capacity 2048)."""
+    pos, _, mass = distributions.plummer(16384, seed=7)
+    p, m = torch.tensor(pos), torch.tensor(mass)
+    plan = dict(pm.suggest_sr_plan(p, m, 128, 4, layout="pallas_paired"),
+                capacity=2048)
+    return pm.sr_pack_inputs(p, m, grid=128, cutoff_cells=4, paired=True,
+                             **plan)
+
+
+def _zero_key(pos, *_):
+    return torch.zeros(pos.shape[1], dtype=torch.int32, device=pos.device)
+
+
+def test_subcell_order_keeps_fewer_steps(monkeypatch):
+    """In dense cells the sub-cell order makes each warp and each run of
+    sources compact, so the kernel's exact skips keep at least 15% fewer
+    (warp, source) steps on the same worklist and pairs than the same pack
+    under a zero key, which leaves each cell in input order."""
+    tabs = {True: _gate_tables()}
+    monkeypatch.setattr(pm, "_subcell_key", _zero_key)
+    tabs[False] = _gate_tables()
+    for k in ("wl_t", "wl_s", "n_e"):
+        assert torch.equal(tabs[True][k], tabs[False][k])
+    kept = {}
+    for order, pk in tabs.items():
+        bounds = torch.stack([torch.zeros_like(pk["n_e"]), pk["n_e"]])
+        c = sr_kernel.skip_counts(pk["ptab"], pk["mtab"], pk["wl_t"],
+                                  pk["wl_s"], bounds, pk["rc2"], paired=True)
+        kept[order] = (c["steps"] - c["skipped"]) / c["steps"]
+    assert kept[True] <= 0.85 * kept[False], kept
+
+
+def test_subcell_order_bins_what_jax_bins():
+    """Under a capacity that overflows the core, the keyed pack bins the
+    same particles, and gives the same slab bounds, as the JAX package's
+    pack in input order."""
+    pos, _, mass = distributions.plummer(4096, seed=2)
+    p, m = torch.tensor(pos), torch.tensor(mass)
+    nc, _ = pm._cell_grid_params(64, 4)
+    lo, hi = pm._robust_box(p, m)
+    inc = (m * pm._inside(p, lo, hi)) > 0
+    cid = pm._bin_cids(p, lo, hi - lo, nc, inc)
+    key = pm._subcell_key(p, lo, hi - lo, nc)
+    got = pm._sr_pack(cid, p, m, nc ** 3, 16, 80, key)
+    jp, jm = jnp.asarray(pos), jnp.asarray(mass)
+    jlo, jhi = jax_pm._robust_box(jp, jm)
+    jinc = (jm * jax_pm._inside(jp, jlo, jhi)) > 0
+    jcid = jax_pm._bin_cids(jp, jlo, jhi - jlo, nc, jinc)
+    want = jax_pm._sr_pack(jcid, jp, jm, nc ** 3, 16, 80)
+    np.testing.assert_array_equal(cid.numpy(), np.asarray(jcid))
+    assert 0 < int(got[5].sum()) < int(inc.sum())  # cells overflow
+    for i in (2, 3, 5):  # slab_lo, slab_hi, binned
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
+
+
+def test_slabs_are_in_cell_then_key_order():
+    """Along the filled slots of the packed tables, (cell id, sub-cell key)
+    never decreases, and within a cell the key orders the slots."""
+    pk = _gate_tables()
+    pos, _, mass = distributions.plummer(16384, seed=7)
+    lo, hi = pm._robust_box(torch.tensor(pos), torch.tensor(mass))
+    nc, _ = pm._cell_grid_params(128, 4)
+    filled = pk["mtab"] > 0
+    assert bool(filled[:int(filled.sum())].all())  # filled slots lead
+    slots = pk["ptab"][:, filled]
+    cid = pm._bin_cids(slots, lo, hi - lo, nc,
+                       torch.ones_like(filled[filled])).numpy()
+    key = subcell_key_np(slots.numpy(), lo.numpy(), (hi - lo).numpy(), nc)
+    order = cid.astype(np.int64) * (1 << 9) + key
+    assert np.all(np.diff(order) >= 0)
+    assert np.unique(cid).size < cid.size  # cells of more than one slot
