@@ -30,17 +30,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 import run  # noqa: E402
-from harness import check, spec  # noqa: E402
-
-
-def control_outputs(cell, seed: int, device):
-    """The reference control's answers, shaped as the window's: every
-    block's kinetic energy, and the kept states of one segment."""
-    _, blocks = check.reference_run(cell.config, cell.traffic, cell.check,
-                                    seed, device, control=True)
-    kes = [(k, b[0]) for k, b in enumerate(blocks)]
-    states = {k: (b[1], b[2]) for k, b in enumerate(blocks)}
-    return kes, states, states
+from harness import spec  # noqa: E402
 
 
 def readings(cell, seed: int, seconds: float, platform=None) -> dict:
@@ -50,24 +40,25 @@ def readings(cell, seed: int, seconds: float, platform=None) -> dict:
     args = argparse.Namespace(workload=cell.name, seed=seed,
                               seconds=seconds, trace=0)
     dev = torch.device("cpu" if platform == "cpu" else "cuda")
+    job = run.checker(cell)
     t = time.perf_counter()
     produced = run.measure(cell, args, platform, t0=t)[0]
     t_prog = time.perf_counter() - t
     t = time.perf_counter()
-    initial, ref = check.reference_run(cell.config, cell.traffic, cell.check,
-                                       seed, dev)
+    initial, ref = job.reference_run(cell.config, cell.traffic, cell.check,
+                                     seed, dev)
     t_ref = time.perf_counter() - t
-    program = check.numbers(initial, ref, *produced[:3])
+    program = job.numbers(initial, ref, *produced[:3])
     t = time.perf_counter()
     how = cell.config["control"]
     if "program" in how:
         control = run.measure(cell, args, platform, overrides=how["program"],
                               t0=t)[0][:3]
     else:
-        control = control_outputs(cell, seed, dev)
+        control = job.control_outputs(cell, seed, dev)
     t_ctl = time.perf_counter() - t
     return {"seed": seed, "program": program,
-            "control": check.numbers(initial, ref, *control),
+            "control": job.numbers(initial, ref, *control),
             "program_s": t_prog, "reference_s": t_ref, "control_s": t_ctl}
 
 
@@ -90,7 +81,7 @@ def main(argv=None, platform=None) -> int:
         print(json.dumps(rows[-1]), flush=True)
     summary = {name: {"lower": max(r["program"][name] for r in rows),
                       "upper": min(r["control"][name] for r in rows)}
-               for name in check.NUMBERS}
+               for name in run.checker(cell).NUMBERS}
     print(json.dumps({"workload": cell.name, "seeds": len(rows),
                       "readings": summary}), flush=True)
     return 0

@@ -1,5 +1,7 @@
 """Whether what the window produced is correct: the program's answers held
-against the plain reference (``reference.py``) at the timed sizes.
+against the plain reference (``reference.py``) at the timed sizes.  This
+is the check of the block loop; ``grad_check.py`` is the rollout
+gradient's, with the same functions.
 
 The reference rebuilds the initial state from the seed and follows the
 segment's first ``reference_blocks`` blocks in float64.  The numbers
@@ -25,6 +27,13 @@ import torch
 from . import ics, reference
 
 NUMBERS = ("ke", "dv", "x")
+# The number the host reads a block: failed_blocks counts against it.
+HOST_READ = "ke"
+
+
+def limits(check: dict) -> dict:
+    """The check file's limits."""
+    return check["limits"]
 
 
 def keep_blocks(check: dict) -> tuple:
@@ -76,18 +85,22 @@ def numbers(initial, ref_blocks, kes, first: dict, last: dict) -> dict:
     return out
 
 
-def host_states(seg: dict, n: int) -> dict:
-    """The program's kept states on the host in float64, real particles."""
-    return {k: (p[:, :n].double().cpu(), v[:, :n].double().cpu())
-            for k, (p, v) in seg.items()}
-
-
 def failed_blocks(ref_blocks, kes, limit: float) -> int:
     """The window's blocks whose kinetic energy is off by more than
     ``limit``, among those the reference follows."""
     nb = len(ref_blocks)
     return sum(1 for k, ke in kes if k < nb and not abs(
         ke - ref_blocks[k][0]) <= limit * abs(ref_blocks[k][0]))
+
+
+def control_outputs(cell, seed: int, device):
+    """The reference control's answers, shaped as the window's: every
+    block's kinetic energy, and the kept states of one segment."""
+    _, blocks = reference_run(cell.config, cell.traffic, cell.check, seed,
+                              device, control=True)
+    kes = [(k, b[0]) for k, b in enumerate(blocks)]
+    states = {k: (b[1], b[2]) for k, b in enumerate(blocks)}
+    return kes, states, states
 
 
 def verdict(values: dict, limits: dict) -> tuple[bool, dict]:

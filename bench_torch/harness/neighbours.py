@@ -62,64 +62,103 @@ def cell_ids(pos, lo_box, span, nc: int) -> torch.Tensor:
     return (c[0] * nc + c[1]) * nc + c[2]
 
 
+class PairPlan:
+    """The candidate pairs of ``neighbour_pairs``, made in chunks on demand:
+    each member's runs of neighbours (``lengths`` from ``first``) in the
+    cell-sorted order, so that chunk ``[t0, t1)`` of those members can be
+    made again without keeping its indices (the reference's gradient
+    recomputes a chunk in its backward)."""
+
+    def __init__(self, cid: torch.Tensor, members: torch.Tensor, nc: int,
+                 reach: int):
+        dev = cid.device
+        idx = torch.nonzero(members).flatten()
+        c = cid[idx]
+        order = torch.argsort(c, stable=True)
+        idx, c = idx[order], c[order]
+        m = idx.shape[0]
+        counts = torch.bincount(c, minlength=nc ** 3)
+        starts = torch.cumsum(counts, 0) - counts
+        cx, cy, cz = c // (nc * nc), (c // nc) % nc, c % nc
+        # Half the neighbourhood: the offsets above (0, 0, 0) in
+        # lexicographic order, and in the cell itself the members after
+        # this one.
+        offs = torch.tensor([(ox, oy, oz) for ox in range(-reach, reach + 1)
+                             for oy in range(-reach, reach + 1)
+                             for oz in range(-reach, reach + 1)
+                             if (ox, oy, oz) > (0, 0, 0)], device=dev)
+        nx = cx[:, None] + offs[None, :, 0]
+        ny = cy[:, None] + offs[None, :, 1]
+        nz = cz[:, None] + offs[None, :, 2]
+        ok = ((nx >= 0) & (nx < nc) & (ny >= 0) & (ny < nc) & (nz >= 0)
+              & (nz < nc))
+        nb = torch.where(ok, (nx * nc + ny) * nc + nz, 0)
+        del nx, ny, nz
+        at = torch.arange(m, device=dev)
+        self.lengths = torch.cat([(starts[c] + counts[c] - at - 1)[:, None],
+                                  torch.where(ok, counts[nb], 0)], 1)
+        self.first = torch.cat([(at + 1)[:, None], starts[nb]], 1)
+        self.idx, self.m = idx, m
+        self.cum = torch.cumsum(self.lengths.sum(1), 0).cpu()
+
+    def chunks(self, chunk: int = PAIR_CHUNK) -> list:
+        """[(t0, t1)]: runs of members of about ``chunk`` pairs each."""
+        out, t0, cum = [], 0, self.cum
+        while t0 < self.m:
+            done = int(cum[t0 - 1]) if t0 else 0
+            t1 = int(torch.searchsorted(cum, done + chunk, side="right"))
+            t1 = min(max(t1, t0 + 1), self.m)
+            out.append((t0, t1))
+            t0 = t1
+        return out
+
+    def pairs(self, t0: int, t1: int):
+        """(i, j): the candidate pairs of members ``[t0, t1)``."""
+        dev = self.idx.device
+        width = self.lengths.shape[1]
+        ln = self.lengths[t0:t1].flatten()
+        run = torch.repeat_interleave(
+            torch.arange(ln.shape[0], device=dev), ln)
+        run_start = torch.cumsum(ln, 0) - ln
+        k = torch.arange(run.shape[0], device=dev) - run_start[run]
+        j = self.first[t0:t1].flatten()[run] + k
+        i = t0 + run // width
+        return self.idx[i], self.idx[j]
+
+
 def neighbour_pairs(cid: torch.Tensor, members: torch.Tensor, nc: int,
                     reach: int, chunk: int = PAIR_CHUNK):
     """Yield (i, j) index tensors covering every unordered pair of members
     in the same cell or in cells up to ``reach`` apart on each axis once,
     i != j, in chunks of about ``chunk`` pairs.  ``cid``: cell ids on an
     nc^3 grid."""
-    dev = cid.device
-    idx = torch.nonzero(members).flatten()
-    c = cid[idx]
-    order = torch.argsort(c, stable=True)
-    idx, c = idx[order], c[order]
-    m = idx.shape[0]
-    counts = torch.bincount(c, minlength=nc ** 3)
-    starts = torch.cumsum(counts, 0) - counts
-    cx, cy, cz = c // (nc * nc), (c // nc) % nc, c % nc
-    # Half the neighbourhood: the offsets above (0, 0, 0) in lexicographic
-    # order, and in the cell itself the members after this one.
-    offs = torch.tensor([(ox, oy, oz) for ox in range(-reach, reach + 1)
-                         for oy in range(-reach, reach + 1)
-                         for oz in range(-reach, reach + 1)
-                         if (ox, oy, oz) > (0, 0, 0)], device=dev)
-    nx = cx[:, None] + offs[None, :, 0]
-    ny = cy[:, None] + offs[None, :, 1]
-    nz = cz[:, None] + offs[None, :, 2]
-    ok = ((nx >= 0) & (nx < nc) & (ny >= 0) & (ny < nc) & (nz >= 0)
-          & (nz < nc))
-    nb = torch.where(ok, (nx * nc + ny) * nc + nz, 0)
-    del nx, ny, nz
-    at = torch.arange(m, device=dev)
-    lengths = torch.cat([(starts[c] + counts[c] - at - 1)[:, None],
-                         torch.where(ok, counts[nb], 0)], 1)
-    first = torch.cat([(at + 1)[:, None], starts[nb]], 1)
-    del ok, nb
-    width = lengths.shape[1]
-    cum = torch.cumsum(lengths.sum(1), 0).cpu()
-    t0 = 0
-    while t0 < m:
-        done = int(cum[t0 - 1]) if t0 else 0
-        t1 = int(torch.searchsorted(cum, done + chunk, side="right"))
-        t1 = min(max(t1, t0 + 1), m)
-        ln = lengths[t0:t1].flatten()
-        run = torch.repeat_interleave(
-            torch.arange(ln.shape[0], device=dev), ln)
-        run_start = torch.cumsum(ln, 0) - ln
-        k = torch.arange(run.shape[0], device=dev) - run_start[run]
-        j = first[t0:t1].flatten()[run] + k
-        i = t0 + run // width
-        yield idx[i], idx[j]
-        t0 = t1
+    plan = PairPlan(cid, members, nc, reach)
+    for t0, t1 in plan.chunks(chunk):
+        yield plan.pairs(t0, t1)
+
+
+def inside_pairs(pos, i, j, rc2):
+    """(i, j, d = x_j - x_i, r^2) of the candidate pairs (i, j) closer than
+    r_c.  The gathers are ``index_select``s: their backward adds into the
+    positions' gradient directly, where an indexing gather's sorts its
+    indices first."""
+    d = pos.index_select(1, j) - pos.index_select(1, i)
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    inside = torch.nonzero(r2 < rc2).flatten()
+    return i[inside], j[inside], d[:, inside], r2[inside]
+
+
+def fine_plan(pos, members, lo_box, span, nc: int, sub: int) -> PairPlan:
+    """The candidate pairs of ``near_pairs``: cells ``FINE`` times finer
+    than the cell grid, a reach of ``FINE * sub`` of them."""
+    ncf = FINE * nc
+    return PairPlan(cell_ids(pos, lo_box, span, ncf), members, ncf,
+                    FINE * sub)
 
 
 def near_pairs(pos, members, lo_box, span, nc: int, sub: int, rc2):
     """Yield (i, j, d = x_j - x_i, r^2) for every unordered pair of members
     closer than r_c, once."""
-    ncf = FINE * nc
-    cid = cell_ids(pos, lo_box, span, ncf)
-    for i, j in neighbour_pairs(cid, members, ncf, FINE * sub):
-        d = pos[:, j] - pos[:, i]
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        inside = torch.nonzero(r2 < rc2).flatten()
-        yield i[inside], j[inside], d[:, inside], r2[inside]
+    plan = fine_plan(pos, members, lo_box, span, nc, sub)
+    for t0, t1 in plan.chunks():
+        yield inside_pairs(pos, *plan.pairs(t0, t1), rc2)

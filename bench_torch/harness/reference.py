@@ -49,16 +49,22 @@ def solver(name: str):
     return mod
 
 
+def check_constants(config: dict) -> None:
+    """The reference's constants are the upstream's; a configuration with
+    others is refused."""
+    if (config["G"], config["softening_squared"]) != (G_NEWTON,
+                                                      SOFTENING_SQUARED):
+        raise ValueError("the reference's constants are the upstream's: "
+                         f"G {G_NEWTON}, eps^2 {SOFTENING_SQUARED}")
+
+
 def follow(pos, vel, mass, config: dict, dt: float, block_steps: int,
            blocks: int, dtype=torch.float64, control: bool = False) -> list:
     """Advance the initial state (host or device tensors) by ``blocks``
     sample blocks of ``block_steps`` steps of v += a dt, x += v dt.
     Returns, after each block, (kinetic energy, pos, vel) with pos and vel
     on the host in float64."""
-    if (config["G"], config["softening_squared"]) != (G_NEWTON,
-                                                      SOFTENING_SQUARED):
-        raise ValueError("the reference's constants are the upstream's: "
-                         f"G {G_NEWTON}, eps^2 {SOFTENING_SQUARED}")
+    check_constants(config)
     pos, vel, mass = (t.to(dtype) for t in (pos, vel, mass))
     # The program steps in float32: the same step, rounded.
     dt = float(np.float32(dt))

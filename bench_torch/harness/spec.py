@@ -7,7 +7,9 @@ check or one metric sits in a file of its own, found by its name:
   options, the physics), as ``BENCHMARK.json``'s ``file`` names it;
 * ``traffic/<traffic>.json``: the initial conditions (distribution, N),
   the time step, the sample block and the segment the window replays, and
-  the segments the traced run profiles;
+  the segments the traced run profiles; and the ``job`` the window drives
+  (``JOBS``): the program's block loop by default, or ``rollout_grad``,
+  one gradient of a ``block_steps``-step rollout a block;
 * ``checks/<workload>.json``: the blocks of the segment the reference
   follows, and each compared number's limit with the two readings it was
   set from (``lower``: the program's largest, ``upper``: the control's
@@ -16,7 +18,9 @@ check or one metric sits in a file of its own, found by its name:
   for a per-layer metric the spans it reads, ``SPANS``: label -> the
   program's function that the traced run wraps in ``bench:<label>``;
 * ``references/<solver>.py``: the plain reference's force for the
-  configuration's ``solver`` (``reference.py``).
+  configuration's ``solver`` (``reference.py``), and
+  ``references/<solver>_grad.py`` its force for a rollout gradient
+  (``grad_check.py``).
 
 So a later cell or metric is added as files and entries, and no file here
 changes.
@@ -33,6 +37,10 @@ ROOT = os.path.dirname(HERE)
 
 TRAFFIC_KEYS = ("distribution", "n", "dt", "block_steps", "segment_blocks",
                 "trace_segments")
+# The jobs a window can drive; a rollout gradient also names what it is
+# taken with respect to, which is the initial positions and velocities.
+JOBS = ("block_loop", "rollout_grad")
+GRAD_WRT = ["pos", "vel"]
 
 
 @dataclasses.dataclass
@@ -51,6 +59,22 @@ class Cell:
     check: dict
     end_to_end: list
     per_layer: list
+
+    @property
+    def job(self) -> str:
+        return job(self.traffic)
+
+
+def job(traffic: dict) -> str:
+    """The job a traffic mix drives, refused unless the window can drive
+    it."""
+    name = traffic.get("job", "block_loop")
+    if name not in JOBS or (name == "rollout_grad"
+                            and traffic.get("wrt") != GRAD_WRT):
+        raise ValueError(f"job {name!r} (wrt {traffic.get('wrt')!r}); "
+                         f"options: {JOBS}, a rollout gradient with respect "
+                         f"to {GRAD_WRT}")
+    return name
 
 
 def _read_json(path: str) -> dict:
@@ -81,6 +105,7 @@ def load(workload: str, root: str = ROOT) -> Cell:
     missing = [k for k in TRAFFIC_KEYS if k not in traffic]
     if missing:
         raise ValueError(f"traffic {w['traffic']!r} lacks {missing}")
+    job(traffic)
     check = _read_json(os.path.join(HERE, "checks", workload + ".json"))
     e2e = _metrics(bench["end_to_end"], workload)
     layer = _metrics(bench["per_layer"], workload,

@@ -9,6 +9,11 @@ trace, on one timeline.
   span when its device interval lies inside the span's device interval.
 * Idle gaps: the stretch minus the busy union, each named by what the host
   was doing at its midpoint (the innermost host event there).
+* Launches: each device activity's launching runtime call, on any host
+  thread, found by the trace's correlation id.  Work that autograd's own
+  thread launches while the stretch's thread waits in a ``bench:*`` range
+  belongs to that range (``launched_us``), whether or not the range's
+  device interval holds it.
 
 The span and interval logic follows ``scripts/torch_profile.py``
 (``_stage_hooks``, ``_ranged``), copied so that the yardstick stays.
@@ -89,6 +94,8 @@ class Trace:
 
     def __init__(self, events: list):
         self.activities = []  # (start, end, name)
+        self.correlations = []  # each activity's correlation id, or None
+        self.launches = {}  # correlation id -> start of its runtime call
         self.host = []  # (start, end, name), the stretch's thread
         tid = next((ev.get("tid") for ev in events
                     if ev.get("name") == SPAN + "stretch"
@@ -102,9 +109,14 @@ class Trace:
             s = float(ev["ts"])
             e = s + float(ev["dur"])
             name = ev.get("name", "")
+            corr = ev.get("args", {}).get("correlation")
             if cat in DEVICE_CATS:
                 self.activities.append((s, e, name))
-            elif cat == "gpu_user_annotation" and name.startswith(SPAN):
+                self.correlations.append(corr)
+                continue
+            if cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+                self.launches[corr] = s
+            if cat == "gpu_user_annotation" and name.startswith(SPAN):
                 self.device_spans.setdefault(name[len(SPAN):], []).append(
                     (s, e))
             elif cat in HOST_CATS and ev.get("tid") == tid:
@@ -145,6 +157,20 @@ class Trace:
         for span in spans:
             seen.update(self.inside(span))
         return total(union([(s, e) for s, e, _ in seen]))
+
+    def launched_us(self, span: str) -> float:
+        """Device time of the activities launched, from any host thread,
+        while the stretch's thread was inside a range of ``span``, each
+        counted once."""
+        ivs = union(self.host_spans.get(span, ()))
+        starts = [s for s, _ in ivs]
+        out = []
+        for a, corr in zip(self.activities, self.correlations):
+            t = self.launches.get(corr)
+            k = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+            if k >= 0 and t <= ivs[k][1]:
+                out.append(a[:2])
+        return total(union(out))
 
     def top_ops(self, k: int = 10) -> list:
         by = {}

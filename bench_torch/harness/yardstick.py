@@ -5,7 +5,8 @@ Copied here, not imported, so that a change to the program cannot move it:
 the FLOP model of the upstream (``nbody_tpu_torch/utils/flops.py``, from
 ``ver0/GSimulation.cpp:122``) and the rates and per-pair operation counts of
 ``chip_smoke.py`` (``FP32_RATE``, ``HBM_RATE``, ``OPS_SYM``, ``OPS_SR``,
-``OPS_SR_REACTION``).
+``OPS_SR_REACTION``).  The VJP's count is worked out here from its
+mathematics (``OPS_SR_VJP``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,19 @@ OPS_SR_REACTION = 7
 # Bytes a particle of a force call: position and mass read, acceleration
 # written, each once.
 BYTES_PER_BODY = 28
+# An unordered pair of the short-range sum's VJP for the positions'
+# cotangent (the masses take none in a gradient with respect to the
+# state), from the pair's terms: with d = x_j - x_i, q = |d|^2 / r_c^2 < 1
+# inside the cutoff, w = (1 - S(q)) u^3 and the cotangents g_i, g_j of both
+# sides' accelerations, h = m_j g_i - m_i g_j (the reaction's side
+# included), V = w h + 2 w' (h . d) d adds to gp_j and from gp_i, and
+# k (h . d) to r_c^2's.  3 sub, 5 |d|^2, eps, rsqrt, u^2, u^3, q 1, the
+# taper 8 (S 7 and 1 - S), w 1, S'(q) 4, w' 5, k 2; h 9, h . d 5,
+# 2 w' (h . d) 2, V 9, gp both sides 6, r_c^2's 2.
+OPS_SR_VJP = 66
+# Bytes a body of the VJP: position, mass and cotangent read, the
+# position's cotangent written, each once.
+BYTES_PER_BODY_VJP = 40
 
 
 def step_flops(n: int) -> float:
@@ -57,6 +71,13 @@ def sr_step_seconds(pairs: float, bodies: float) -> float:
                          BYTES_PER_BODY * bodies)
 
 
+def sr_vjp_step_seconds(pairs: float, bodies: float) -> float:
+    """One short-range sum's VJP: each unordered pair inside the cutoff
+    once, both sides' cotangents with it; pairs beyond the cutoff, which a
+    layout may evaluate, are not counted."""
+    return least_seconds(OPS_SR_VJP * pairs, BYTES_PER_BODY_VJP * bodies)
+
+
 def sr_pairs(pos: torch.Tensor, mass: torch.Tensor, grid: int,
              cutoff_cells: int) -> tuple[int, int]:
     """(unordered pairs inside the cutoff radius, bodies) of the short-range
@@ -71,3 +92,11 @@ def sr_pairs(pos: torch.Tensor, mass: torch.Tensor, grid: int,
     count = sum(int(i.shape[0]) for i, _, _, _ in neighbours.near_pairs(
         pos, members, lo, span, nc, sub, rc2))
     return count, int(members.sum())
+
+
+def mean_sr_pairs(states, grid: int, cutoff_cells: int) -> tuple:
+    """(pairs, bodies) of ``sr_pairs``, each the mean over the (pos, mass)
+    ``states``."""
+    counts = [sr_pairs(pos, mass, grid, cutoff_cells) for pos, mass in states]
+    return (sum(c[0] for c in counts) / len(counts),
+            sum(c[1] for c in counts) / len(counts))

@@ -18,8 +18,6 @@ def read(ctx):
     us = t.device_us(*SPANS) / ctx.run.steps
     if us <= 0:
         return None
-    counts = [yardstick.sr_pairs(pos, mass, cfg["grid"], cfg["cutoff_cells"])
-              for pos, mass in ctx.stretch_states]
-    pairs = sum(c[0] for c in counts) / len(counts)
-    bodies = sum(c[1] for c in counts) / len(counts)
+    pairs, bodies = yardstick.mean_sr_pairs(ctx.stretch_states, cfg["grid"],
+                                            cfg["cutoff_cells"])
     return 100.0 * yardstick.sr_step_seconds(pairs, bodies) * 1e6 / us

@@ -116,15 +116,21 @@ class P3M:
         reaction."""
         acc = torch.zeros_like(pos)
         rc2 = env["rc2"]
-        for i, j, d, r2 in neighbours.near_pairs(
+        for i, j, d, _ in neighbours.near_pairs(
                 pos, members, env["lo_box"], env["span"], self.nc, self.sub,
                 rc2):
-            d = self.low(d)
-            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-            u = torch.rsqrt(r2 + SOFTENING_SQUARED)
-            w = (1.0 - taper(r2 / rc2)) * (u * u * u)
-            acc.index_add_(1, i, d * (w * mass[j]))
-            acc.index_add_(1, j, d * (-w * mass[i]))
+            self._pair_sum(acc, mass, i, j, d, rc2)
+        return acc
+
+    def _pair_sum(self, acc, mass, i, j, d, rc2):
+        """Add the complement of the pairs (i, j), d = x_j - x_i, to
+        ``acc`` (3, N), each with its reaction."""
+        d = self.low(d)
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        u = torch.rsqrt(r2 + SOFTENING_SQUARED)
+        w = (1.0 - taper(r2 / rc2)) * (u * u * u)
+        acc.index_add_(1, i, d * (w * mass[j]))
+        acc.index_add_(1, j, d * (-w * mass[i]))
         return acc
 
     def accel(self, pos, mass, env) -> torch.Tensor:

@@ -5,18 +5,21 @@
         --trace <0|1>
 
 Run from the root of a checkout.  Set-up builds or loads the kernels,
-prepares the program's runner (the initial state from the seed, the P3M
-plan, a warm block) and warms what the window runs.  With ``--trace 0`` it
-then drives the program's block loop for ``--seconds`` and reports the
-cell's end-to-end metrics; with ``--trace 1`` it profiles the cell's
+prepares the program's driver for the traffic's job (the initial state
+from the seed, the P3M plan, a warm block or gradient) and warms what the
+window runs.  With ``--trace 0`` it then drives the program's block loop,
+or takes one rollout gradient after another, for ``--seconds`` and reports
+the cell's end-to-end metrics; with ``--trace 1`` it profiles the cell's
 stretch of whole segments instead and reports its per-layer metrics.
-Either way it then frees the program, follows the segment with the plain
-reference in float64 and decides ``correct``.  The last line of standard
-output is one JSON object; the numbers compared, each beside its limit,
-are the last lines of standard error and the last key of that object.
+Either way it then frees the program, follows the segment (or takes the
+gradient) with the plain reference in float64 and decides ``correct``.
+The last line of standard output is one JSON object; the numbers
+compared, each beside its limit, are the last lines of standard error and
+the last key of that object.
 
 Without a CUDA card, or with fewer cards than the cell asks for, it exits
-with code 2 and prints no result.
+with code 2 and prints no result; with JAX or the JAX package loaded once
+the window has closed, with code 3, naming them on standard error.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ ROOT = os.path.dirname(HERE)
 sys.path.insert(0, HERE)
 sys.path.insert(1, ROOT)  # the program under test, nbody_tpu_torch
 
-from harness import spec  # noqa: E402
+from harness import check, grad_check, spec  # noqa: E402
 
 
 def environment(root: str) -> None:
@@ -48,6 +51,8 @@ def environment(root: str) -> None:
     base = os.path.join(root, "build", "bench_torch")
     os.environ["PYTORCH_KERNEL_CACHE_PATH"] = os.path.join(base, "torch")
     os.environ["CUDA_CACHE_PATH"] = os.path.join(base, "cuda")
+    # PyTorch uses the kernel cache it is given only where it exists.
+    os.makedirs(os.environ["PYTORCH_KERNEL_CACHE_PATH"], exist_ok=True)
 
 
 def parse(argv):
@@ -57,6 +62,21 @@ def parse(argv):
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     return p.parse_args(argv)
+
+
+# Top-level modules the port must never load: JAX and the JAX package.
+FORBIDDEN = ("jax", "jaxlib", "flax", "nbody_tpu")
+
+
+def forbidden_modules() -> list:
+    """The forbidden top-level names in ``sys.modules``, compared whole."""
+    return sorted({name.split(".")[0] for name in sys.modules}
+                  & set(FORBIDDEN))
+
+
+def checker(cell):
+    """The check of the cell's job (``check.py``'s functions)."""
+    return grad_check if cell.job == "rollout_grad" else check
 
 
 class Context:
@@ -77,12 +97,12 @@ def measure(cell, args, platform=None, overrides=None, t0=T0):
     control's)."""
     import torch
 
-    from harness import check, program, trace, window
+    from harness import program, trace, window
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    prog = program.Program(cell.config, cell.traffic, args.seed,
-                           platform=platform, overrides=overrides)
+    prog = program.make(cell.config, cell.traffic, args.seed,
+                        platform=platform, overrides=overrides)
     cuda = prog.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(prog.device)
@@ -98,9 +118,7 @@ def measure(cell, args, platform=None, overrides=None, t0=T0):
             prog.sync()
             run, tr = trace.record(
                 lambda: window.stretch(prog, cell.traffic, keep))
-        last = prog.runner.state
-        states = ((prog.initial.pos[:, :prog.n], prog.initial.mass[:prog.n]),
-                  (last.pos[:, :prog.n], last.mass[:prog.n]))
+        states = prog.stretch_states()
         metrics = cell.per_layer
     else:
         run = window.timed(prog, cell.traffic, args.seconds, keep)
@@ -123,8 +141,8 @@ def measure(cell, args, platform=None, overrides=None, t0=T0):
         breakdown = {"device_ops": tr.top_ops(), "idle_gaps":
                      tr.idle_by_host()}
     out = run.outputs
-    produced = (out.kes, check.host_states(out.first, prog.n),
-                check.host_states(out.last, prog.n), run.blocks)
+    produced = (out.kes, prog.host(out.first), prog.host(out.last),
+                run.blocks)
     prog.close()
     del prog, out, run, ctx, states
     gc.collect()
@@ -152,22 +170,26 @@ def main(argv=None, platform=None) -> int:
 def report(cell, args, platform=None) -> int:
     import torch
 
-    from harness import check
-
     produced, values, device, breakdown = measure(cell, args, platform)
+    loaded = forbidden_modules()
+    if loaded:
+        print(f"run.py: loaded once the window closed: {loaded}",
+              file=sys.stderr)
+        return 3
     dev = torch.device("cpu") if platform == "cpu" else torch.device("cuda")
     kes, first, last, _ = produced
+    job = checker(cell)
+    limits = job.limits(cell.check)
     t = time.perf_counter()
-    initial, ref_blocks = check.reference_run(cell.config, cell.traffic,
-                                              cell.check, args.seed, dev)
-    print(f"reference: {len(ref_blocks)} blocks in "
-          f"{time.perf_counter() - t:.3f} s", file=sys.stderr)
+    initial, ref = job.reference_run(cell.config, cell.traffic, cell.check,
+                                     args.seed, dev)
+    print(f"reference: {time.perf_counter() - t:.3f} s", file=sys.stderr)
     correct, shown = check.verdict(
-        check.numbers(initial, ref_blocks, kes, first, last),
-        cell.check["limits"])
-    # Failed answers: the blocks off in energy; a state off counts one.
-    failed = 0 if correct else max(1, check.failed_blocks(
-        ref_blocks, kes, cell.check["limits"]["ke"]["limit"]))
+        job.numbers(initial, ref, kes, first, last), limits)
+    # Failed answers: the blocks off in what the host read (the energy, or
+    # a gradient's loss); a state or gradient off counts one.
+    failed = 0 if correct else max(1, job.failed_blocks(
+        ref, kes, limits[job.HOST_READ]["limit"]))
     result = {"correct": bool(correct), "attempted": len(kes),
               "failed": int(failed), "metrics": values, "device": device}
     if breakdown is not None:

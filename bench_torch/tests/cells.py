@@ -19,6 +19,7 @@ from harness import spec  # noqa: E402
 TINY = {
     "direct-n16384": (4096, None, None),
     "p3m-plummer-n262144": (2048, 16, None),
+    "p3m-grad-plummer-n262144": (2048, 16, None),
     "p3m-uniform-n1048576": (4096, 16, 0.001 * 1048576 / 4096),
 }
 

@@ -35,6 +35,24 @@ def test_sr_least_time():
         28 * 1e6 / 3.35e12)
 
 
+def test_sr_vjp_pair_count():
+    """The VJP's count a pair, as ``chip_smoke.py`` counts the kernel's
+    work (OPS_SR_VJP 68 an evaluation inside the cutoff with its distance
+    test, OPS_SR_VJP_REACTION 13 for the reaction's side), less what the
+    mathematics of a pair inside the cutoff does not need: the distance
+    test's compare, and both masses' cotangents (7 each), since the masses
+    take none."""
+    assert yardstick.OPS_SR_VJP == 68 + 13 - 1 - 2 * 7
+
+
+def test_sr_vjp_least_time_compute_and_memory_bound():
+    assert yardstick.sr_vjp_step_seconds(1e8, 1e6) == pytest.approx(
+        66 * 1e8 / 67e12)
+    # Few pairs: 40 bytes a body read and written outweigh them.
+    assert yardstick.sr_vjp_step_seconds(1, 1e6) == pytest.approx(
+        40 * 1e6 / 3.35e12)
+
+
 def brute_pairs(pos, mass, grid, cutoff):
     """Every unordered pair of the bodies the short-range sum takes, by
     all pairs at once."""
