@@ -1446,10 +1446,12 @@ def ghost_overflow_count(pos, mass, grid: int = DEFAULT_GRID,
     """Periodic ghost images beyond the ghost cap for this state (the cap 0
     resolves as the solver does).  Nonzero means cross-boundary pairs lose
     their whole short-range term (no complement makes up for them): raise
-    ``sr_ghosts`` or re-run suggest_sr_plan."""
+    ``sr_ghosts`` or re-run suggest_sr_plan.  The count read adds to
+    ``spans.counts["ghost_images"]``."""
     gcap = _ghost_cap(pos.shape[1], sr_ghosts)
     n = _read(_ghost_count(pos, mass, grid, cutoff_cells, box_size),
               "ghost_overflow")
+    spans.counts["ghost_images"] += n
     return max(0, n - gcap)
 
 

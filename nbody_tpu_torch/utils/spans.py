@@ -14,7 +14,10 @@
   stream), and one more on the counters ``host_syncs`` and
   ``"sync." + site``, whether or not a session records.  It adds no sync of
   its own.  On the CPU nothing waits, but the sites count the same.
-* ``counts``: the named counters; ``reset()`` zeroes them.
+* ``counts``: the named counters; ``reset()`` zeroes them.  Besides the
+  syncs', ``ghost_images`` adds up the periodic ghost images that the
+  health check counts (``pm.ghost_overflow_count``), from the value its
+  ``sync.ghost_overflow`` read brings to the host: no sync of its own.
 
 No option turns the spans on: they record exactly when a profiler does,
 under ``--profile-dir`` or a benchmark's traced run.  Spans opened in a

@@ -21,7 +21,9 @@ env for the mesh tiers) and prints:
   ``sr.vjp``, and ``accel`` and ``block`` for what no stage holds; "none"
   for the rest of a backward) whose device
   interval holds it; and every transform kernel of the block, whichever
-  stage ran it; and the host syncs a step (``spans.counts``);
+  stage ran it; and the host syncs a step (``spans.counts``), and for
+  periodic P3M the ghost images one health check counts
+  (``spans.counts["ghost_images"]``);
 * for the mesh cells, each stage of one step alone (CUDA events, mean of
   10): the block env (box and kernel spectra), the robust box, the deposit,
   the forward transform, the three inverse transforms, the gather, the
@@ -361,6 +363,13 @@ def main() -> int:
                 print(f"{label}: {syncs / (7 * steps):.3f} host syncs a step "
                       "(the block's, its KE read and health check not "
                       "included)", flush=True)
+                if periodic and runner._sr_health:
+                    images = spans.counts["ghost_images"]
+                    runner.check_sr_health()
+                    images = spans.counts["ghost_images"] - images
+                    print(f"{label}: the health check counts {images} ghost "
+                          f"images ({images / runner.cfg.n:.4f} N)",
+                          flush=True)
                 (periodic_mesh_stages if periodic else mesh_stages)(label,
                                                                      runner)
         finally:

@@ -151,6 +151,35 @@ def test_periodic_p3m_block_syncs_match_the_counter():
     assert "nbt.mesh.ghosts" in names
 
 
+def test_ghost_images_counts_the_health_checks_read():
+    """``counts["ghost_images"]`` adds up the ghost images that the health
+    check's ``sync.ghost_overflow`` read brings to the host, and opens no
+    range of its own: the check's syncs are its three reads and the
+    constant copies of its ghost builds and worklists, as before."""
+    import collections
+
+    from nbody_tpu_torch.ops import pm
+
+    runner = _runner(n=512, nsteps=8, sfreq=4, kernel="p3m", pm_grid=16,
+                     pm_boundary="periodic", pm_box=1.0, dt=0.01)
+    before = spans.counts["ghost_images"]
+    events, syncs = _traced(runner.check_sr_health)
+    images = int(pm._ghost_count(runner.state.pos, runner.state.mass, 16, 4,
+                                 1.0))
+    assert spans.counts["ghost_images"] - before == images > 0
+    got = collections.Counter(e[2] for e in events
+                              if e[2].startswith("nbt.sync."))
+    assert got == {"nbt.sync.cell_overflow": 1, "nbt.sync.ghost_overflow": 1,
+                   "nbt.sync.entry_overflow": 1, "nbt.sync.periodic_rc": 3,
+                   "nbt.sync.ghost_table": 3, "nbt.sync.ghost_combos": 3,
+                   "nbt.sync.worklist_offsets": 4}
+    assert sum(got.values()) == syncs
+    # The solver's own ghost images, each step, are not counted.
+    before = spans.counts["ghost_images"]
+    runner.run_block(4)
+    assert spans.counts["ghost_images"] == before
+
+
 @pytest.mark.parametrize("kind", ["direct", "p3m"])
 def test_block_is_bitwise_the_same_traced(one_thread, kind):
     make = (lambda: _runner(n=256, nsteps=50, sfreq=50)) if kind == "direct" \
@@ -189,6 +218,8 @@ def test_spans_sit_around_the_wrapped_stage_functions():
     import importlib
 
     direct, p3m = _runner(n=256, nsteps=50, sfreq=50), _p3m()
+    periodic = _runner(n=512, nsteps=8, sfreq=4, kernel="p3m", pm_grid=16,
+                       pm_boundary="periodic", pm_box=1.0, dt=0.01)
     saved = []
 
     def ranged(label, fn):
@@ -207,11 +238,13 @@ def test_spans_sit_around_the_wrapped_stage_functions():
                 where)
             saved.append((owner, attr, getattr(owner, attr)))
             setattr(owner, attr, ranged(label, saved[-1][2]))
-        for runner in (direct, p3m):
+        for runner in (direct, p3m, periodic):
             runner._blocks.clear()
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             direct.run_block(50)
             p3m.run_block(4)
+            periodic.run_block(4)
+            periodic.check_sr_health()
     finally:
         for owner, attr, fn in reversed(saved):
             setattr(owner, attr, fn)
