@@ -1356,31 +1356,50 @@ def p3m_accelerations_between(pos_tgt, pos_src, mass_src,
 # The plan: capacity, slab and worklist sizes measured on a concrete state
 
 
+def _plan_bin(pos, mass, grid: int, cutoff_cells: int, boundary: str,
+              box_size: float, gcap: int = 0):
+    """The plan functions' binning of one state, onto the cells the solver
+    bins on: the in-box massive particles (open), or the sources wrapped
+    into the box and their ghost images packed into ``gcap`` slots (0: the
+    guaranteed 7N, which holds every image).  Returns ``(n_slots, cid,
+    n_in, nc, sub, n_ghost)``: the slots, their int32 cell ids (the
+    ``nc^3`` sentinel where excluded), the binned count, the cells a side
+    (ghost-extended when periodic), the reach, and the exact image count
+    whatever ``gcap`` (0 when open); both counts 0-d int32."""
+    pos, mass = pos.to(_F32), mass.to(_F32)
+    if boundary == "periodic":
+        box = float(box_size)
+        _, sub, rc, nc, lo_cell, span_tot = _periodic_geom(
+            int(grid), int(cutoff_cells), box, pos.device)
+        pos_b, m_b, cid, n_ghost = _periodic_ghost_bin(
+            _wrap_box(pos, box), mass, box, rc, nc, lo_cell, span_tot,
+            int(gcap) or 7 * pos.shape[1])
+    else:
+        lo_box, hi_box = _robust_box(pos, mass)
+        nc, sub = _cell_grid_params(int(grid), int(cutoff_cells))
+        m_b = mass * _inside(pos, lo_box, hi_box)
+        pos_b, cid = pos, _bin_cids(pos, lo_box, hi_box - lo_box, nc, m_b > 0)
+        n_ghost = torch.zeros((), dtype=_I32, device=pos.device)
+    return pos_b.shape[1], cid, (m_b > 0).sum(dtype=_I32), nc, sub, n_ghost
+
+
+def _cid_counts(cid, n_cells: int):
+    """Per-cell counts (n_cells,) int32 of the cell ids; the sentinel
+    ``n_cells`` is not counted."""
+    counts = torch.zeros(n_cells + 1, dtype=_I32, device=cid.device)
+    counts.scatter_add_(0, cid.long(), torch.ones_like(cid))
+    return counts[:-1]
+
+
 def _cell_counts(pos, mass, grid: int, cutoff_cells: int,
                  boundary: str = "open", box_size: float = 0.0):
     """Per-cell in-box massive-particle counts (n_cells,) and the in-box
     count, both int32.  The periodic boundary counts on the ghost-extended
     grid, the ghost images included (a capacity must cover the ghost cells
     too: they mirror the densest boundary regions)."""
-    pos, mass = pos.to(_F32), mass.to(_F32)
-    if boundary == "periodic":
-        box = float(box_size)
-        _, _, rc, nc_tot, lo_cell, span_tot = _periodic_geom(
-            int(grid), int(cutoff_cells), box, pos.device)
-        _, m_b, cid, _ = _periodic_ghost_bin(
-            _wrap_box(pos, box), mass, box, rc, nc_tot, lo_cell, span_tot,
-            7 * pos.shape[1])
-        n_cells, n_in = nc_tot ** 3, (m_b > 0).sum(dtype=_I32)
-    else:
-        lo_box, hi_box = _robust_box(pos, mass)
-        nc, _ = _cell_grid_params(int(grid), int(cutoff_cells))
-        n_cells = nc * nc * nc
-        m_in = mass * _inside(pos, lo_box, hi_box)
-        cid = _bin_cids(pos, lo_box, hi_box - lo_box, nc, m_in > 0)
-        n_in = (m_in > 0).sum(dtype=_I32)
-    counts = torch.zeros(n_cells + 1, dtype=_I32, device=pos.device)
-    counts.scatter_add_(0, cid.long(), torch.ones_like(cid))
-    return counts[:-1], n_in
+    _, cid, n_in, nc, _, _ = _plan_bin(pos, mass, grid, cutoff_cells,
+                                       boundary, box_size)
+    return _cid_counts(cid, nc ** 3), n_in
 
 
 def _overflow_frac(counts, n_in, cap: int):
@@ -1455,41 +1474,28 @@ def ghost_overflow_count(pos, mass, grid: int = DEFAULT_GRID,
     return max(0, n - gcap)
 
 
-# Index order of the per-layout entry counts: symmetric + 2 * paired.
-_SR_COMBOS = ((False, False), (True, False), (False, True), (True, True))
-
-
-def _count_all_layouts(slab_lo, slab_hi, nc: int, sub: int):
-    """Worklist entry count of every (symmetric, paired) layout, (4,)."""
-    return torch.stack([
-        _sr_ranges(slab_lo, slab_hi, nc, sub, 1, symmetric=sym,
-                   paired=pr)[2] for sym, pr in _SR_COMBOS])
+def _entry_count(cid, n_slots: int, nc: int, sub: int, cap: int,
+                 layout: tuple):
+    """The exact worklist entry count (0-d int32) of a binning in the
+    (symmetric, paired) ``layout``, and ``_sr_slots``' binned mask."""
+    slab_lo, slab_hi, binned = _sr_slots(cid, nc ** 3, int(cap),
+                                         n_slots // SLAB + 2)
+    sym, pr = layout
+    return _sr_ranges(slab_lo, slab_hi, nc, sub, 1, symmetric=sym,
+                      paired=pr)[2], binned
 
 
 def _sr_plan_counts(pos, mass, grid: int, cutoff: int, cap: int,
-                    boundary: str = "open", box_size: float = 0.0):
-    """Measured (S, E[4], n_ghost): the packed slab count, the exact
-    worklist entry count of every layout, and (periodic) the exact ghost
-    image count for this state; the periodic tables are binned at the
-    guaranteed 7N ghost bound."""
-    pos, mass = pos.to(_F32), mass.to(_F32)
-    ns = pos.shape[1]
-    if boundary == "periodic":
-        box = float(box_size)
-        _, sub, rc, nc, lo_cell, span_tot = _periodic_geom(
-            int(grid), int(cutoff), box, pos.device)
-        pos_b, m_b, cid, n_ghost = _periodic_ghost_bin(
-            _wrap_box(pos, box), mass, box, rc, nc, lo_cell, span_tot, 7 * ns)
-    else:
-        lo_box, hi_box = _robust_box(pos, mass)
-        nc, sub = _cell_grid_params(int(grid), int(cutoff))
-        m_b = mass * _inside(pos, lo_box, hi_box)
-        pos_b, cid = pos, _bin_cids(pos, lo_box, hi_box - lo_box, nc, m_b > 0)
-        n_ghost = torch.zeros((), dtype=_I32, device=pos.device)
-    slab_lo, slab_hi, binned = _sr_slots(
-        cid, nc ** 3, int(cap), pos_b.shape[1] // SLAB + 2)
-    n_e4 = _count_all_layouts(slab_lo, slab_hi, nc, sub)
-    return binned.sum(dtype=_I32) // SLAB + 2, n_e4, n_ghost
+                    layout: tuple, boundary: str = "open",
+                    box_size: float = 0.0):
+    """Measured (S, E, n_ghost): the packed slab count, the exact worklist
+    entry count in ``layout``, and (periodic) the exact ghost image count
+    for this state; the periodic tables are binned at the guaranteed 7N
+    ghost bound."""
+    n_slots, cid, _, nc, sub, n_ghost = _plan_bin(pos, mass, grid, cutoff,
+                                                  boundary, box_size)
+    n_e, binned = _entry_count(cid, n_slots, nc, sub, cap, layout)
+    return binned.sum(dtype=_I32) // SLAB + 2, n_e, n_ghost
 
 
 def _active_sr_layout(on_cuda: bool, differentiable: bool = False) -> tuple:
@@ -1524,12 +1530,6 @@ def suggest_sr_plan(pos, mass, grid: int = DEFAULT_GRID,
     periodic boundary ``"sr_ghosts"``: the measured image count times
     ``headroom``, capped at the guaranteed 7N."""
     _check_boundary(boundary, box_size)
-    cap = int(capacity) or suggest_capacity(pos, mass, grid, cutoff_cells,
-                                            boundary=boundary,
-                                            box_size=box_size)
-    s, e4, g = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
-                               boundary, box_size)
-    s_planned = _pow2_at_least(_read(s, "plan") * headroom)
     if layout == "full":
         sym, pr = False, False
     elif layout is None:
@@ -1540,7 +1540,13 @@ def suggest_sr_plan(pos, mass, grid: int = DEFAULT_GRID,
                              f"{tuple(SR_LAYOUTS)} or 'full'")
         sym, want_pr = SR_LAYOUTS[layout]
         pr = want_pr and pos.is_cuda and not differentiable
-    e = _read(e4[int(sym) + 2 * int(pr)], "plan")
+    cap = int(capacity) or suggest_capacity(pos, mass, grid, cutoff_cells,
+                                            boundary=boundary,
+                                            box_size=box_size)
+    s, e, g = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
+                              (sym, pr), boundary, box_size)
+    s_planned = _pow2_at_least(_read(s, "plan") * headroom)
+    e = _read(e, "plan")
     plan = {"capacity": cap, "sr_slabs": s_planned,
             "sr_entries": _pow2_at_least(e * headroom)}
     if boundary == "periodic":
@@ -1575,10 +1581,58 @@ def sr_entry_overflow(pos, mass, grid: int = DEFAULT_GRID,
     cap, _, e_max = _entry_guard_sizing(
         pos.shape[1], grid, cutoff_cells, capacity, sr_slabs, sr_entries,
         boundary, sr_ghosts)
-    sym, pr = _active_sr_layout(pos.is_cuda, differentiable)
-    e4 = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
-                         boundary, box_size)[1]
-    return max(0, _read(e4[int(sym) + 2 * int(pr)], "entry_overflow") - e_max)
+    n_e = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
+                          _active_sr_layout(pos.is_cuda, differentiable),
+                          boundary, box_size)[1]
+    return max(0, _read(n_e, "entry_overflow") - e_max)
+
+
+def sr_plan_health(pos, mass, grid: int = DEFAULT_GRID,
+                   cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
+                   capacity: int = 0, sr_slabs: int = 0, sr_entries: int = 0,
+                   sr_ghosts: int = 0, boundary: str = "open",
+                   box_size: float = 0.0) -> tuple:
+    """The plan health check's three readings of one state, from one
+    binning and one copy to the host (``sync.health``): ``(fraction,
+    ghosts, entries)``, equal to ``cell_overflow_fraction``,
+    ``ghost_overflow_count`` (0 under the open boundary) and
+    ``sr_entry_overflow`` (the active layout's worklist alone) called
+    apart.  The image count adds to ``spans.counts["ghost_images"]``.
+
+    A periodic state bins at the solver's ghost cap, not at the guaranteed
+    7N.  While every image fits in the cap, the first n_ghost slots hold
+    the same images in the same order and the rest are massless, so the
+    cell counts, the stable sort and every slab that holds a particle are
+    the same; the cap's fewer sentinel slabs add nothing to an entry count.
+    Where the images overflow the cap, the fraction and the entries are
+    measured again at 7N (``spans.counts["health_full_bins"]``)."""
+    periodic = _check_boundary(boundary, box_size)
+    ns = pos.shape[1]
+    cap, _, e_max = _entry_guard_sizing(ns, grid, cutoff_cells, capacity,
+                                        sr_slabs, sr_entries, boundary,
+                                        sr_ghosts)
+    gcap = _ghost_cap(ns, sr_ghosts)
+
+    def readings(ghost_slots: int) -> tuple:
+        n_slots, cid, n_in, nc, sub, n_ghost = _plan_bin(
+            pos, mass, grid, cutoff_cells, boundary, box_size, ghost_slots)
+        frac = _overflow_frac(_cid_counts(cid, nc ** 3), n_in, cap)
+        n_e = _entry_count(cid, n_slots, nc, sub, cap,
+                           _active_sr_layout(pos.is_cuda))[0] \
+            if int(sr_entries) else torch.zeros_like(n_ghost)
+        # float64 holds the f32 fraction and both int32 counts exactly.
+        with spans.sync("health"):
+            frac, n_ghost, n_e = torch.stack(
+                [frac.double(), n_ghost.double(), n_e.double()]).tolist()
+        return frac, int(n_ghost), int(n_e)
+
+    frac, n_ghost, n_e = readings(gcap if periodic else 0)
+    if n_ghost > gcap:
+        spans.counts["health_full_bins"] += 1
+        frac, _, n_e = readings(7 * ns)
+    if periodic:
+        spans.counts["ghost_images"] += n_ghost
+    return frac, max(0, n_ghost - gcap), max(0, n_e - e_max)
 
 
 def force_error_vs_exact(pos, mass, grid: int = DEFAULT_GRID,

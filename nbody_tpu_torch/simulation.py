@@ -242,16 +242,9 @@ class _DeviceRunner:
         pos, mass = self.state.pos, self.state.mass
         bkw = dict(boundary=cfg.pm_boundary, box_size=cfg.pm_box)
         periodic = cfg.pm_boundary == "periodic"
-        frac = pm.cell_overflow_fraction(pos, mass, grid, cutoff,
-                                         cfg.pm_capacity, **bkw)
-        with spans.sync("cell_overflow"):
-            frac = float(frac)
         # Dropped ghosts and worklist entries lose their whole short-range
         # term, so any is degradation.
-        ghosts = pm.ghost_overflow_count(
-            pos, mass, grid, cutoff, sr_ghosts=cfg.pm_sr_ghosts,
-            box_size=cfg.pm_box) if periodic else 0
-        entries = pm.sr_entry_overflow(
+        frac, ghosts, entries = pm.sr_plan_health(
             pos, mass, grid, cutoff, capacity=cfg.pm_capacity,
             sr_slabs=cfg.pm_sr_slabs, sr_entries=cfg.pm_sr_entries,
             sr_ghosts=cfg.pm_sr_ghosts, **bkw)

@@ -16,8 +16,10 @@
   its own.  On the CPU nothing waits, but the sites count the same.
 * ``counts``: the named counters; ``reset()`` zeroes them.  Besides the
   syncs', ``ghost_images`` adds up the periodic ghost images that the
-  health check counts (``pm.ghost_overflow_count``), from the value its
-  ``sync.ghost_overflow`` read brings to the host: no sync of its own.
+  health check counts (``pm.sr_plan_health``), from the value its
+  ``sync.health`` read brings to the host: no sync of its own; and
+  ``health_full_bins`` the checks that found more images than the ghost
+  cap holds and binned again at the guaranteed 7N.
 
 No option turns the spans on: they record exactly when a profiler does,
 under ``--profile-dir`` or a benchmark's traced run.  Spans opened in a
@@ -26,10 +28,9 @@ backward pass (``sr.vjp``) land on autograd's thread, not the caller's.
 The span names, from the entry point down:
 
 * host loop (``simulation.py``): ``block``, ``sync.ke``, ``health`` with
-  its reads ``sync.cell_overflow``, ``sync.ghost_overflow`` and
-  ``sync.entry_overflow``, ``--debug-nans``' ``sync.finite``; at set-up
-  ``setup.state``, ``setup.plan``, ``setup.warm`` (``--profile-dir``'s
-  trace opens before set-up);
+  its one read ``sync.health``, ``--debug-nans``' ``sync.finite``; at
+  set-up ``setup.state``, ``setup.plan``, ``setup.warm``
+  (``--profile-dir``'s trace opens before set-up);
 * integrator (``models/integrators.py``): ``accel`` around each force
   evaluation, ``mesh.env`` around the block's mesh environment;
 * mesh solver (``ops/pm.py``): ``mesh.box``, ``mesh.deposit``,

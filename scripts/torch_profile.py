@@ -23,7 +23,8 @@ env for the mesh tiers) and prints:
   interval holds it; and every transform kernel of the block, whichever
   stage ran it; and the host syncs a step (``spans.counts``), and for
   periodic P3M the ghost images one health check counts
-  (``spans.counts["ghost_images"]``);
+  (``spans.counts["ghost_images"]``) and its second binnings at 7 N
+  (``["health_full_bins"]``);
 * for the mesh cells, each stage of one step alone (CUDA events, mean of
   10): the block env (box and kernel spectra), the robust box, the deposit,
   the forward transform, the three inverse transforms, the gather, the
@@ -365,11 +366,13 @@ def main() -> int:
                       "included)", flush=True)
                 if periodic and runner._sr_health:
                     images = spans.counts["ghost_images"]
+                    full = spans.counts["health_full_bins"]
                     runner.check_sr_health()
                     images = spans.counts["ghost_images"] - images
+                    full = spans.counts["health_full_bins"] - full
                     print(f"{label}: the health check counts {images} ghost "
-                          f"images ({images / runner.cfg.n:.4f} N)",
-                          flush=True)
+                          f"images ({images / runner.cfg.n:.4f} N) and bins "
+                          f"{full} times again at 7 N", flush=True)
                 (periodic_mesh_stages if periodic else mesh_stages)(label,
                                                                      runner)
         finally:

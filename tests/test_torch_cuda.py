@@ -62,6 +62,8 @@ from nbody_tpu_torch.parallel.decompose import shard_state
 from nbody_tpu_torch.simulation import _DeviceRunner, run
 from nbody_tpu_torch.utils import spans
 from nbody_tpu_torch.utils.reporting import parse_trace
+from tests.torch_health_util import CASES as HEALTH_CASES
+from tests.torch_health_util import check_health_equals_the_plan_functions
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
@@ -742,6 +744,13 @@ def test_every_sync_is_counted(cuda_device, monkeypatch, cell):
     runner.finish()
     assert None not in seen
     assert len(seen) == spans.counts["host_syncs"] - before > 0
+
+
+@pytest.mark.parametrize("name", sorted(HEALTH_CASES))
+def test_sr_plan_health_equals_the_plan_functions(cuda_device, name):
+    """The health check's one-binning triple equals the three public plan
+    functions' in the card's paired layout, the 7N fallback included."""
+    check_health_equals_the_plan_functions(name, cuda_device)
 
 
 def _periodic_state(kind, n=4096, seed=5):

@@ -44,6 +44,10 @@ from nbody_tpu.ops import pm as jax_pm  # noqa: E402
 from nbody_tpu_torch.init import make_state  # noqa: E402
 from nbody_tpu_torch.models import distributions  # noqa: E402
 from nbody_tpu_torch.ops import pm, sr_kernel  # noqa: E402
+from tests.torch_health_util import CASES as HEALTH_CASES  # noqa: E402
+from tests.torch_health_util import (  # noqa: E402
+    check_health_equals_the_plan_functions,
+)
 from tests.torch_pack_util import reorder_pack_np, subcell_key_np  # noqa: E402
 
 torch.set_num_threads(2)
@@ -249,6 +253,18 @@ def test_plan_functions_equal_jax(n, ng, seed):
     over = pm.sr_entry_overflow(p, m, ng, 4, **starved)
     assert over > 0 and over == jax_pm.sr_entry_overflow(pos, mass, ng, 4,
                                                          **starved)
+
+
+@pytest.mark.parametrize("name", sorted(HEALTH_CASES))
+def test_sr_plan_health_equals_the_plan_functions(name):
+    """The health check's one-binning triple equals the three public plan
+    functions' on the CPU's layout; the ghost cap of 8 takes the 7N
+    fallback.  tests/test_torch_cuda.py holds the card's paired layout."""
+    frac, ghosts, entries = check_health_equals_the_plan_functions(name,
+                                                                   "cpu")
+    assert (frac > 0.005) == name.endswith("capacity-8")
+    assert (ghosts > 0) == name.endswith("ghosts-8")
+    assert (entries > 0) == name.endswith("entries-64")
 
 
 def test_active_layout_follows_the_device():

@@ -135,9 +135,11 @@ def test_p3m_block_spans():
     health = [e for e in events if e[2] == "nbt.health"]
     reads = [e for e in events if e[2].startswith("nbt.sync.")]
     assert len(health) == 1 and all(_inside(e, health) for e in reads)
-    assert {"nbt.sync.cell_overflow", "nbt.sync.entry_overflow"} <= {
-        e[2] for e in reads}
-    assert len(reads) == syncs == 2 + 2 + 4
+    # One box's quantiles, one worklist's offsets, one read of the triple.
+    assert sorted(e[2] for e in reads) == [
+        "nbt.sync.box_quantiles", "nbt.sync.health",
+        "nbt.sync.worklist_offsets"]
+    assert len(reads) == syncs == 3
 
 
 def test_periodic_p3m_block_syncs_match_the_counter():
@@ -147,15 +149,15 @@ def test_periodic_p3m_block_syncs_match_the_counter():
         events, syncs = _traced(fn)
         names = [e[2] for e in events]
         assert sum(n.startswith("nbt.sync.") for n in names) == syncs > 0
-    assert "nbt.sync.ghost_overflow" in names
+    assert "nbt.sync.health" in names
     assert "nbt.mesh.ghosts" in names
 
 
 def test_ghost_images_counts_the_health_checks_read():
     """``counts["ghost_images"]`` adds up the ghost images that the health
-    check's ``sync.ghost_overflow`` read brings to the host, and opens no
-    range of its own: the check's syncs are its three reads and the
-    constant copies of its ghost builds and worklists, as before."""
+    check's ``sync.health`` read brings to the host, and opens no range of
+    its own: the check's syncs are its one read and the constant copies of
+    its one ghost build and one worklist."""
     import collections
 
     from nbody_tpu_torch.ops import pm
@@ -163,16 +165,19 @@ def test_ghost_images_counts_the_health_checks_read():
     runner = _runner(n=512, nsteps=8, sfreq=4, kernel="p3m", pm_grid=16,
                      pm_boundary="periodic", pm_box=1.0, dt=0.01)
     before = spans.counts["ghost_images"]
+    full_bins = spans.counts["health_full_bins"]
     events, syncs = _traced(runner.check_sr_health)
     images = int(pm._ghost_count(runner.state.pos, runner.state.mass, 16, 4,
                                  1.0))
     assert spans.counts["ghost_images"] - before == images > 0
+    # Every image fits the plan's ghost cap: no binning at 7N.
+    assert images <= runner.cfg.pm_sr_ghosts
+    assert spans.counts["health_full_bins"] == full_bins
     got = collections.Counter(e[2] for e in events
                               if e[2].startswith("nbt.sync."))
-    assert got == {"nbt.sync.cell_overflow": 1, "nbt.sync.ghost_overflow": 1,
-                   "nbt.sync.entry_overflow": 1, "nbt.sync.periodic_rc": 3,
-                   "nbt.sync.ghost_table": 3, "nbt.sync.ghost_combos": 3,
-                   "nbt.sync.worklist_offsets": 4}
+    assert got == {"nbt.sync.health": 1, "nbt.sync.periodic_rc": 1,
+                   "nbt.sync.ghost_table": 1, "nbt.sync.ghost_combos": 1,
+                   "nbt.sync.worklist_offsets": 1}
     assert sum(got.values()) == syncs
     # The solver's own ghost images, each step, are not counted.
     before = spans.counts["ghost_images"]
