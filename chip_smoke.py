@@ -816,9 +816,8 @@ def periodic_phases(dev, tag: str, ms: dict, launches: dict) -> None:
             for ghosts in caps:
                 gplan = dict(plan, sr_ghosts=ghosts)
                 cap_label = "plan" if ghosts else "default ghost cap"
-                tabs = pm._periodic_sr_tables(p, m, ng, box, cutoff,
-                                              symmetric=sym, paired=paired,
-                                              **gplan)
+                tabs = pm.sr_pack_inputs(p, m, ng, cutoff, symmetric=sym,
+                                         paired=paired, **gplan, **bkw)
                 n_e, n_ghost = int(tabs["n_e"]), int(tabs["n_ghost"])
                 nslots = tabs["ptab"].shape[1]
                 if n_e > tabs["e_max"]:
@@ -1247,8 +1246,8 @@ def grad_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
         sym = pm.SR_LAYOUTS[layout][0]
         pplan = pm.suggest_sr_plan(ref.pos, ref.mass, ng, cutoff, layout=layout,
                                    differentiable=True, **bkw)
-        tabs = pm._periodic_sr_tables(ref.pos, ref.mass, ng, box, cutoff,
-                                      symmetric=sym, **pplan)
+        tabs = pm.sr_pack_inputs(ref.pos, ref.mass, ng, cutoff,
+                                 symmetric=sym, **pplan, **bkw)
         n_e = int(tabs["n_e"])
         if n_e > tabs["e_max"] or int(tabs["n_ghost"]) > tabs["gcap"]:
             fail(f"periodic sr vjp {layout}: the plan drops entries or ghosts")

@@ -19,9 +19,18 @@ there; in short:
    kernel (``_p3m_force_grids``).
 4. **The periodic boundary** (``boundary="periodic"``, ``box_size`` L):
    wrapped CIC on the ng^3 grid over the box and closed-form spectra
-   (``_periodic_between``); periodic P3M packs the sources and their ghost
+   (``_PeriodicMesh``); periodic P3M packs the sources and their ghost
    images on a cell grid extended by ``sub`` cells a side and runs the same
-   sweep (``_periodic_sr_tables``, ``_periodic_p3m_between``).
+   sweep.
+
+Both boundaries share one binning (``_sr_candidates``), one sizing
+(``_sr_sizing``), one table recipe (``_sr_bin``, ``_sr_tables``,
+``_sr_worklist``; public as ``sr_pack_inputs``) and one P3M body
+(``_p3m``).  A boundary is one object, ``_OpenMesh`` or ``_PeriodicMesh``,
+which supplies only what differs: its mesh, its short-range geometry
+(``geom``), how it places the bodies (``bodies``: in-box masses, or
+wrapped) and its candidates (``candidates``: the sources, or the sources
+and their ghost images).
 
 What differs from the JAX package:
 
@@ -56,6 +65,14 @@ What differs from the JAX package:
   the sweep sums the same pairs in another order.
 * ``sr_entry_overflow`` sizes periodic tables from the slots the solver
   bins (sources and ghost cap), where the JAX package's uses the sources.
+* One P3M step for both boundaries (``_p3m``): the candidates bin and
+  take their slots, the worklist and the overflow read follow, then the
+  deposit and transform, the force grids, the gather and the sweep.  The
+  tables fill before the worklist on the periodic boundary and after the
+  deposit on the open one (``_OpenMesh.fill_late``), as each boundary's
+  solver always has, so that every gradient keeps its rounding.  The JAX
+  package's open step packs after the deposit and lists the worklist
+  after the gather.
 * ``differentiable=True`` (P3M, open or periodic): paired rows are off on
   every device, as in the JAX package, and the sweep is
   ``sr_kernel.sweep_ad``: the same forward (the hand kernel on the card,
@@ -74,6 +91,7 @@ What differs from the JAX package:
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -386,16 +404,6 @@ def _cell_grid_params(ng: int, cutoff_cells: int) -> tuple[int, int]:
     return min(nc, 40), sub
 
 
-def _auto_capacity(n_src: int, n_cells: int) -> int:
-    """Density-blind cell capacity: ~8x the mean occupancy, a power of two
-    in [64, 512]."""
-    avg = max(1, n_src // max(n_cells, 1))
-    cap = 64
-    while cap < 8 * avg and cap < 512:
-        cap *= 2
-    return cap
-
-
 def _cell_coords(pos, lo_box, inv_c, nc: int):
     g = ((pos - lo_box) * inv_c).clamp(0.0, float(nc) - 1.0)
     return torch.floor(g).to(_I32)
@@ -427,28 +435,50 @@ def _subcell_key(pos, lo_box, span, nc: int):
     return (q[0] << 2) | (q[1] << 1) | q[2]
 
 
-def _sr_rc2(span, nc: int, sub: int):
-    """Squared cutoff: ``sub`` cell widths of the shortest box axis."""
-    rc = span[:, 0].min() * float(sub) / float(nc)
-    return rc * rc
+class _Geom(NamedTuple):
+    """The short range's binning geometry, a boundary's ``geom``: ``nc``
+    cells a side of the grid the bodies bin on (ghost-extended when
+    periodic), the reach ``sub``, the grid's origin ``lo`` and ``span``
+    (3, 1) f32, the squared cutoff ``rc2`` (0-d); periodic only, the cutoff
+    ``rc`` (0-d, the ghost margin)."""
+    nc: int
+    sub: int
+    lo: torch.Tensor
+    span: torch.Tensor
+    rc2: torch.Tensor
+    rc: torch.Tensor | None = None
 
 
-def _sr_sizing(n_cap: int, n_bin: int, n_cells: int, capacity: int,
-               sr_slabs: int, sr_entries: int):
-    """Cell capacity and the (s_max, e_max) plan bounds: the measured plan
-    when given, the guaranteed defaults otherwise."""
-    cap = int(capacity) or _auto_capacity(n_cap, n_cells)
-    s_max, e_max = int(sr_slabs), int(sr_entries)
-    if not (s_max and e_max):
-        ds, de = _default_sr_plan(n_bin)
-        s_max, e_max = s_max or ds, e_max or de
-    return cap, s_max, e_max
+def _pow2_at_least(x):
+    v = 64
+    while v < x:
+        v *= 2
+    return v
 
 
-def _default_sr_plan(n_bin: int):
-    """s_max = ceil(n/SLAB) + 1 and e_max = s_max^2, capped at 2^22."""
-    s_max = n_bin // SLAB + 1 + (1 if n_bin % SLAB else 0)
-    return s_max, min(s_max * s_max, 1 << 22)
+def _ghost_cap(n: int, sr_ghosts: int) -> int:
+    """Ghost slots: ``sr_ghosts``, or when the caller gives none 2N rounded
+    up to a power of two, capped at the guaranteed 7N.  Density-blind, like
+    the default capacity: the engine sizes them from suggest_sr_plan's
+    measured count."""
+    return int(sr_ghosts) or min(_pow2_at_least(2 * n), 7 * n)
+
+
+def _sr_sizing(geom: _Geom, ns: int, n_more: int, capacity: int,
+               sr_slabs: int, sr_entries: int) -> tuple:
+    """``(cap, s_max, e_max)`` of the tables of ``ns`` sources and
+    ``n_more`` other slots (ghost images, distinct targets) on ``geom``'s
+    cells: the measured plan where given, the guaranteed defaults
+    otherwise.  The defaults: a density-blind capacity, ~8x the mean
+    occupancy, a power of two in [64, 512]; s_max = ceil(slots/SLAB) + 1
+    and e_max = s_max^2, capped at 2^22.  The solver, sr_pack_inputs and
+    the plan's checks all size here.  (The JAX package's guard sizes
+    periodic tables from the sources alone.)"""
+    avg = max(1, ns // geom.nc ** 3)
+    cap = int(capacity) or min(_pow2_at_least(8 * avg), 512)
+    s_def = -(-(ns + n_more) // SLAB) + 1
+    return (cap, int(sr_slabs) or s_def,
+            int(sr_entries) or min(s_def * s_def, 1 << 22))
 
 
 # ---------------------------------------------------------------------------
@@ -493,16 +523,24 @@ def _sr_slots(cid, n_cells: int, cap: int, s_max: int):
 def _sr_pack(cid, pos, mass, n_cells: int, cap: int, s_max: int, key):
     """Packed slab tables: the slotted particles (``_sr_slots``), SLAB a
     slab, in cell id order and in ``key`` order (``_subcell_key``) inside
-    each cell.
+    each cell.  The solver takes its two halves apart (_sr_bin, _sr_tables);
+    whole, this is the seam the JAX package's ``_sr_pack`` is held against.
 
     Returns ``(ptab (3, (s_max+1)*SLAB), mtab, slab_lo (s_max,), slab_hi,
     pslot (Ns,), binned (Ns,))``; slab ``s_max`` is the zero-mass sentinel.
     ``slab_lo``, ``slab_hi`` and ``binned`` equal the JAX package's;
     ``ptab``, ``mtab`` and ``pslot`` are its tables reordered within each
     cell, and equal them under a zero key."""
+    slab_lo, slab_hi, binned = _sr_slots(cid, n_cells, cap, s_max)
+    ptab, mtab, pslot = _sr_fill(cid, pos, mass, binned, n_cells, s_max, key)
+    return ptab, mtab, slab_lo, slab_hi, pslot, binned
+
+
+def _sr_fill(cid, pos, mass, binned, n_cells: int, s_max: int, key):
+    """The slab tables of the slotted particles (``binned``, _sr_slots'):
+    ``(ptab, mtab, pslot)`` of _sr_pack."""
     dev = cid.device
     ns = cid.shape[0]
-    slab_lo, slab_hi, binned = _sr_slots(cid, n_cells, cap, s_max)
     # A stable sort of the binned particles by (cid, key) to the front,
     # ties in input order; the rest follow, and no output reads their
     # order.  The int32 sort key holds: n_cells <= 44^3 (_cell_grid_params'
@@ -521,7 +559,7 @@ def _sr_pack(cid, pos, mass, n_cells: int, cap: int, s_max: int, key):
     ptab = torch.where(okk[None, :], pos[:, src], 0.0)
     mtab = torch.where(okk, mass[src], 0.0)
     pslot = torch.zeros_like(ar).scatter_(0, perm.long(), slot)
-    return ptab, mtab, slab_lo, slab_hi, pslot, binned
+    return ptab, mtab, pslot
 
 
 def _cumsum(x, dim=0):
@@ -609,33 +647,6 @@ def _sr_ranges(slab_lo, slab_hi, nc: int, sub: int, e_max: int,
     wl_t = torch.where(ok, t_fill, s_max)
     wl_s = torch.where(ok, v_fill + e_idx, sent_s)
     return wl_t, wl_s, n_e
-
-
-def sr_pack_inputs(pos, mass, grid: int = DEFAULT_GRID,
-                   cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
-                   capacity: int = 0, sr_slabs: int = 0,
-                   sr_entries: int = 0, symmetric: bool = False,
-                   paired: bool = False) -> dict:
-    """The short-range tables and worklist exactly as the self-solve builds
-    them.  Returns ``ptab, mtab, wl_t, wl_s, n_e, e_max, rc2``."""
-    pos, mass = pos.to(_F32), mass.to(_F32)
-    ng = int(grid)
-    nc, sub = _cell_grid_params(ng, int(cutoff_cells))
-    n_cells = nc * nc * nc
-    ns = pos.shape[1]
-    lo_box, hi_box = _robust_box(pos, mass)
-    span = hi_box - lo_box
-    inc = (mass * _inside(pos, lo_box, hi_box)) > 0
-    cap, s_max, e_max = _sr_sizing(ns, ns, n_cells, capacity, sr_slabs,
-                                   sr_entries)
-    cid = _bin_cids(pos, lo_box, span, nc, inc)
-    key = _subcell_key(pos, lo_box, span, nc)
-    ptab, mtab, slab_lo, slab_hi, _, _ = _sr_pack(cid, pos, mass, n_cells,
-                                                  cap, s_max, key)
-    wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc, sub, e_max,
-                                 symmetric=symmetric, paired=paired)
-    return dict(ptab=ptab, mtab=mtab, wl_t=wl_t, wl_s=wl_s, n_e=n_e,
-                e_max=e_max, rc2=_sr_rc2(span, nc, sub))
 
 
 # ---------------------------------------------------------------------------
@@ -804,20 +815,6 @@ def _ghost_combo_table():
 _GHOST_COMBO_TABLE = _ghost_combo_table()
 
 
-def _default_ghost_cap(n: int) -> int:
-    """Ghost slots when the caller gives none: 2N rounded up to a power of
-    two, capped at the guaranteed 7N.  Density-blind, like _auto_capacity:
-    the engine sizes them from suggest_sr_plan's measured count."""
-    cap = 64
-    while cap < 2 * n:
-        cap *= 2
-    return min(cap, 7 * n)
-
-
-def _ghost_cap(n: int, sr_ghosts: int) -> int:
-    return int(sr_ghosts) or _default_ghost_cap(n)
-
-
 def _ghost_images(pos_w, mass, box, rc, gcap: int):
     """Periodic ghost images for the short-range pass.
 
@@ -872,10 +869,12 @@ def _ghost_images(pos_w, mass, box, rc, gcap: int):
     return gpos, gmass, n_ghost
 
 
-def _periodic_cells(ng: int, cutoff_cells: int):
-    """The periodic short-range cell grid: ``nc`` cells across the box,
-    extended by ``sub`` ghost cells a side (R_c = sub * box/nc is the
-    margin).  R_c must lie strictly inside half the box: nc >= 2 sub + 1."""
+def _periodic_geom(ng: int, cutoff_cells: int, box: float, device):
+    """The periodic binning geometry ``(nc, sub, rc, nc_tot, lo_cell,
+    span_tot)``: ``nc`` cells across the box, extended by ``sub`` ghost
+    cells a side (R_c = sub * box/nc is the margin) to ``nc_tot``.  R_c
+    must lie strictly inside half the box: nc >= 2 sub + 1.  rc is a 0-d
+    f32 tensor, lo_cell and span_tot (3, 1) f32."""
     nc, sub = _cell_grid_params(ng, int(cutoff_cells))
     if nc < 2 * sub + 1:
         raise ValueError(
@@ -883,82 +882,12 @@ def _periodic_cells(ng: int, cutoff_cells: int):
             f"{2 * sub + 1}); got nc={nc} from grid={ng}, "
             f"cutoff_cells={cutoff_cells} — raise grid or lower "
             "cutoff_cells")
-    return nc, sub
-
-
-def _periodic_geom(ng: int, cutoff_cells: int, box: float, device):
-    """The periodic binning geometry ``(nc, sub, rc, nc_tot, lo_cell,
-    span_tot)``, one definition for the solver and the plan diagnostics:
-    they must bin onto the same ghost-extended grid.  rc is a 0-d f32
-    tensor, lo_cell and span_tot (3, 1) f32."""
-    nc, sub = _periodic_cells(ng, cutoff_cells)
     cs = box / nc
     rc = _const(sub * cs, _F32, device, "periodic_rc")
     lo_cell = torch.full((3, 1), -sub * cs, dtype=_F32, device=device)
     span_tot = torch.full((3, 1), box + 2 * sub * cs, dtype=_F32,
                           device=device)
     return nc, sub, rc, nc + 2 * sub, lo_cell, span_tot
-
-
-def _periodic_ghost_bin(src_w, mass, box, rc, nc_tot: int, lo_cell, span_tot,
-                        gcap: int, tgt_w=None):
-    """Ghost images and bin candidates on the ghost-extended grid.  Slot
-    layout ``[sources | ghosts(gcap)]``, or ``[sources | ghosts(gcap) |
-    targets]`` when distinct targets join as massless receivers.  Returns
-    ``(pos_bin, m_bin, cid, n_ghost)``."""
-    gpos, gmass, n_ghost = _stage("mesh.ghosts", _ghost_images, src_w, mass,
-                                  box, rc, gcap)
-    if tgt_w is None:
-        pos_bin = torch.cat([src_w, gpos], dim=1)
-        m_bin = torch.cat([mass, gmass])
-        inc = m_bin > 0
-    else:
-        pos_bin = torch.cat([src_w, gpos, tgt_w], dim=1)
-        m_bin = torch.cat([mass, gmass, torch.zeros_like(tgt_w[0])])
-        inc = torch.cat([mass > 0, gmass > 0,
-                         torch.ones_like(tgt_w[0], dtype=torch.bool)])
-    cid = _bin_cids(pos_bin, lo_cell, span_tot, nc_tot, inc)
-    return pos_bin, m_bin, cid, n_ghost
-
-
-def _periodic_sr_tables(pos_src, mass_src, grid: int, box: float,
-                        cutoff_cells: int, capacity: int = 0,
-                        sr_slabs: int = 0, sr_entries: int = 0,
-                        sr_ghosts: int = 0, pos_tgt=None,
-                        symmetric: bool = False, paired: bool = False) -> dict:
-    """The periodic short-range pass's tables and worklist, as the solver
-    builds them: sources wrapped into the box plus their ghost images (and
-    distinct targets, massless, when ``pos_tgt`` is given), binned on the
-    (nc + 2 sub)^3 grid, packed and listed in the layout (symmetric,
-    paired).  The one recipe, which the solver and the card's checks run.
-    Returns ``ptab, mtab, wl_t, wl_s, n_e, e_max, rc2`` as sr_pack_inputs
-    does, and ``src_w, tgt_w, pslot, binned, n_ghost, gcap, s_max``."""
-    pos_src, mass_src = pos_src.to(_F32), mass_src.to(_F32)
-    ng = int(grid)
-    with spans.span("p3m.bin"):
-        nc, sub, rc, nc_tot, lo_cell, span_tot = _periodic_geom(
-            ng, int(cutoff_cells), float(box), pos_src.device)
-        src_w = _wrap_box(pos_src, box)
-        tgt_w = src_w if pos_tgt is None else _wrap_box(pos_tgt.to(_F32),
-                                                        box)
-        ns = pos_src.shape[1]
-        gcap = _ghost_cap(ns, sr_ghosts)
-        pos_bin, m_bin, cid, n_ghost = _periodic_ghost_bin(
-            src_w, mass_src, box, rc, nc_tot, lo_cell, span_tot, gcap,
-            tgt_w=None if pos_tgt is None else tgt_w)
-        n_cells = nc_tot ** 3
-        cap, s_max, e_max = _sr_sizing(ns, pos_bin.shape[1], n_cells,
-                                       capacity, sr_slabs, sr_entries)
-        ptab, mtab, slab_lo, slab_hi, pslot, binned = _sr_pack(
-            cid, pos_bin, m_bin, n_cells, cap, s_max,
-            _subcell_key(pos_bin, lo_cell, span_tot, nc_tot))
-    with spans.span("p3m.worklist"):
-        wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc_tot, sub, e_max,
-                                     symmetric=symmetric, paired=paired)
-    return dict(ptab=ptab, mtab=mtab, wl_t=wl_t, wl_s=wl_s, n_e=n_e,
-                e_max=e_max, rc2=rc * rc, src_w=src_w, tgt_w=tgt_w,
-                pslot=pslot, binned=binned, n_ghost=n_ghost, gcap=gcap,
-                s_max=s_max)
 
 
 def _periodic_p3m_spectra(box, ng: int, rc2):
@@ -993,12 +922,13 @@ def _periodic_p3m_spectra(box, ng: int, rc2):
     return tuple(comb), tuple(comp)
 
 
-def _periodic_p3m_force_grids(rho_hat, rho_over_hat_fn, comb, comp, ng: int,
-                              has_over: bool):
+def _periodic_p3m_force_grids(rho_hat, rho_over_hat_fn, box, ng: int, rc2,
+                              has_over: bool, spectra=None):
     """(acc_grids, comp_grids) of periodic P3M, as _p3m_force_grids: under
     overflow the unbinned sources' full force rides rho C - roh S and the
     targets' complement field is (roh - rho) S; without, comp_grids is
     None.  ``has_over`` is a Python bool: the caller's overflow sync."""
+    comb, comp = spectra or _periodic_p3m_spectra(box, ng, rc2)
     if has_over:
         roh = rho_over_hat_fn()
         g = _stage("mesh.ifft", _periodic_inverse,
@@ -1027,82 +957,259 @@ def periodic_potential_energy(pos, mass, box: float,
     return (-0.5 * G_NEWTON) * torch.sum(mass * vals)
 
 
-def _periodic_between(pos_tgt, pos_src, mass_src, ng: int, box: float,
-                      spectra=None):
-    """Periodic-box mesh accelerations of targets due to sources: wrapped
-    CIC deposit, ng^3 rfftn, the closed-form spectra, wrapped CIC gather.
-    Differentiable through autograd (the wrap is the identity almost
-    everywhere; the spectra are constants)."""
-    rho = _stage("mesh.deposit", _deposit_periodic, pos_src, mass_src, box,
-                 ng)
-    rho_hat = _stage("mesh.fft", torch.fft.rfftn, rho)
-    acc_grids = _pm_force_grids_periodic(rho_hat, box, ng, spectra)
-    return _stage("mesh.gather", _gather_periodic, acc_grids, pos_tgt, box,
-                  ng) * G_NEWTON
-
-
-def _periodic_p3m_between(pos_tgt, pos_src, mass_src, same_set: bool,
-                          ng: int, box: float, cutoff_cells: int,
-                          capacity: int, sr_slabs: int, sr_entries: int,
-                          sr_ghosts: int, differentiable: bool = False,
-                          spectra=None):
-    """Periodic P3M: the periodic long-range mesh solve plus the exact
-    short-range correction over ghost images (_periodic_sr_tables), through
-    the same sweep as the open path (``differentiable``: as there).
-    Gradients reach each ghost's parent through ``_ghost_images``' index.
-
-    Degradation contract, as the JAX package's: dropped ghosts (gcap
-    overflow) and capacity-overflowed cells lose short-range exactness for
-    their pairs; overflowed real sources and targets keep mesh-quality full
-    forces through the complement field.  A ghost that overflowed while its
-    parent binned does not turn the complement on (it would count the
-    parent's field twice)."""
-    sym, pr = _active_sr_layout(pos_src.is_cuda, differentiable)
-    tabs = _periodic_sr_tables(
-        pos_src, mass_src, ng, box, cutoff_cells, capacity, sr_slabs,
-        sr_entries, sr_ghosts, pos_tgt=None if same_set else pos_tgt,
-        symmetric=sym, paired=pr)
-    ns, gcap = pos_src.shape[1], tabs["gcap"]
-    src_w, tgt_w, binned = tabs["src_w"], tabs["tgt_w"], tabs["binned"]
-    binned_src = binned[:ns]
-    m_over = torch.where(binned_src, 0.0, mass_src)
-    over = (~binned_src & (mass_src > 0)).any()
-    if not same_set:
-        over = over | (~binned[ns + gcap:]).any()
-    with spans.sync("p3m_overflow"):
-        has_over = bool(over)  # the branch's host sync
-    rho = _stage("mesh.deposit", _deposit_periodic, src_w, mass_src, box, ng)
-    rho_hat = _stage("mesh.fft", torch.fft.rfftn, rho)
-    comb, comp = spectra or _periodic_p3m_spectra(box, ng, tabs["rc2"])
-    acc_grids, comp_grids = _periodic_p3m_force_grids(
-        rho_hat,
-        lambda: _stage("mesh.fft", torch.fft.rfftn, _stage(
-            "mesh.deposit", _deposit_periodic, src_w, m_over, box, ng)),
-        comb, comp, ng, has_over)
-    acc = _stage("mesh.gather", _gather_periodic, acc_grids, tgt_w, box, ng)
-    n_e, e_max = tabs["n_e"], tabs["e_max"]
-    bounds = torch.stack([torch.zeros_like(n_e), n_e.clamp(max=e_max)])
-    atab = _sr_sweep(tabs["ptab"], tabs["mtab"], tabs["wl_t"], tabs["wl_s"],
-                     bounds, tabs["rc2"], sym, pr, differentiable)
-    tgt = slice(0, ns) if same_set else slice(ns + gcap, None)
-    a_sr = _gather_slots(atab, tabs["pslot"][tgt], binned[tgt])
-    if has_over:
-        a_comp = _stage("mesh.gather", _gather_periodic, comp_grids, tgt_w,
-                        box, ng)
-    else:
-        a_comp = torch.zeros_like(tgt_w)
-    acc = acc + torch.where(binned[tgt][None, :], a_sr, a_comp)
-    return acc * G_NEWTON
-
-
 def _make_periodic_env(ng: int, cutoff_cells: int, box: float, device) -> dict:
     """The periodic mesh environment: the force spectra alone (the box is
     fixed, so there is no box to freeze).  They are constants of (box,
     grid, cutoff): the engine builds one a run."""
     if cutoff_cells:
-        rc = _periodic_geom(ng, int(cutoff_cells), float(box), device)[2]
-        return {"spectra": _periodic_p3m_spectra(float(box), ng, rc * rc)}
-    return {"spectra": _pm_force_spectra_periodic(float(box), ng, device)}
+        rc2 = _PeriodicMesh(ng, box).geom(cutoff_cells, device).rc2
+        return {"spectra": _periodic_p3m_spectra(box, ng, rc2)}
+    return {"spectra": _pm_force_spectra_periodic(box, ng, device)}
+
+
+# ---------------------------------------------------------------------------
+# The boundaries: each supplies its mesh, its short-range geometry, how it
+# places the bodies and its bin candidates
+
+
+class _OpenMesh:
+    """The open boundary over the box ``[lo_box, hi_box]`` (3, 1): CIC on
+    the ng^3 grid with a margin cell, transforms on the doubled (2 ng)^3
+    grid (``spectra`` a mesh_env's, or None to build them), and the short
+    range's nc^3 cells over the box.  One ``span`` serves the mesh and the
+    cells, so that a gradient through the box sums the same terms in one
+    order."""
+
+    # The tables fill after the deposit: their gathers then take the
+    # sources after it, the order in which autograd has always summed the
+    # open solver's cotangents of the sources (it adds a tensor's
+    # cotangents in the reverse order of its uses).
+    fill_late = True
+
+    def __init__(self, ng: int, lo_box, hi_box, spectra=None):
+        self.lo_box, self.hi_box = lo_box, hi_box
+        self.span = hi_box - lo_box
+        # ng-3 usable cells: one margin cell each side plus the CIC corner.
+        self.h = (self.span / float(ng - 3))[:, 0]
+        self.inv_h = 1.0 / self.h[:, None]
+        self.lo = lo_box - self.h[:, None]
+        self.ng, self.spectra = ng, spectra
+
+    def geom(self, cutoff_cells: int, device=None) -> _Geom:
+        """nc^3 cells over the box; the cutoff is ``sub`` cell widths of
+        its shortest axis."""
+        nc, sub = _cell_grid_params(self.ng, int(cutoff_cells))
+        rc = self.span[:, 0].min() * float(sub) / float(nc)
+        return _Geom(nc, sub, self.lo_box, self.span, rc * rc)
+
+    def bodies(self, pos_src, mass_src, pos_tgt, sr: bool = True):
+        """``(src, m, tgt, in_tgt)``: the sources with their in-box masses,
+        the targets with their in-box mask (N,) f32, for the mesh and the
+        short range alike.  Same-set targets are the sources (``pos_tgt is
+        pos_src``)."""
+        in_src = _inside(pos_src, self.lo_box, self.hi_box)
+        in_tgt = in_src if pos_tgt is pos_src else \
+            _inside(pos_tgt, self.lo_box, self.hi_box)
+        return pos_src, mass_src * in_src, pos_tgt, in_tgt
+
+    @staticmethod
+    def ghost_cap(ns: int, sr_ghosts: int) -> int:
+        return 0
+
+    @staticmethod
+    def candidates(geom: _Geom, src, m, gcap: int):
+        """The bin candidates ``(pos, mass, n_ghost)``: the sources alone,
+        no image count."""
+        return src, m, None
+
+    def rho_hat(self, pos, m):
+        n = 2 * self.ng
+        rho = _stage("mesh.deposit", _deposit, pos, m, self.lo, self.inv_h,
+                     self.ng)
+        return _stage("mesh.fft", torch.fft.rfftn, rho, s=(n, n, n))
+
+    def grids(self, rho_hat, rc2=None, rho_over_hat_fn=None,
+              has_over=False):
+        if rc2 is None:
+            return _pm_force_grids(rho_hat, self.h, self.ng, self.spectra)
+        return _p3m_force_grids(rho_hat, rho_over_hat_fn, self.h, self.ng,
+                                rc2, has_over, self.spectra)
+
+    def gather(self, grids, pos):
+        return _stage("mesh.gather", _gather, grids, pos, self.lo,
+                      self.inv_h, self.ng)
+
+
+class _PeriodicMesh:
+    """The periodic boundary of the box of edge ``box``: wrapped CIC on the
+    ng^3 grid, ng^3 transforms with the closed-form spectra (``spectra`` a
+    mesh_env's, or None to build them), and the short range's cells over
+    the box extended by ``sub`` ghost cells a side."""
+
+    # The tables fill before the worklist and the read: they gather from
+    # the candidates, built at binning, so where they fill moves no
+    # gradient's rounding, and the read then waits on no mesh work.
+    fill_late = False
+
+    def __init__(self, ng: int, box: float, spectra=None):
+        self.ng, self.box, self.spectra = ng, box, spectra
+
+    def geom(self, cutoff_cells: int, device=None) -> _Geom:
+        """The ghost-extended cells of _periodic_geom."""
+        _, sub, rc, nc, lo, span = _periodic_geom(self.ng, int(cutoff_cells),
+                                                  self.box, device)
+        return _Geom(nc, sub, lo, span, rc * rc, rc)
+
+    def bodies(self, pos_src, mass_src, pos_tgt, sr: bool = True):
+        """``(src, m, tgt, None)``: every target is inside.  The mesh wraps
+        what it deposits and gathers itself; for the short range (``sr``)
+        the bodies are wrapped into the box first."""
+        if not sr:
+            return pos_src, mass_src, pos_tgt, None
+        src = _wrap_box(pos_src, self.box)
+        tgt = src if pos_tgt is pos_src else _wrap_box(pos_tgt, self.box)
+        return src, mass_src, tgt, None
+
+    @staticmethod
+    def ghost_cap(ns: int, sr_ghosts: int) -> int:
+        return _ghost_cap(ns, sr_ghosts)
+
+    def candidates(self, geom: _Geom, src, m, gcap: int):
+        """The bin candidates ``(pos, mass, n_ghost)``: the sources and
+        their ghost images in ``gcap`` slots, and the exact image count
+        whatever ``gcap`` (_ghost_images)."""
+        gpos, gmass, n_ghost = _stage("mesh.ghosts", _ghost_images, src, m,
+                                      self.box, geom.rc, gcap)
+        return torch.cat([src, gpos], dim=1), torch.cat([m, gmass]), n_ghost
+
+    def rho_hat(self, pos, m):
+        rho = _stage("mesh.deposit", _deposit_periodic, pos, m, self.box,
+                     self.ng)
+        return _stage("mesh.fft", torch.fft.rfftn, rho)
+
+    def grids(self, rho_hat, rc2=None, rho_over_hat_fn=None,
+              has_over=False):
+        if rc2 is None:
+            return _pm_force_grids_periodic(rho_hat, self.box, self.ng,
+                                            self.spectra)
+        return _periodic_p3m_force_grids(rho_hat, rho_over_hat_fn, self.box,
+                                         self.ng, rc2, has_over,
+                                         self.spectra)
+
+    def gather(self, grids, pos):
+        return _stage("mesh.gather", _gather_periodic, grids, pos, self.box,
+                      self.ng)
+
+
+# ---------------------------------------------------------------------------
+# The short range: one binning and one table recipe for both boundaries
+
+
+def _sr_candidates(mesh, geom: _Geom, src, m, gcap: int):
+    """The sources' bin candidates, of the solver, sr_pack_inputs and the
+    plan alike: the boundary's candidates (``mesh.candidates``), each
+    included where massive.  Returns ``(pos, mass, inc, cid, n_ghost)``:
+    cid the int32 cell ids (the nc^3 sentinel where excluded), n_ghost the
+    exact image count (None when open)."""
+    pos, mass, n_ghost = mesh.candidates(geom, src, m, gcap)
+    inc = mass > 0
+    return pos, mass, inc, _bin_cids(pos, geom.lo, geom.span, geom.nc,
+                                     inc), n_ghost
+
+
+def _sr_bin(mesh, cutoff_cells: int, bodies, same_set: bool, plan) -> dict:
+    """The table recipe's first part, under ``p3m.bin``: the boundary's
+    geometry and ghost cap, the sizing (_sr_sizing of ``plan``, (capacity,
+    sr_slabs, sr_entries, sr_ghosts)), the candidates' cells
+    (_sr_candidates, then distinct targets', massless, included where
+    ``in_tgt``; None: every target) and their slots (_sr_slots).
+    _sr_tables fills the tables, _sr_worklist lists the worklist."""
+    src, m, tgt, in_tgt = bodies
+    ns = src.shape[1]
+    with spans.span("p3m.bin"):
+        geom = mesh.geom(cutoff_cells, src.device)
+        gcap = mesh.ghost_cap(ns, plan[3])
+        cap, s_max, e_max = _sr_sizing(
+            geom, ns, gcap + (0 if same_set else tgt.shape[1]), *plan[:3])
+        pos, mass, inc, cid, n_ghost = _sr_candidates(mesh, geom, src, m,
+                                                      gcap)
+        if not same_set:
+            t_inc = torch.ones_like(tgt[0], dtype=torch.bool) \
+                if in_tgt is None else in_tgt > 0
+            inc = torch.cat([inc, t_inc])
+            cid = torch.cat([cid, _bin_cids(tgt, geom.lo, geom.span, geom.nc,
+                                            t_inc)])
+        slab_lo, slab_hi, binned = _sr_slots(cid, geom.nc ** 3, cap, s_max)
+    return dict(geom=geom, pos=pos, mass=mass, tgt=None if same_set else tgt,
+                cid=cid, inc=inc, slab_lo=slab_lo, slab_hi=slab_hi,
+                binned=binned, e_max=e_max, rc2=geom.rc2, n_ghost=n_ghost,
+                gcap=gcap, s_max=s_max)
+
+
+def _sr_tables(t: dict) -> dict:
+    """The table recipe's second part, under ``p3m.bin``: distinct
+    targets' positions join _sr_bin's candidates, and the slotted ones fill
+    the slab tables in sub-cell key order (_sr_fill).  Returns ``t`` with
+    ``ptab, mtab, pslot``, without the candidates (freed before the mesh
+    runs)."""
+    geom, pos, mass, tgt = t["geom"], t["pos"], t["mass"], t["tgt"]
+    with spans.span("p3m.bin"):
+        if tgt is not None:
+            pos = torch.cat([pos, tgt], dim=1)
+            mass = torch.cat([mass, torch.zeros_like(tgt[0])])
+        ptab, mtab, pslot = _sr_fill(
+            t["cid"], pos, mass, t["binned"], geom.nc ** 3, t["s_max"],
+            _subcell_key(pos, geom.lo, geom.span, geom.nc))
+    return dict({k: v for k, v in t.items()
+                 if k not in ("pos", "mass", "tgt", "cid")},
+                ptab=ptab, mtab=mtab, pslot=pslot)
+
+
+def _sr_worklist(t: dict, layout) -> dict:
+    """The table recipe's last part, under ``p3m.worklist``: the worklist
+    of _sr_bin's slabs in ``layout``, (symmetric, paired).  Returns ``t``
+    with ``wl_t, wl_s, n_e``."""
+    geom = t["geom"]
+    with spans.span("p3m.worklist"):
+        wl_t, wl_s, n_e = _sr_ranges(t["slab_lo"], t["slab_hi"], geom.nc,
+                                     geom.sub, t["e_max"], *layout)
+    return dict(t, wl_t=wl_t, wl_s=wl_s, n_e=n_e)
+
+
+def _state_sr(pos, mass, grid: int, boundary: str, box_size: float,
+              pos_tgt=None):
+    """A state's boundary and bodies as the solver takes them without a
+    mesh env: ``(mesh, bodies)``, the open box the sources' _robust_box."""
+    periodic = _check_boundary(boundary, box_size)
+    pos, mass = pos.to(_F32), mass.to(_F32)
+    tgt = pos if pos_tgt is None else pos_tgt.to(_F32)
+    mesh = _PeriodicMesh(int(grid), float(box_size)) if periodic else \
+        _OpenMesh(int(grid), *_robust_box(pos, mass))
+    return mesh, mesh.bodies(pos, mass, tgt)
+
+
+def sr_pack_inputs(pos, mass, grid: int = DEFAULT_GRID,
+                   cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
+                   capacity: int = 0, sr_slabs: int = 0,
+                   sr_entries: int = 0, symmetric: bool = False,
+                   paired: bool = False, boundary: str = "open",
+                   box_size: float = 0.0, sr_ghosts: int = 0,
+                   pos_tgt=None) -> dict:
+    """The short-range tables and worklist exactly as the solver builds
+    them (_sr_bin, _sr_tables, _sr_worklist), for the sources ``pos`` and,
+    when ``pos_tgt`` is given, distinct targets joining as massless slots,
+    in the layout (symmetric, paired).  The open box is the sources'
+    _robust_box; the periodic tables hold the sources wrapped into the box
+    of edge ``box_size`` and their ghost images.  Returns ``ptab, mtab,
+    wl_t, wl_s, n_e, e_max, rc2``, and ``src_w, tgt_w`` (the bodies as
+    placed; wrapped when periodic), ``slab_lo, slab_hi, pslot, binned,
+    inc``, ``n_ghost`` (periodic; None when open), ``gcap, s_max``."""
+    mesh, bodies = _state_sr(pos, mass, grid, boundary, box_size, pos_tgt)
+    t = _sr_bin(mesh, cutoff_cells, bodies, pos_tgt is None,
+                (capacity, sr_slabs, sr_entries, sr_ghosts))
+    t = _sr_worklist(_sr_tables(t), (symmetric, paired))
+    return dict({k: v for k, v in t.items() if k != "geom"},
+                src_w=bodies[0], tgt_w=bodies[2])
 
 
 # ---------------------------------------------------------------------------
@@ -1167,6 +1274,55 @@ def _sr_sweep(ptab, mtab, wl_t, wl_s, bounds, rc2, symmetric: bool,
                                symmetric=symmetric, paired=paired)
 
 
+def _p3m(mesh, cutoff_cells: int, bodies, same_set: bool, plan,
+         differentiable: bool):
+    """The P3M accelerations (G = 1) of either boundary (``mesh``), in one
+    order: the candidates bin and take their slots, the worklist follows,
+    then the overflow read; the mesh deposits and transforms, and the force
+    grids, the gather, the short-range sweep and the complement field
+    follow.  The reads then wait on the tables' small work alone.  The
+    tables fill where the boundary says (``fill_late``): before the
+    worklist, or after the deposit.
+
+    Degradation contract, as the JAX package's: dropped ghosts (gcap
+    overflow) and capacity-overflowed cells lose short-range exactness for
+    their pairs; overflowed real sources and targets keep mesh-quality full
+    forces through the complement field.  A ghost that overflowed while its
+    parent binned does not turn the complement on (it would count the
+    parent's field twice).  Gradients reach each ghost's parent through
+    ``_ghost_images``' index."""
+    src, m, tgt, _ = bodies
+    ns = src.shape[1]
+    layout = _active_sr_layout(src.is_cuda, differentiable)
+    t = _sr_bin(mesh, cutoff_cells, bodies, same_set, plan)
+    if not mesh.fill_late:
+        t = _sr_tables(t)
+    t = _sr_worklist(t, layout)
+    binned, gcap = t["binned"], t["gcap"]
+    lost = ~binned & t["inc"]
+    over = lost[:ns].any()
+    if not same_set:
+        over = over | lost[ns + gcap:].any()
+    with spans.sync("p3m_overflow"):
+        has_over = bool(over)  # the branch's host sync
+    m_over = torch.where(binned[:ns], 0.0, m)
+    rho_hat = mesh.rho_hat(src, m)
+    if mesh.fill_late:
+        t = _sr_tables(t)
+    acc_grids, comp_grids = mesh.grids(
+        rho_hat, t["rc2"], lambda: mesh.rho_hat(src, m_over), has_over)
+    acc = mesh.gather(acc_grids, tgt)
+    n_e = t["n_e"]
+    bounds = torch.stack([torch.zeros_like(n_e), n_e.clamp(max=t["e_max"])])
+    atab = _sr_sweep(t["ptab"], t["mtab"], t["wl_t"], t["wl_s"], bounds,
+                     t["rc2"], *layout, differentiable)
+    sel = slice(0, ns) if same_set else slice(ns + gcap, None)
+    a_sr = _gather_slots(atab, t["pslot"][sel], binned[sel])
+    a_comp = mesh.gather(comp_grids, tgt) if has_over else \
+        torch.zeros_like(tgt)
+    return acc + torch.where(binned[sel][None, :], a_sr, a_comp)
+
+
 def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
                           cutoff_cells: int = 0, capacity: int = 0,
                           sr_slabs: int = 0, sr_entries: int = 0,
@@ -1180,7 +1336,7 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
     otherwise the targets join the cell tables as massless entries.
     ``cutoff_cells > 0`` adds the exact short-range correction (P3M).
     ``boundary="periodic"`` solves in the fixed box of edge ``box_size``
-    (``sr_ghosts``: the P3M ghost-image slots, 0 = _default_ghost_cap).
+    (``sr_ghosts``: the P3M ghost-image slots, 0 = _ghost_cap's default).
     ``mesh_env`` (make_mesh_env) freezes the box and the kernel spectra.
     ``differentiable`` runs P3M's sweep with its VJP, paired rows off
     (_sr_sweep); plain pm differentiates through autograd either way.
@@ -1193,91 +1349,34 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
     pos_tgt = pos_src if same_set else pos_tgt.to(_F32)
     mass_src = mass_src.to(_F32)
     periodic = _check_boundary(boundary, box_size)
+    spectra = _check_mesh_env(mesh_env, ng, cutoff_cells, periodic) \
+        if mesh_env else None
     if periodic:
-        p_spec = None
-        if mesh_env:
-            p_spec = _check_mesh_env(mesh_env, ng, cutoff_cells, periodic=True)
-        if not cutoff_cells:
-            return _periodic_between(pos_tgt, pos_src, mass_src, ng,
-                                     float(box_size), spectra=p_spec)
-        return _periodic_p3m_between(
-            pos_tgt, pos_src, mass_src, same_set, ng, float(box_size),
-            int(cutoff_cells), capacity, sr_slabs, sr_entries, sr_ghosts,
-            differentiable=differentiable, spectra=p_spec)
-    spectra = None
-    with spans.span("mesh.box"):
-        if mesh_env:
-            spectra = _check_mesh_env(mesh_env, ng, cutoff_cells)
-            lo_box, hi_box = mesh_env["lo_box"], mesh_env["hi_box"]
-        else:
-            lo_box, hi_box = _robust_box(pos_src, mass_src)
-        span = hi_box - lo_box
-        in_src = _inside(pos_src, lo_box, hi_box)
-        in_tgt = _inside(pos_tgt, lo_box, hi_box)
-        m_in = mass_src * in_src
-        M_in, com_in, octs = _outlier_moments(pos_src, mass_src, m_in,
-                                              lo_box, hi_box)
-        # ng-3 usable cells: one margin cell each side plus the CIC corner.
-        h = (span / float(ng - 3))[:, 0]
-        inv_h = 1.0 / h[:, None]
-        lo = lo_box - h[:, None]
-    rho = _stage("mesh.deposit", _deposit, pos_src, m_in, lo, inv_h, ng)
-    m = 2 * ng
-    rho_hat = _stage("mesh.fft", torch.fft.rfftn, rho, s=(m, m, m))
-    if cutoff_cells:
-        nc, sub = _cell_grid_params(ng, cutoff_cells)
-        n_cells = nc * nc * nc
-        ns = pos_src.shape[1]
-        with spans.span("p3m.bin"):
-            if same_set:
-                pos_bin, m_bin, inc = pos_src, m_in, m_in > 0
-            else:
-                pos_bin = torch.cat([pos_src, pos_tgt], dim=1)
-                m_bin = torch.cat([m_in, torch.zeros_like(pos_tgt[0])])
-                inc = torch.cat([m_in > 0, in_tgt > 0])
-            cap, s_max, e_max = _sr_sizing(ns, pos_bin.shape[1], n_cells,
-                                           capacity, sr_slabs, sr_entries)
-            rc2 = _sr_rc2(span, nc, sub)
-            cid = _bin_cids(pos_bin, lo_box, span, nc, inc)
-            ptab, mtab, slab_lo, slab_hi, pslot, binned_all = _sr_pack(
-                cid, pos_bin, m_bin, n_cells, cap, s_max,
-                _subcell_key(pos_bin, lo_box, span, nc))
-            binned = binned_all[:ns]
-            m_over = torch.where(binned, 0.0, m_in)
-            over = (~binned_all & inc).any()
-        with spans.sync("p3m_overflow"):
-            has_over = bool(over)  # the branch's host sync
-        acc_grids, comp_grids = _p3m_force_grids(
-            rho_hat,
-            lambda: _stage("mesh.fft", torch.fft.rfftn, _stage(
-                "mesh.deposit", _deposit, pos_src, m_over, lo, inv_h, ng),
-                s=(m, m, m)),
-            h, ng, rc2, has_over, spectra=spectra)
+        mesh = _PeriodicMesh(ng, float(box_size), spectra)
+        bodies = mesh.bodies(pos_src, mass_src, pos_tgt, bool(cutoff_cells))
     else:
-        acc_grids = _pm_force_grids(rho_hat, h, ng, spectra=spectra)
-    acc = _stage("mesh.gather", _gather, acc_grids, pos_tgt, lo, inv_h, ng)
+        with spans.span("mesh.box"):
+            mesh = _OpenMesh(ng, *((mesh_env["lo_box"], mesh_env["hi_box"])
+                                   if mesh_env else _robust_box(pos_src,
+                                                                mass_src)),
+                             spectra)
+            bodies = mesh.bodies(pos_src, mass_src, pos_tgt)
+            M_in, com_in, octs = _outlier_moments(
+                pos_src, mass_src, bodies[1], mesh.lo_box, mesh.hi_box)
+    src, m, tgt, in_tgt = bodies
     if cutoff_cells:
-        with spans.span("p3m.worklist"):
-            sym, pr = _active_sr_layout(ptab.is_cuda, differentiable)
-            wl_t, wl_s, n_e = _sr_ranges(slab_lo, slab_hi, nc, sub, e_max,
-                                         symmetric=sym, paired=pr)
-            bounds = torch.stack([torch.zeros_like(n_e),
-                                  n_e.clamp(max=e_max)])
-        atab = _sr_sweep(ptab, mtab, wl_t, wl_s, bounds, rc2, sym, pr,
-                         differentiable)
-        tgt_slot = pslot if same_set else pslot[ns:]
-        tgt_binned = binned_all if same_set else binned_all[ns:]
-        a_sr = _gather_slots(atab, tgt_slot, tgt_binned)
-        if has_over:
-            a_comp = _stage("mesh.gather", _gather, comp_grids, pos_tgt, lo,
-                            inv_h, ng)
-        else:
-            a_comp = torch.zeros_like(pos_tgt)
-        acc = acc + torch.where(tgt_binned[None, :], a_sr, a_comp)
-    with spans.span("mesh.box"):
-        acc = torch.where(in_tgt > 0, acc, _monopole(pos_tgt, M_in, com_in))
-        for M_k, com_k in octs:
-            acc = acc + _monopole(pos_tgt, M_k, com_k)
+        acc = _p3m(mesh, cutoff_cells, bodies, same_set,
+                   (capacity, sr_slabs, sr_entries, sr_ghosts),
+                   differentiable)
+    else:
+        acc = mesh.gather(mesh.grids(mesh.rho_hat(src, m)), tgt)
+    if not periodic:
+        # The far field: targets outside the box take the in-box mass's
+        # monopole, and every target adds the out-of-box octants'.
+        with spans.span("mesh.box"):
+            acc = torch.where(in_tgt > 0, acc, _monopole(tgt, M_in, com_in))
+            for M_k, com_k in octs:
+                acc = acc + _monopole(tgt, M_k, com_k)
     return acc * G_NEWTON
 
 
@@ -1292,95 +1391,52 @@ def make_mesh_env(pos, mass, grid: int = DEFAULT_GRID, cutoff_cells: int = 0,
     if _check_boundary(boundary, box_size):
         return _make_periodic_env(ng, cutoff_cells, float(box_size),
                                   pos.device)
-    lo_box, hi_box = _robust_box(pos.to(_F32), mass.to(_F32))
-    span = hi_box - lo_box
-    h = (span / float(ng - 3))[:, 0]
-    env = {"lo_box": lo_box, "hi_box": hi_box}
-    if cutoff_cells:
-        nc, sub = _cell_grid_params(ng, int(cutoff_cells))
-        env["spectra"] = _p3m_spectra(h, ng, _sr_rc2(span, nc, sub))
-    else:
-        env["spectra"] = _force_kernel_spectra(h, ng)
-    return env
+    mesh = _OpenMesh(ng, *_robust_box(pos.to(_F32), mass.to(_F32)))
+    spectra = _p3m_spectra(mesh.h, ng, mesh.geom(cutoff_cells).rc2) \
+        if cutoff_cells else _force_kernel_spectra(mesh.h, ng)
+    return {"lo_box": mesh.lo_box, "hi_box": mesh.hi_box, "spectra": spectra}
 
 
 def accelerations(pos, mass, grid: int = DEFAULT_GRID, cutoff_cells: int = 0,
-                  capacity: int = 0, sr_slabs: int = 0, sr_entries: int = 0,
-                  sr_ghosts: int = 0, differentiable: bool = False,
-                  boundary: str = "open", box_size: float = 0.0,
-                  mesh_env: dict | None = None, **_opts):
-    """All-source mesh accelerations. pos (3,N), mass (N,) -> (3,N).
-    Plain pm (``cutoff_cells=0``) is differentiable through autograd; P3M
-    with ``differentiable=True`` (accelerations_between)."""
-    return accelerations_between(
-        pos, pos, mass, grid=grid, cutoff_cells=cutoff_cells,
-        capacity=capacity, sr_slabs=sr_slabs, sr_entries=sr_entries,
-        sr_ghosts=sr_ghosts, differentiable=differentiable,
-        boundary=boundary, box_size=box_size, mesh_env=mesh_env)
+                  **kw):
+    """All-source mesh accelerations. pos (3,N), mass (N,) -> (3,N), with
+    accelerations_between's options.  Plain pm (``cutoff_cells=0``) is
+    differentiable through autograd; P3M with ``differentiable=True``."""
+    return accelerations_between(pos, pos, mass, grid, cutoff_cells, **kw)
 
 
 def p3m_accelerations(pos, mass, grid: int = DEFAULT_GRID,
-                      cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
-                      capacity: int = 0, sr_slabs: int = 0,
-                      sr_entries: int = 0, sr_ghosts: int = 0,
-                      differentiable: bool = False,
-                      boundary: str = "open", box_size: float = 0.0,
-                      mesh_env: dict | None = None, **_opts):
+                      cutoff_cells: int = DEFAULT_CUTOFF_CELLS, **kw):
     """The ``p3m`` registry entry: the short-range correction on by
     default."""
-    return accelerations_between(
-        pos, pos, mass, grid=grid,
-        cutoff_cells=cutoff_cells or DEFAULT_CUTOFF_CELLS,
-        capacity=capacity, sr_slabs=sr_slabs, sr_entries=sr_entries,
-        sr_ghosts=sr_ghosts, differentiable=differentiable,
-        boundary=boundary, box_size=box_size, mesh_env=mesh_env)
+    return p3m_accelerations_between(pos, pos, mass, grid, cutoff_cells, **kw)
 
 
 def p3m_accelerations_between(pos_tgt, pos_src, mass_src,
                               grid: int = DEFAULT_GRID,
-                              cutoff_cells: int = DEFAULT_CUTOFF_CELLS,
-                              capacity: int = 0, sr_slabs: int = 0,
-                              sr_entries: int = 0, sr_ghosts: int = 0,
-                              differentiable: bool = False,
-                              boundary: str = "open", box_size: float = 0.0,
-                              **_opts):
-    return accelerations_between(
-        pos_tgt, pos_src, mass_src, grid=grid,
-        cutoff_cells=cutoff_cells or DEFAULT_CUTOFF_CELLS,
-        capacity=capacity, sr_slabs=sr_slabs, sr_entries=sr_entries,
-        sr_ghosts=sr_ghosts, differentiable=differentiable,
-        boundary=boundary, box_size=box_size)
+                              cutoff_cells: int = DEFAULT_CUTOFF_CELLS, **kw):
+    return accelerations_between(pos_tgt, pos_src, mass_src, grid,
+                                 cutoff_cells or DEFAULT_CUTOFF_CELLS, **kw)
 
 
 # ---------------------------------------------------------------------------
 # The plan: capacity, slab and worklist sizes measured on a concrete state
 
 
-def _plan_bin(pos, mass, grid: int, cutoff_cells: int, boundary: str,
-              box_size: float, gcap: int = 0):
-    """The plan functions' binning of one state, onto the cells the solver
-    bins on: the in-box massive particles (open), or the sources wrapped
-    into the box and their ghost images packed into ``gcap`` slots (0: the
-    guaranteed 7N, which holds every image).  Returns ``(n_slots, cid,
-    n_in, nc, sub, n_ghost)``: the slots, their int32 cell ids (the
-    ``nc^3`` sentinel where excluded), the binned count, the cells a side
-    (ghost-extended when periodic), the reach, and the exact image count
-    whatever ``gcap`` (0 when open); both counts 0-d int32."""
-    pos, mass = pos.to(_F32), mass.to(_F32)
-    if boundary == "periodic":
-        box = float(box_size)
-        _, sub, rc, nc, lo_cell, span_tot = _periodic_geom(
-            int(grid), int(cutoff_cells), box, pos.device)
-        pos_b, m_b, cid, n_ghost = _periodic_ghost_bin(
-            _wrap_box(pos, box), mass, box, rc, nc, lo_cell, span_tot,
-            int(gcap) or 7 * pos.shape[1])
-    else:
-        lo_box, hi_box = _robust_box(pos, mass)
-        nc, sub = _cell_grid_params(int(grid), int(cutoff_cells))
-        m_b = mass * _inside(pos, lo_box, hi_box)
-        pos_b, cid = pos, _bin_cids(pos, lo_box, hi_box - lo_box, nc, m_b > 0)
-        n_ghost = torch.zeros((), dtype=_I32, device=pos.device)
-    return pos_b.shape[1], cid, (m_b > 0).sum(dtype=_I32), nc, sub, n_ghost
+def _plan_bin(pos, mass, grid: int, cutoff_cells: int, boundary: str = "open",
+              box_size: float = 0.0, gcap: int = 0):
+    """The plan's binning of one state: the solver's geometry and
+    candidates (_sr_candidates) for sr_pack_inputs' boundary and bodies,
+    the ghost images in ``gcap`` slots (0: the guaranteed 7N, which holds
+    every image).  Returns ``(geom, inc, cid, n_ghost)``, n_ghost 0-d int32
+    (0 when open)."""
+    mesh, (src, m, _, _) = _state_sr(pos, mass, grid, boundary, box_size)
+    geom = mesh.geom(cutoff_cells, src.device)
+    _, _, inc, cid, n_ghost = _sr_candidates(mesh, geom, src, m,
+                                             int(gcap) or 7 * src.shape[1])
+    if n_ghost is None:
+        n_ghost = torch.zeros((), dtype=_I32, device=src.device)
+    return geom, inc, cid, n_ghost
 
 
 def _cid_counts(cid, n_cells: int):
@@ -1391,34 +1447,11 @@ def _cid_counts(cid, n_cells: int):
     return counts[:-1]
 
 
-def _cell_counts(pos, mass, grid: int, cutoff_cells: int,
-                 boundary: str = "open", box_size: float = 0.0):
-    """Per-cell in-box massive-particle counts (n_cells,) and the in-box
-    count, both int32.  The periodic boundary counts on the ghost-extended
-    grid, the ghost images included (a capacity must cover the ghost cells
-    too: they mirror the densest boundary regions)."""
-    _, cid, n_in, nc, _, _ = _plan_bin(pos, mass, grid, cutoff_cells,
-                                       boundary, box_size)
-    return _cid_counts(cid, nc ** 3), n_in
-
-
-def _overflow_frac(counts, n_in, cap: int):
-    return (counts - cap).clamp_min(0).sum() / n_in.clamp_min(1)
-
-
-def _max_occupancy(pos, mass, grid: int, cutoff_cells: int,
-                   boundary: str = "open", box_size: float = 0.0):
-    return _cell_counts(pos, mass, grid, cutoff_cells, boundary,
-                        box_size)[0].max()
-
-
-def _n_cells(grid: int, cutoff_cells: int, boundary: str) -> int:
-    """The cells the solver bins on: the ghost-extended (nc + 2 sub)^3 grid
-    under the periodic boundary, nc^3 under the open one."""
-    if boundary == "periodic":
-        nc, sub = _periodic_cells(int(grid), int(cutoff_cells))
-        return (nc + 2 * sub) ** 3
-    return _cell_grid_params(int(grid), int(cutoff_cells))[0] ** 3
+def _overflow_frac(geom: _Geom, inc, cid, cap: int):
+    """The binned candidates past their cell's capacity over the binned
+    candidates (0-d)."""
+    over = (_cid_counts(cid, geom.nc ** 3) - cap).clamp_min(0).sum()
+    return over / inc.sum(dtype=_I32).clamp_min(1)
 
 
 def cell_overflow_fraction(pos, mass, grid: int = DEFAULT_GRID,
@@ -1428,12 +1461,10 @@ def cell_overflow_fraction(pos, mass, grid: int = DEFAULT_GRID,
     """Fraction of in-box massive particles (and, periodic, ghost images)
     the P3M cell list cannot bin at ``capacity`` (0 resolves as the solver
     does, on the solver's cell count), as a 0-d tensor."""
-    _check_boundary(boundary, box_size)
-    cap = int(capacity) or _auto_capacity(
-        pos.shape[1], _n_cells(grid, cutoff_cells, boundary))
-    counts, n_in = _cell_counts(pos, mass, grid, cutoff_cells, boundary,
-                                box_size)
-    return _overflow_frac(counts, n_in, cap)
+    geom, inc, cid, _ = _plan_bin(pos, mass, grid, cutoff_cells, boundary,
+                                  box_size)
+    cap = _sr_sizing(geom, pos.shape[1], 0, capacity, 0, 0)[0]
+    return _overflow_frac(geom, inc, cid, cap)
 
 
 def suggest_capacity(pos, mass, grid: int = DEFAULT_GRID,
@@ -1442,21 +1473,13 @@ def suggest_capacity(pos, mass, grid: int = DEFAULT_GRID,
                      boundary: str = "open", box_size: float = 0.0) -> int:
     """Host-side cell capacity: the measured max cell occupancy times
     ``headroom``, a power of two in [64, max_capacity]."""
-    _check_boundary(boundary, box_size)
-    occ = _read(_max_occupancy(pos, mass, int(grid), int(cutoff_cells),
-                               boundary, box_size), "plan")
+    geom, _, cid, _ = _plan_bin(pos, mass, grid, cutoff_cells, boundary,
+                                box_size)
+    occ = _read(_cid_counts(cid, geom.nc ** 3).max(), "plan")
     cap = 64
     while cap < headroom * occ and cap < max_capacity:
         cap *= 2
     return cap
-
-
-def _ghost_count(pos, mass, grid: int, cutoff_cells: int, box_size: float):
-    """The exact number of periodic ghost images of this state (0-d)."""
-    box = float(box_size)
-    rc = _periodic_geom(int(grid), int(cutoff_cells), box, pos.device)[2]
-    return _ghost_images(_wrap_box(pos.to(_F32), box), mass.to(_F32), box,
-                         rc, 1)[2]
 
 
 def ghost_overflow_count(pos, mass, grid: int = DEFAULT_GRID,
@@ -1467,35 +1490,20 @@ def ghost_overflow_count(pos, mass, grid: int = DEFAULT_GRID,
     their whole short-range term (no complement makes up for them): raise
     ``sr_ghosts`` or re-run suggest_sr_plan.  The count read adds to
     ``spans.counts["ghost_images"]``."""
-    gcap = _ghost_cap(pos.shape[1], sr_ghosts)
-    n = _read(_ghost_count(pos, mass, grid, cutoff_cells, box_size),
-              "ghost_overflow")
+    mesh, (src, m, _, _) = _state_sr(pos, mass, grid, "periodic", box_size)
+    rc = mesh.geom(cutoff_cells, src.device).rc
+    n = _read(_ghost_images(src, m, mesh.box, rc, 1)[2], "ghost_overflow")
     spans.counts["ghost_images"] += n
-    return max(0, n - gcap)
+    return max(0, n - _ghost_cap(pos.shape[1], sr_ghosts))
 
 
-def _entry_count(cid, n_slots: int, nc: int, sub: int, cap: int,
-                 layout: tuple):
+def _entry_count(geom: _Geom, cid, cap: int, layout: tuple):
     """The exact worklist entry count (0-d int32) of a binning in the
     (symmetric, paired) ``layout``, and ``_sr_slots``' binned mask."""
-    slab_lo, slab_hi, binned = _sr_slots(cid, nc ** 3, int(cap),
-                                         n_slots // SLAB + 2)
-    sym, pr = layout
-    return _sr_ranges(slab_lo, slab_hi, nc, sub, 1, symmetric=sym,
-                      paired=pr)[2], binned
-
-
-def _sr_plan_counts(pos, mass, grid: int, cutoff: int, cap: int,
-                    layout: tuple, boundary: str = "open",
-                    box_size: float = 0.0):
-    """Measured (S, E, n_ghost): the packed slab count, the exact worklist
-    entry count in ``layout``, and (periodic) the exact ghost image count
-    for this state; the periodic tables are binned at the guaranteed 7N
-    ghost bound."""
-    n_slots, cid, _, nc, sub, n_ghost = _plan_bin(pos, mass, grid, cutoff,
-                                                  boundary, box_size)
-    n_e, binned = _entry_count(cid, n_slots, nc, sub, cap, layout)
-    return binned.sum(dtype=_I32) // SLAB + 2, n_e, n_ghost
+    slab_lo, slab_hi, binned = _sr_slots(cid, geom.nc ** 3, int(cap),
+                                         cid.shape[0] // SLAB + 2)
+    return _sr_ranges(slab_lo, slab_hi, geom.nc, geom.sub, 1,
+                      *layout)[2], binned
 
 
 def _active_sr_layout(on_cuda: bool, differentiable: bool = False) -> tuple:
@@ -1507,13 +1515,6 @@ def _active_sr_layout(on_cuda: bool, differentiable: bool = False) -> tuple:
     entries drop without an error."""
     sym = (not on_cuda) if SR_SYMMETRIC is None else SR_SYMMETRIC
     return sym, SR_PAIRED_ROWS and on_cuda and not differentiable
-
-
-def _pow2_at_least(x):
-    v = 64
-    while v < x:
-        v *= 2
-    return v
 
 
 def suggest_sr_plan(pos, mass, grid: int = DEFAULT_GRID,
@@ -1543,27 +1544,16 @@ def suggest_sr_plan(pos, mass, grid: int = DEFAULT_GRID,
     cap = int(capacity) or suggest_capacity(pos, mass, grid, cutoff_cells,
                                             boundary=boundary,
                                             box_size=box_size)
-    s, e, g = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
-                              (sym, pr), boundary, box_size)
-    s_planned = _pow2_at_least(_read(s, "plan") * headroom)
-    e = _read(e, "plan")
-    plan = {"capacity": cap, "sr_slabs": s_planned,
-            "sr_entries": _pow2_at_least(e * headroom)}
+    geom, _, cid, g = _plan_bin(pos, mass, grid, cutoff_cells, boundary,
+                                box_size)
+    e, binned = _entry_count(geom, cid, cap, (sym, pr))
+    s = _read(binned.sum(dtype=_I32) // SLAB + 2, "plan")
+    plan = {"capacity": cap, "sr_slabs": _pow2_at_least(s * headroom),
+            "sr_entries": _pow2_at_least(_read(e, "plan") * headroom)}
     if boundary == "periodic":
         plan["sr_ghosts"] = min(_pow2_at_least(_read(g, "plan") * headroom),
                                 7 * pos.shape[1])
     return plan
-
-
-def _entry_guard_sizing(ns: int, grid: int, cutoff_cells: int, capacity: int,
-                        sr_slabs: int, sr_entries: int, boundary: str,
-                        sr_ghosts: int = 0) -> tuple:
-    """(cap, s_max, e_max) as the solver sizes its tables: the slab tables
-    hold ``n_bin`` slots, the sources and, periodic, the ghost cap.  (The
-    JAX package's guard sizes periodic tables from the sources alone.)"""
-    n_bin = ns + (_ghost_cap(ns, sr_ghosts) if boundary == "periodic" else 0)
-    return _sr_sizing(ns, n_bin, _n_cells(grid, cutoff_cells, boundary),
-                      capacity, sr_slabs, sr_entries)
 
 
 def sr_entry_overflow(pos, mass, grid: int = DEFAULT_GRID,
@@ -1575,15 +1565,17 @@ def sr_entry_overflow(pos, mass, grid: int = DEFAULT_GRID,
     """Worklist entries this state would drop past the static
     ``sr_entries`` under the active layout, or that of a differentiable
     call (0 for the guaranteed bound)."""
-    _check_boundary(boundary, box_size)
+    periodic = _check_boundary(boundary, box_size)
     if not int(sr_entries):
         return 0
-    cap, _, e_max = _entry_guard_sizing(
-        pos.shape[1], grid, cutoff_cells, capacity, sr_slabs, sr_entries,
-        boundary, sr_ghosts)
-    n_e = _sr_plan_counts(pos, mass, int(grid), int(cutoff_cells), cap,
-                          _active_sr_layout(pos.is_cuda, differentiable),
-                          boundary, box_size)[1]
+    ns = pos.shape[1]
+    geom, _, cid, _ = _plan_bin(pos, mass, grid, cutoff_cells, boundary,
+                                box_size)
+    cap, _, e_max = _sr_sizing(geom, ns,
+                               _ghost_cap(ns, sr_ghosts) if periodic else 0,
+                               capacity, sr_slabs, sr_entries)
+    n_e = _entry_count(geom, cid, cap,
+                       _active_sr_layout(pos.is_cuda, differentiable))[0]
     return max(0, _read(n_e, "entry_overflow") - e_max)
 
 
@@ -1608,31 +1600,29 @@ def sr_plan_health(pos, mass, grid: int = DEFAULT_GRID,
     measured again at 7N (``spans.counts["health_full_bins"]``)."""
     periodic = _check_boundary(boundary, box_size)
     ns = pos.shape[1]
-    cap, _, e_max = _entry_guard_sizing(ns, grid, cutoff_cells, capacity,
-                                        sr_slabs, sr_entries, boundary,
-                                        sr_ghosts)
-    gcap = _ghost_cap(ns, sr_ghosts)
+    gcap = _ghost_cap(ns, sr_ghosts) if periodic else 0
 
     def readings(ghost_slots: int) -> tuple:
-        n_slots, cid, n_in, nc, sub, n_ghost = _plan_bin(
-            pos, mass, grid, cutoff_cells, boundary, box_size, ghost_slots)
-        frac = _overflow_frac(_cid_counts(cid, nc ** 3), n_in, cap)
-        n_e = _entry_count(cid, n_slots, nc, sub, cap,
-                           _active_sr_layout(pos.is_cuda))[0] \
+        geom, inc, cid, n_ghost = _plan_bin(pos, mass, grid, cutoff_cells,
+                                            boundary, box_size, ghost_slots)
+        cap, _, e_max = _sr_sizing(geom, ns, gcap, capacity, sr_slabs,
+                                   sr_entries)
+        frac = _overflow_frac(geom, inc, cid, cap)
+        n_e = _entry_count(geom, cid, cap, _active_sr_layout(pos.is_cuda))[0] \
             if int(sr_entries) else torch.zeros_like(n_ghost)
         # float64 holds the f32 fraction and both int32 counts exactly.
         with spans.sync("health"):
             frac, n_ghost, n_e = torch.stack(
                 [frac.double(), n_ghost.double(), n_e.double()]).tolist()
-        return frac, int(n_ghost), int(n_e)
+        return frac, int(n_ghost), max(0, int(n_e) - e_max)
 
-    frac, n_ghost, n_e = readings(gcap if periodic else 0)
+    frac, n_ghost, entries = readings(gcap)
     if n_ghost > gcap:
         spans.counts["health_full_bins"] += 1
-        frac, _, n_e = readings(7 * ns)
+        frac, _, entries = readings(7 * ns)
     if periodic:
         spans.counts["ghost_images"] += n_ghost
-    return frac, max(0, n_ghost - gcap), max(0, n_e - e_max)
+    return frac, max(0, n_ghost - gcap), entries
 
 
 def force_error_vs_exact(pos, mass, grid: int = DEFAULT_GRID,

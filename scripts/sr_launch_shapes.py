@@ -123,9 +123,9 @@ def periodic_inputs() -> dict:
         plan = pm.suggest_sr_plan(ref.pos, ref.mass, GATE["grid"],
                                   GATE["cutoff"], layout=layout,
                                   differentiable=True, **bkw)
-        tabs = pm._periodic_sr_tables(ref.pos, ref.mass, GATE["grid"],
-                                      PERIODIC["box"], GATE["cutoff"],
-                                      symmetric=sym, **plan)
+        tabs = pm.sr_pack_inputs(ref.pos, ref.mass, GATE["grid"],
+                                 GATE["cutoff"], symmetric=sym, **plan,
+                                 **bkw)
         if int(tabs["n_e"]) > tabs["e_max"]:
             raise RuntimeError(f"periodic {layout}: the plan drops entries")
         bounds = torch.stack([torch.zeros_like(tabs["n_e"]), tabs["n_e"]])

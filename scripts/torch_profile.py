@@ -170,11 +170,8 @@ def mesh_stages(label: str, runner) -> None:
     grid, cutoff = cfg.mesh_params()
     env_fn = runner._mesh_env_fn()
     env = env_fn(pos, mass)
-    lo_box, hi_box = env["lo_box"], env["hi_box"]
-    span = hi_box - lo_box
-    h = (span / float(grid - 3))[:, 0]
-    inv_h = 1.0 / h[:, None]
-    lo = lo_box - h[:, None]
+    mesh = pm._OpenMesh(grid, env["lo_box"], env["hi_box"])
+    lo, inv_h = mesh.lo, mesh.inv_h
     m = 2 * grid
     rho = pm._deposit(pos, mass, lo, inv_h, grid)
     rho_hat = torch.fft.rfftn(rho, s=(m, m, m))
@@ -201,24 +198,27 @@ def mesh_stages(label: str, runner) -> None:
         "gather": cuda_ms(lambda: pm._gather(grids, pos, lo, inv_h, grid)),
     }
     if cutoff:
-        nc, sub = pm._cell_grid_params(grid, cutoff)
-        inc = (mass * pm._inside(pos, lo_box, hi_box)) > 0
-        cid = pm._bin_cids(pos, lo_box, span, nc, inc)
-        key = pm._subcell_key(pos, lo_box, span, nc)
         cap, s_max, e_max = cfg.pm_capacity, cfg.pm_sr_slabs, cfg.pm_sr_entries
-        tabs = pm._sr_pack(cid, pos, mass, nc ** 3, cap, s_max, key)
         sym, paired = pm._active_sr_layout(pos.is_cuda)
-        wl_t, wl_s, n_e = pm._sr_ranges(tabs[2], tabs[3], nc, sub, e_max,
-                                        symmetric=sym, paired=paired)
+        # The solver's geometry and cells on the env's box, the pack alone.
+        geom = mesh.geom(cutoff)
+        cid = pm._sr_candidates(mesh, geom, *mesh.bodies(pos, mass, pos)[:2],
+                                0)[3]
+
+        def pack():
+            return pm._sr_pack(cid, pos, mass, geom.nc ** 3, cap, s_max,
+                               pm._subcell_key(pos, geom.lo, geom.span,
+                                               geom.nc))
+        tabs = pack()
+        wl_t, wl_s, n_e = pm._sr_ranges(tabs[2], tabs[3], geom.nc, geom.sub,
+                                        e_max, symmetric=sym, paired=paired)
         bounds = torch.stack([torch.zeros_like(n_e), n_e.clamp(max=e_max)])
-        rc2 = pm._sr_rc2(span, nc, sub)
-        ms["pack"] = cuda_ms(lambda: pm._sr_pack(
-            cid, pos, mass, nc ** 3, cap, s_max,
-            pm._subcell_key(pos, lo_box, span, nc)))
+        ms["pack"] = cuda_ms(pack)
         ms["worklist"] = cuda_ms(lambda: pm._sr_ranges(
-            tabs[2], tabs[3], nc, sub, e_max, symmetric=sym, paired=paired))
+            tabs[2], tabs[3], geom.nc, geom.sub, e_max, symmetric=sym,
+            paired=paired))
         ms["sr kernel"] = cuda_ms(lambda: sr_kernel.sweep(
-            tabs[0], tabs[1], wl_t, wl_s, bounds, rc2, symmetric=sym,
+            tabs[0], tabs[1], wl_t, wl_s, bounds, geom.rc2, symmetric=sym,
             paired=paired))
         over = float(pm.cell_overflow_fraction(pos, mass, grid, cutoff, cap))
         _, runs = torch.unique_consecutive(wl_t[:int(n_e)],
@@ -281,18 +281,18 @@ def periodic_mesh_stages(label: str, runner) -> None:
         sym, paired = pm._active_sr_layout(pos.is_cuda)
         plan = dict(capacity=cfg.pm_capacity, sr_slabs=cfg.pm_sr_slabs,
                     sr_entries=cfg.pm_sr_entries, sr_ghosts=cfg.pm_sr_ghosts)
-        src_w = pm._wrap_box(pos, box)
+        bkw = dict(boundary="periodic", box_size=box)
         rc = pm._periodic_geom(grid, cutoff, box, pos.device)[2]
-        tabs = pm._periodic_sr_tables(pos, mass, grid, box, cutoff,
-                                      symmetric=sym, paired=paired, **plan)
+        tabs = pm.sr_pack_inputs(pos, mass, grid, cutoff, symmetric=sym,
+                                 paired=paired, **plan, **bkw)
         n_e = tabs["n_e"]
         bounds = torch.stack([torch.zeros_like(n_e),
                               n_e.clamp(max=tabs["e_max"])])
         ms["ghosts"] = cuda_ms(lambda: pm._ghost_images(
-            src_w, mass, box, rc, tabs["gcap"]))
-        ms["tables"] = cuda_ms(lambda: pm._periodic_sr_tables(
-            pos, mass, grid, box, cutoff, symmetric=sym, paired=paired,
-            **plan))
+            tabs["src_w"], mass, box, rc, tabs["gcap"]))
+        ms["tables"] = cuda_ms(lambda: pm.sr_pack_inputs(
+            pos, mass, grid, cutoff, symmetric=sym, paired=paired, **plan,
+            **bkw))
         ms["sr kernel"] = cuda_ms(lambda: sr_kernel.sweep(
             tabs["ptab"], tabs["mtab"], tabs["wl_t"], tabs["wl_s"], bounds,
             tabs["rc2"], symmetric=sym, paired=paired))

@@ -89,29 +89,59 @@ def _cids(pos, mass, ng, cutoff=4):
             np.asarray(lo), np.asarray(hi - lo))
 
 
-@pytest.mark.parametrize("n,ng,cap,s_max", [(2048, 64, 128, 40),
-                                            (1024, 32, 8, 24),
-                                            (700, 16, 64, 6)])
-def test_sr_pack_bit_equal(n, ng, cap, s_max):
+@pytest.mark.parametrize("n,ng,cap,s_max,n_tgt", [
+    pytest.param(2048, 64, 128, 40, 0, id="2048-64-128-40"),
+    pytest.param(1024, 32, 8, 24, 0, id="1024-32-8-24"),
+    pytest.param(700, 16, 64, 6, 0, id="700-16-64-6"),
+    pytest.param(1024, 32, 16, 24, 300, id="1024-32-16-24-targets")])
+def test_sr_pack_bit_equal(n, ng, cap, s_max, n_tgt):
     """Under a zero key the pack is the JAX package's; with the sub-cell key
     the slab bounds and the binned set still are, and the tables are its
-    tables with each cell reordered by the key."""
-    # (1024, 32, cap 8): cells overflow; (700, 16, s_max 6): slabs overflow.
+    tables with each cell reordered by the key.  With distinct targets the
+    candidates are the JAX package's open solver's (the in-box sources,
+    then the targets, massless, where inside the box), and sr_pack_inputs'
+    tables and worklist are its own."""
+    # (1024, 32, cap 8): cells overflow; (700, 16, s_max 6): slabs overflow;
+    # (1024, 32, cap 16, 300 targets): the core's cells overflow.
     pos, mass = _plummer(n, 3)
-    cid, nc, _, lo, span = _cids(pos, mass, ng)
+    cid, nc, sub, lo, span = _cids(pos, mass, ng)
+    pos_bin, m_bin = pos, mass
+    if n_tgt:
+        tgt = _plummer(n_tgt, 4)[0]
+        jp, jt = jnp.asarray(pos), jnp.asarray(tgt)
+        jlo, jhi = jax_pm._robust_box(jp, jnp.asarray(mass))
+        t_in = jax_pm._inside(jt, jlo, jhi) > 0
+        pos_bin = np.concatenate([pos, tgt], axis=1)
+        in_src = np.asarray(jax_pm._inside(jp, jlo, jhi))
+        m_bin = np.concatenate([mass * in_src, np.zeros(n_tgt, np.float32)])
+        cid = np.concatenate([cid, np.asarray(jax_pm._bin_cids(
+            jt, jlo, jhi - jlo, nc, t_in))])
+        assert 0 < int(t_in.sum()) < n_tgt  # targets inside and outside
     want = [np.asarray(w) for w in _jax_pack(
-        jnp.asarray(cid), jnp.asarray(pos), jnp.asarray(mass), nc ** 3, cap,
-        s_max)]
-    key = pm._subcell_key(_t(pos), _t(lo), _t(span), nc)
-    want_key = subcell_key_np(pos, lo, span, nc)
+        jnp.asarray(cid), jnp.asarray(pos_bin), jnp.asarray(m_bin), nc ** 3,
+        cap, s_max)]
+    key = pm._subcell_key(_t(pos_bin), _t(lo), _t(span), nc)
+    want_key = subcell_key_np(pos_bin, lo, span, nc)
     np.testing.assert_array_equal(key.numpy(), want_key)
     keyed = reorder_pack_np(*want, cid, want_key)
     assert not np.array_equal(keyed[4], want[4])  # the key moves slots
     for k, w in ((torch.zeros_like(key), want), (key, keyed)):
-        got = pm._sr_pack(_t(cid), _t(pos), _t(mass), nc ** 3, cap, s_max, k)
+        got = pm._sr_pack(_t(cid), _t(pos_bin), _t(m_bin), nc ** 3, cap,
+                          s_max, k)
         for g, w_i in zip(got, w):
             assert g.dtype in (torch.int32, torch.float32, torch.bool)
             np.testing.assert_array_equal(g.numpy(), w_i)
+    if n_tgt:
+        pk = pm.sr_pack_inputs(_t(pos), _t(mass), ng, 4, capacity=cap,
+                               sr_slabs=s_max, sr_entries=4096,
+                               pos_tgt=_t(tgt))
+        names = ("ptab", "mtab", "slab_lo", "slab_hi", "pslot", "binned")
+        for name, w in zip(names, keyed):
+            np.testing.assert_array_equal(pk[name].numpy(), w)
+        assert not keyed[5][n:].all()  # some targets take no slot
+        for name, w in zip(("wl_t", "wl_s", "n_e"), _jax_ranges(
+                want[2], want[3], nc, sub, 4096)):
+            np.testing.assert_array_equal(pk[name].numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("sym,paired", [(False, False), (True, False),

@@ -210,11 +210,11 @@ def test_periodic_pack_bit_equal(state, between):
     n_bin = pos.shape[1] + 2048 + (100 if between else 0)
     s_max, e_max = n_bin // 64 + 2, 4096
     for sym, paired in ((False, False), (True, False), (False, True)):
-        tabs = pm._periodic_sr_tables(
-            _t(pos), _t(mass), ng, box, 4, capacity=cap, sr_slabs=s_max,
-            sr_entries=e_max, sr_ghosts=2048,
-            pos_tgt=None if tgt is None else _t(tgt), symmetric=sym,
-            paired=paired)
+        tabs = pm.sr_pack_inputs(
+            _t(pos), _t(mass), ng, 4, capacity=cap, sr_slabs=s_max,
+            sr_entries=e_max, symmetric=sym, paired=paired,
+            boundary="periodic", box_size=box, sr_ghosts=2048,
+            pos_tgt=None if tgt is None else _t(tgt))
         packed, wl, n_ghost, (pos_bin, cid, lo, span) = _jax_tables(
             jnp.asarray(pos), jnp.asarray(mass), ng, box, cap, s_max, e_max,
             2048, sym, paired, None if tgt is None else jnp.asarray(tgt))
@@ -432,10 +432,11 @@ def test_sr_entry_overflow_sizes_the_solvers_tables():
     pos, mass = corner_blob(1024, 11)
     p, m = _t(pos), _t(mass)
     plan = pm.suggest_sr_plan(p, m, 32, 4, boundary="periodic", box_size=1.0)
-    tabs = pm._periodic_sr_tables(p, m, 32, 1.0, 4, capacity=plan["capacity"],
-                                  sr_entries=64, sr_ghosts=plan["sr_ghosts"])
-    guard = pm._entry_guard_sizing(1024, 32, 4, plan["capacity"], 0, 64,
-                                   "periodic", plan["sr_ghosts"])
+    tabs = pm.sr_pack_inputs(p, m, 32, 4, capacity=plan["capacity"],
+                             sr_entries=64, boundary="periodic", box_size=1.0,
+                             sr_ghosts=plan["sr_ghosts"])
+    guard = pm._sr_sizing(pm._PeriodicMesh(32, 1.0).geom(4, "cpu"), 1024,
+                          plan["sr_ghosts"], plan["capacity"], 0, 64)
     jax_sizing = jax_pm._sr_sizing(1024, 1024, 20 ** 3, plan["capacity"], 0,
                                    64)
     assert guard[1] == tabs["s_max"] == (1024 + plan["sr_ghosts"]) // 64 + 1

@@ -93,7 +93,8 @@ def test_overflow_branch_degrades_to_the_mesh(case):
     at all."""
     _, pos, mass, grid = states()[case]
     p, m = torch.from_numpy(pos), torch.from_numpy(mass)
-    cap = int(pm._max_occupancy(p, m, grid, 4, **BOX)) // 4
+    geom, _, cid, _ = pm._plan_bin(p, m, grid, 4, **BOX)
+    cap = int(pm._cid_counts(cid, geom.nc ** 3).max()) // 4
     assert float(pm.cell_overflow_fraction(p, m, grid, 4, cap, **BOX)) > 0.1
     plan = pm.suggest_sr_plan(p, m, grid, 4, capacity=cap, **BOX)
     want = reference_accel(pos, mass, grid)

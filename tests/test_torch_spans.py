@@ -167,8 +167,8 @@ def test_ghost_images_counts_the_health_checks_read():
     before = spans.counts["ghost_images"]
     full_bins = spans.counts["health_full_bins"]
     events, syncs = _traced(runner.check_sr_health)
-    images = int(pm._ghost_count(runner.state.pos, runner.state.mass, 16, 4,
-                                 1.0))
+    images = int(pm._plan_bin(runner.state.pos, runner.state.mass, 16, 4,
+                              "periodic", 1.0)[3])
     assert spans.counts["ghost_images"] - before == images > 0
     # Every image fits the plan's ghost cap: no binning at 7N.
     assert images <= runner.cfg.pm_sr_ghosts

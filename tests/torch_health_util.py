@@ -56,7 +56,7 @@ def check_health_equals_the_plan_functions(name: str, device) -> tuple:
     plan = pm.suggest_sr_plan(p, m, grid, 4, **bkw)
     plan = dict(plan, **over)
     plan.setdefault("sr_ghosts", 0)
-    images = int(pm._ghost_count(p, m, grid, 4, 1.0)) if bkw else 0
+    images = int(pm._plan_bin(p, m, grid, 4, **bkw)[3]) if bkw else 0
     before = dict(spans.counts)
     got = pm.sr_plan_health(p, m, grid, 4, **plan, **bkw)
     delta = {k: spans.counts[k] - before.get(k, 0)
