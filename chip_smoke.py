@@ -99,7 +99,9 @@ Phases, each printing what it found; any failure exits non-zero:
     other kernel, and prints its ms per step.
 14. ``kernel="p3m"`` and ``kernel="pm"`` at N=1048576 on the reference
     initial conditions, 8 steps, sfreq 4: finite energies, ms per step and
-    the short-range kernel's launches (12 and 0).
+    the short-range kernel's launches (12 and 0), and the deposit kernel's
+    (at least 12: one a force call, and one more a step in which a body
+    overflows its cell).
 15. The particle decomposition's kernels against their plain versions: the
     two-sided sweep at Nt = Ns = 4096 and at 4096 x 2048, and at shapes
     from 512 x 512 to 16384 x 8192 in blocks of 128 (R = 2) and 1024 x 512
@@ -209,7 +211,9 @@ Phases, each printing what it found; any failure exits non-zero:
     largest; open within 1e-4 relative norm, tests/test_torch_p3m_grad.py
     says why).  (d) A 10-step Euler rollout gradient (dt 0.01) through
     ``make_rollout_fn``: which of the mesh's indexing ops repeat bit for
-    bit, with and without PyTorch's deterministic mode; remat against no
+    bit, with and without PyTorch's deterministic mode (the deposit off
+    autograd is the fixed-point kernel, under autograd ``_scatter``'s
+    ``index_put_``); remat against no
     remat within 1e-4 of the largest (the CIC gather's backward,
     ``index_add_``, adds with atomics in no fixed order), and bit for bit
     under ``torch.use_deterministic_algorithms(True)``; the forward and
@@ -220,6 +224,16 @@ Phases, each printing what it found; any failure exits non-zero:
     non-zero gradient of mean(|a|^2), ms of its forward and backward.  (f)
     ``examples.fit_velocities 128 10 40 p3m`` exits 0 and its velocity
     error falls.
+
+23. The CIC deposit kernel (``csrc/deposit.cu``, 64-bit fixed point) at
+    ng=128 on the reference initial conditions at N=1048576 and the Plummer
+    sphere of the P3M gate (N=262144), open (the solver's box and in-box
+    masses) and periodic (L = 1): equal to ``deposit_plain`` bit for bit,
+    two launches bit for bit, within 1e-6 relative norm of ``_scatter``'s
+    grid; the per-call time of the kernel, its plain version and
+    ``_scatter`` (the accumulating ``index_put_`` it replaces off autograd:
+    the row's ``library_ms``), against the bound (16 B a body read, the
+    grid written).
 
 Each phase's seconds are printed after it.
 
@@ -296,6 +310,10 @@ OPS_SR_REACTION = 7  # the symmetric layouts: target mass, 3 products, 3 adds
 OPS_SR_TEST = 10
 OPS_SR_VJP = 68
 OPS_SR_VJP_REACTION = 13
+# The CIC deposit a body: 9 an axis (sub, mul, two clamps, floor, sub, two
+# clamps, 1 - frac), 4 products wx wy, 8 by wz, 8 by m.  Its bytes: x, y, z
+# and m read, the ng^3 fp32 grid written.
+OPS_DEPOSIT = 47
 # The VJP kernel against its plain version: gp and gm as a share of each
 # one's largest (fp32 sums in other orders, rsqrt with a Newton step), grc2
 # relative (a sum over every pair); the full and rollout gradients, the
@@ -430,6 +448,7 @@ def mesh_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
     from nbody_tpu_torch import SimConfig, run
     from nbody_tpu_torch.models import distributions
     from nbody_tpu_torch.ops import (
+        deposit_kernel,
         fused_block,
         pm,
         sr_kernel,
@@ -564,18 +583,23 @@ def mesh_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
 
     # 14. The uniform and mesh-only rows.
     for kernel, want in (("p3m", 12), ("pm", 0)):
-        for mod in counters:
+        for mod in (*counters, deposit_kernel):
             mod.launches = 0
         res = run(SimConfig(n=N_UNIFORM, nsteps=8, sfreq=4, kernel=kernel),
                   quiet=True)
         counts = tuple(mod.launches for mod in counters)
+        launches[f"deposit_{kernel}"] = deposit_kernel.launches
         kes = [ke for _, ke in res.kenergy_trace]
         step_ms = [1e3 * b / 4 for (_, _, _, b, _) in res.samples]
         print(f"{kernel} run N={N_UNIFORM} reference, 8 steps: sr/tiled/sym/"
-              f"fused/vjp launches {counts}; ms per step "
+              f"fused/vjp launches {counts}, deposit launches "
+              f"{deposit_kernel.launches}; ms per step "
               f"{', '.join(f'{t:.3f}' for t in step_ms)} {tag}", flush=True)
         if counts != (want, 0, 0, 0, 0):
             fail(f"{kernel} N={N_UNIFORM} launches {counts}")
+        if deposit_kernel.launches < 12:  # a step that overflows adds one
+            fail(f"{kernel} N={N_UNIFORM}: {deposit_kernel.launches} deposit "
+                 "launches, fewer than one a force call")
         if len(kes) != 2 or not all(math.isfinite(k) and k > 0 for k in kes):
             fail(f"{kernel} N={N_UNIFORM} energies not finite and positive: "
                  f"{kes}")
@@ -1180,8 +1204,11 @@ def grad_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
     probes = {
         "CIC gather backward (index_select -> index_add_)": lambda: backward_of(
             grids, lambda g: (pm._gather(g, p, lo, inv_h, ng) * w_acc).sum()),
-        "CIC deposit (index_put_, accumulate)": lambda: pm._deposit(
-            p, m, lo, inv_h, ng),
+        "CIC deposit off autograd (csrc/deposit.cu, fixed point)":
+            lambda: pm._deposit(p, m, lo, inv_h, ng),
+        "CIC deposit under autograd (index_put_, accumulate)": lambda:
+            pm._deposit(p, m.clone().requires_grad_(True), lo, inv_h,
+                        ng).detach(),
         "CIC deposit backward (a gather)": lambda: backward_of(
             m, lambda q: (pm._deposit(p, q, lo, inv_h, ng) * w_rho).sum()),
         "table gather backward (index_put_, accumulate)": lambda: backward_of(
@@ -1486,6 +1513,70 @@ def mxu_phases(dev, tag: str, err: dict, ms: dict, launches: dict,
     print(f"mxu N={n}: kernel {ms['mxu']:.4f} ms, plain {ms['mxu_plain']:.4f} "
           f"ms, Kernel A {ms['A_mxu_phase']:.4f} ms per call; "
           f"{n * n / ms['mxu'] / 1e6:.1f} Gpairs/s {tag}", flush=True)
+
+
+def deposit_phases(dev, tag: str, err: dict, ms: dict) -> dict:
+    """Phase 23; fills ``err`` and ``ms`` and returns the deposit's bound
+    at the row's state (uniform N=1048576, open)."""
+    import torch
+
+    from nbody_tpu_torch import make_state
+    from nbody_tpu_torch.models import distributions
+    from nbody_tpu_torch.ops import deposit_kernel, pm
+
+    ng = P3M_GATE["grid"]
+    ref = make_state(N_UNIFORM, device=dev)
+    pos_p, _, mass_p = distributions.plummer(P3M_GATE["n"],
+                                             seed=P3M_GATE["seed"])
+    states = {"uniform": (ref.pos, ref.mass),
+              "plummer": (torch.tensor(pos_p, device=dev),
+                          torch.tensor(mass_p, device=dev))}
+    err["deposit"] = 0.0
+    bounds = {}
+    for name, (pos, mass) in states.items():
+        n = pos.shape[1]
+        for boundary in ("open", "periodic"):
+            if boundary == "open":  # the solver's box and in-box masses
+                mesh = pm._OpenMesh(ng, *pm._robust_box(pos, mass))
+                m = mesh.bodies(pos, mass, pos)[1]
+                kw = dict(lo=mesh.lo, inv_h=mesh.inv_h)
+            else:
+                m, kw = mass, dict(box=PERIODIC["box"])
+            got = deposit_kernel.deposit(pos, m, ng, **kw)
+            again = deposit_kernel.deposit(pos, m, ng, **kw)
+            plain = deposit_kernel.deposit_plain(pos, m, ng, **kw)
+            lib = pm._scatter(deposit_kernel._corners(pos, ng, **kw), m, ng)
+            torch.cuda.synchronize()
+            label = f"deposit {name} N={n} {boundary}"
+            if not torch.isfinite(got).all():
+                fail(f"{label}: non-finite grid")
+            if not torch.equal(got, plain):
+                fail(f"{label}: the kernel differs from deposit_plain")
+            if not torch.equal(got, again):
+                fail(f"{label}: two launches differ")
+            r_lib = rel_err(got, lib)
+            if r_lib > 1e-6:
+                fail(f"{label}: {r_lib:.3e} from _scatter's grid")
+            del again, plain, lib
+            t = (time_ms(lambda: deposit_kernel.deposit(pos, m, ng, **kw)),
+                 time_ms(lambda: deposit_kernel.deposit_plain(pos, m, ng,
+                                                              **kw), reps=1),
+                 time_ms(lambda: pm._scatter(deposit_kernel._corners(
+                     pos, ng, **kw), m, ng)))
+            b = bound(OPS_DEPOSIT * n, 16 * n + 4 * ng ** 3)
+            bounds[(name, boundary)] = b
+            ms[label] = t
+            print(f"{label}: kernel equals deposit_plain and itself bit for "
+                  f"bit, {r_lib:.3e} from _scatter (relative norm); kernel "
+                  f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, _scatter {t[2]:.4f} "
+                  f"ms per call; bound {b[0]:.4f} ms ({b[1]}) {tag}",
+                  flush=True)
+        del pos, mass
+    row = f"deposit uniform N={N_UNIFORM}"
+    ms["deposit"], ms["deposit_plain"], ms["deposit_library"] = \
+        ms[f"{row} open"]
+    ms["deposit_periodic"] = ms[f"{row} periodic"][0]
+    return bounds[("uniform", "open")]
 
 
 def bf16_gate(label: str, bf16, f32, tag: str) -> None:
@@ -2080,6 +2171,8 @@ def main() -> int:
     lap("21")
     vjp_work = grad_phases(dev, tag, err, ms, launches)
     lap("22")
+    deposit_bound = deposit_phases(dev, tag, err, ms)
+    lap("23")
 
     # The bounds, from this run's inputs: the least work of each function,
     # whatever layout its kernel takes.  Kernel A and the columns block
@@ -2107,6 +2200,7 @@ def main() -> int:
     # The VJP: the pairs this run's data needs in the layout it runs and in
     # the cheapest (pallas_sym); bytes: the tables and the cotangent read,
     # gp and gm written, the worklist read.
+    bounds_ms["deposit"] = deposit_bound
     bounds_ms["sr_vjp"] = min(
         bound(inside * OPS_SR_VJP + (pairs - inside) * OPS_SR_TEST
               + react * OPS_SR_VJP_REACTION, 44 * nslots + 8 * n_e)
@@ -2140,13 +2234,21 @@ def main() -> int:
          "pallas layout)", "sr_vjp.cu",
          "nbody_tpu/ops/pm.py:1844 _sr_ad_bwd (XLA; no Pallas kernel)",
          "sr_vjp"),
+        ("deposit_zero_kernel+deposit_mass_kernel+deposit_cic_kernel+"
+         "deposit_convert_kernel (CIC deposit in 64-bit fixed point, uniform "
+         "N=1048576, open)", "deposit.cu",
+         "none: nbody_tpu/ops/pm.py deposits with an XLA scatter-add",
+         "deposit"),
     ]
+    launches["deposit"] = launches["deposit_p3m"]
     kernels = [{
         "name": name, "route": "cuda", "source": f"nbody_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": launches[key],
         "max_abs_err": err[key], "ms": ms[key], "plain_ms": ms[f"{key}_plain"],
         "bound_ms": bounds_ms[key][0], "bound_by": bounds_ms[key][1],
-        "library_ms": None,  # no one PyTorch call computes any of them
+        # No one PyTorch call computes any of them but the deposit:
+        # _scatter's accumulating index_put_, which it replaces.
+        "library_ms": ms.get(f"{key}_library"),
         # ms is a wrapper call's; where its Python outlasts its kernels, the
         # device time of the kernels alone goes beside it.
         **({"device_ms": ms[f"{key}_device"]} if f"{key}_device" in ms
@@ -2166,6 +2268,9 @@ def main() -> int:
             "rollout_ms": ms["rollout_p3m"],
             "skipped_share": ms["sr_vjp_skipped"],
             "peak_mb": ms["sr_vjp_peak_mb"]} if key == "sr_vjp" else {}),
+        # The deposit on the periodic row's grid (bodies wrapped).
+        **({"periodic_ms": ms["deposit_periodic"]} if key == "deposit"
+           else {}),
     } for name, src, replaces, key in rows]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -40,6 +40,12 @@ What differs from the JAX package:
   (m, m, m//2+1).  A periodic force factor i k_j has its Nyquist entry
   zeroed on its own axis: JAX's ``ifftn(...).real`` drops that entry (its
   Hermitian part is zero), which a half-spectrum ``irfftn`` cannot do.
+* The CIC deposit: on a CUDA tensor that autograd does not record, the
+  hand kernel of ``csrc/deposit.cu`` (``ops/deposit_kernel.py``), which
+  sums each cell's float32 contributions in 64-bit fixed point, so the
+  grid repeats bit for bit whatever the bodies' order; under autograd and
+  on the CPU ``_scatter``'s accumulating ``index_put_``, the JAX package's
+  scatter-add (``_hand_deposit`` chooses).
 * The overflow ``lax.cond`` is a Python branch on ``bool(has_over)``: one
   host sync per P3M step (``sync.p3m_overflow``, counted in
   ``utils/spans.counts``).  Computing both branches instead would cost
@@ -243,8 +249,21 @@ def _interpolate(grids, corners, n: int):
     return out
 
 
+def _hand_deposit(*tensors) -> bool:
+    """Whether the deposit takes the hand kernel (``ops/deposit_kernel.py``):
+    on the card, where autograd records nothing of it.  Under autograd, and
+    on the CPU, ``_scatter`` deposits, as the JAX package's scatter-add."""
+    return tensors[0].is_cuda and not (
+        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
 def _deposit(pos, mass, lo, inv_h, ng: int):
     """CIC scatter of masses onto the (ng, ng, ng) grid over the box."""
+    if _hand_deposit(pos, mass, lo, inv_h):
+        from . import deposit_kernel
+
+        return deposit_kernel.deposit(pos.contiguous(), mass.contiguous(), ng,
+                                      lo=lo, inv_h=inv_h)
     return _scatter(_corner_iter(*_cic_weights(pos, lo, inv_h, ng), ng),
                     mass, ng)
 
@@ -780,6 +799,11 @@ def _periodic_corners(pos, box, ng: int):
 
 def _deposit_periodic(pos, mass, box, ng: int):
     """CIC scatter onto the periodic (ng, ng, ng) grid (corners wrap)."""
+    if _hand_deposit(pos, mass):
+        from . import deposit_kernel
+
+        return deposit_kernel.deposit(pos.contiguous(), mass.contiguous(), ng,
+                                      box=box)
     return _scatter(_periodic_corners(pos, box, ng), mass, ng)
 
 

@@ -41,7 +41,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C function -> argument types; every function returns an int, a
-# cudaError_t but for nbt_tiled_targets, nbt_sr_unit and nbt_sr_vjp_unit.
+# cudaError_t but for nbt_tiled_targets, nbt_sr_unit, nbt_sr_vjp_unit and
+# nbt_deposit_header.
 SIGNATURES = {
     # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, bf16, stream
     "nbt_tiled_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P),
@@ -75,6 +76,10 @@ SIGNATURES = {
     "nbt_ring_accel": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P),
     # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, stream
     "nbt_mxu_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _P),
+    # pos, mass, n, lo, inv_h, box, ng, scratch, out, stream
+    "nbt_deposit": (_P, _P, _I, _P, _P, _F, _I, _P, _P, _P),
+    # -> the int64 words of nbt_deposit's scratch past the ng^3 cells
+    "nbt_deposit_header": (),
 }
 
 

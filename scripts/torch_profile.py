@@ -28,9 +28,16 @@ env for the mesh tiers) and prints:
 * for the mesh cells, each stage of one step alone (CUDA events, mean of
   10): the block env (box and kernel spectra), the robust box, the deposit,
   the forward transform, the three inverse transforms, the gather, the
-  P3M pack, the worklist and the short-range kernel; and the deposit as
-  an atomic ``index_add_`` beside the port's ``index_put_`` (not used by
-  the port: its sums come in another order each run);
+  P3M pack, the worklist and the short-range kernel; and beside the
+  deposit (the fixed-point kernel, ``csrc/deposit.cu``) the deposit under
+  autograd (``_scatter``'s accumulating ``index_put_``) and an atomic
+  ``index_add_`` (not used by the port: its sums come in another order
+  each run);
+* for the mesh cells, the deposit kernel's launches a force call (one a
+  step: ``deposit_kernel.launches`` over the profiled blocks; one more a
+  step in which a body overflows its cell), and for differentiable P3M its
+  launches in a forward (none: autograd records the deposit, so
+  ``_scatter`` runs);
 * for the P3M cells, the worklist's runs (one a target slab) and the
   short-range kernel's time in every layout, each at its own suggested
   plan.
@@ -191,6 +198,9 @@ def mesh_stages(label: str, runner) -> None:
         "env": cuda_ms(lambda: env_fn(pos, mass), 3),
         "box": cuda_ms(lambda: pm._robust_box(pos, mass)),
         "deposit": cuda_ms(lambda: pm._deposit(pos, mass, lo, inv_h, grid)),
+        "deposit by index_put_ (_scatter)": cuda_ms(lambda: pm._scatter(
+            pm._corner_iter(*pm._cic_weights(pos, lo, inv_h, grid), grid),
+            mass, grid)),
         "deposit by index_add_": cuda_ms(deposit_index_add),
         "rfftn": cuda_ms(lambda: torch.fft.rfftn(rho, s=(m, m, m))),
         "3 irfftn": cuda_ms(lambda: pm._inverse(
@@ -272,6 +282,8 @@ def periodic_mesh_stages(label: str, runner) -> None:
         "wrap": cuda_ms(lambda: pm._wrap_box(pos, box)),
         "deposit": cuda_ms(lambda: pm._deposit_periodic(pos, mass, box,
                                                         grid)),
+        "deposit by index_put_ (_scatter)": cuda_ms(lambda: pm._scatter(
+            pm._periodic_corners(pos, box, grid), mass, grid)),
         "rfftn": cuda_ms(lambda: torch.fft.rfftn(rho)),
         "3 irfftn": cuda_ms(lambda: pm._periodic_inverse(
             [rho_hat * k for k in spectra], grid)),
@@ -313,6 +325,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from nbody_tpu_torch import SimConfig
+    from nbody_tpu_torch.ops import deposit_kernel
     from nbody_tpu_torch.simulation import _DeviceRunner
     from nbody_tpu_torch.utils import spans
 
@@ -355,15 +368,18 @@ def main() -> int:
         mesh = runner._mesh_env_fn() is not None
         periodic = runner.cfg.pm_boundary == "periodic"
         syncs = spans.counts["host_syncs"]
+        deposit_kernel.launches = 0
         try:
             profile_block(f"{label}, {steps} steps", runner._block_for(steps),
                           runner.state, steps, stages=mesh)
             syncs = spans.counts["host_syncs"] - syncs
             if mesh:
-                # Seven blocks: the warm one, five timed, one profiled.
+                # Seven blocks: the warm one, five timed, one profiled; one
+                # force call a step (Euler).
                 print(f"{label}: {syncs / (7 * steps):.3f} host syncs a step "
                       "(the block's, its KE read and health check not "
-                      "included)", flush=True)
+                      f"included); {deposit_kernel.launches / (7 * steps):.3f}"
+                      " deposit kernel launches a force call", flush=True)
                 if periodic and runner._sr_health:
                     images = spans.counts["ghost_images"]
                     full = spans.counts["health_full_bins"]
@@ -392,7 +408,7 @@ def grad_cells() -> None:
     from nbody_tpu_torch.models import distributions
     from nbody_tpu_torch.models.gravity import make_accel_fn
     from nbody_tpu_torch.models.rollout import make_rollout_fn
-    from nbody_tpu_torch.ops import pm
+    from nbody_tpu_torch.ops import deposit_kernel, pm
 
     dev = torch.device("cuda", 0)
     pos, vel, mass = (torch.tensor(a, device=dev)
@@ -413,7 +429,11 @@ def grad_cells() -> None:
             q = p.clone().requires_grad_(True)
             return torch.mean(fn(q, m) ** 2)
 
+        deposit_kernel.launches = 0
         profile_block(f"{label}, forward", forward, None, 1, stages=True)
+        # Seven forwards: the warm one, five timed, one profiled.
+        print(f"{label}: {deposit_kernel.launches / 7:.3f} deposit kernel "
+              "launches a forward", flush=True)
         profile_block(f"{label}, forward and backward",
                       lambda s: forward(s).backward(), None, 1, stages=True)
         if bkw:

@@ -23,7 +23,10 @@ sum; below N=2000 the expansion's own error allows 5e-5), and a banded
 pair-symmetric or two-sided sweep equals the one-band sweep bit for bit.
 The short-range sweep's VJP kernel holds 1e-5 of the largest gp and gm and
 1e-4 of grc2 against its plain version, and differentiable P3M's gradient
-through it 1e-4 of the largest against the plain backward's.
+through it 1e-4 of the largest against the plain backward's.  The CIC
+deposit kernel sums in fixed point, so it equals its plain version bit for
+bit, and a P3M force call and block through it lie within 1e-6 relative
+norm of the same through ``pm._scatter`` (float32 sums, sorted).
 Kernel A, the fused columns block and the ring run one source loop
 (``nbt::tiled_source_sweep``), so an Euler columns block equals the
 unfused block over Kernel A bit for bit; Kernel B, the two-sided sweep and
@@ -47,6 +50,7 @@ from nbody_tpu_torch.models import distributions
 from nbody_tpu_torch.models.gravity import make_accel_fn, make_block_fn
 from nbody_tpu_torch.models.rollout import make_rollout_fn
 from nbody_tpu_torch.ops import (
+    deposit_kernel,
     fused_block,
     grad,
     mxu_kernel,
@@ -876,3 +880,107 @@ def test_differentiable_p3m_on_card(cuda_device, monkeypatch):
     scale = float(grads[1].abs().max())
     assert scale > 0
     assert float((grads[0] - grads[1]).abs().max()) <= 1e-4 * scale
+
+
+def _deposit_state(kind, n, device):
+    """(pos, mass) on the card: the reference initial conditions (uniform)
+    or the Plummer sphere of the P3M gate, the first ``n`` bodies."""
+    if kind == "uniform":
+        st = make_state(1048576, device=device)
+        return st.pos[:, :n].contiguous(), st.mass[:n].contiguous()
+    pos, _, mass = distributions.plummer(n, seed=7)
+    return torch.tensor(pos, device=device), torch.tensor(mass, device=device)
+
+
+def _deposit_args(pos, mass, boundary, ng=128):
+    """The solver's deposit arguments: the open mesh over the state's
+    robust box and the in-box masses, or the periodic box of edge 1."""
+    if boundary == "periodic":
+        return mass, dict(box=1.0)
+    mesh = pm._OpenMesh(ng, *pm._robust_box(pos, mass))
+    return mesh.bodies(pos, mass, pos)[1], dict(lo=mesh.lo, inv_h=mesh.inv_h)
+
+
+@pytest.mark.parametrize("boundary", ["open", "periodic"])
+@pytest.mark.parametrize("kind,n", [("uniform", 1048576), ("plummer", 262144),
+                                    ("uniform", 300001)])
+def test_deposit_kernel_matches_plain(cuda_device, kind, n, boundary):
+    """The fixed-point deposit kernel equals its plain version bit for bit
+    and repeats bit for bit; it lies within 1e-6 relative norm of
+    ``_scatter``'s grid."""
+    pos, mass = _deposit_state(kind, n, cuda_device)
+    m, kw = _deposit_args(pos, mass, boundary)
+    before = deposit_kernel.launches
+    got = deposit_kernel.deposit(pos, m, 128, **kw)
+    again = deposit_kernel.deposit(pos, m, 128, **kw)
+    assert deposit_kernel.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, deposit_kernel.deposit_plain(pos, m, 128, **kw))
+    scatter = pm._scatter(deposit_kernel._corners(pos, 128, **kw), m, 128)
+    assert _rel(got, scatter) <= 1e-6
+    assert float(got.double().sum()) == pytest.approx(
+        float(m.double().sum()), rel=1e-6)
+
+
+@pytest.mark.parametrize("boundary", ["open", "periodic"])
+def test_p3m_through_the_deposit_kernel_is_scatters(cuda_device, monkeypatch,
+                                                    boundary):
+    """A force call and a 4-step block of the benchmark's N=1048576 P3M
+    cells (reference initial conditions, dt 0.001, ng 128, cutoff 4,
+    capacity 16384 open and 128 periodic) through the deposit kernel
+    against the same through ``_scatter``: within 1e-6 relative norm; one
+    kernel launch a force call (no body overflows its cell)."""
+    periodic = boundary == "periodic"
+    cfg = SimConfig(n=1048576, nsteps=4, sfreq=4, kernel="p3m", dt=0.001,
+                    pm_capacity=128 if periodic else 16384,
+                    **(dict(pm_boundary="periodic", pm_box=1.0)
+                       if periodic else {}))
+    runner = _DeviceRunner(cfg)
+    runner.prepare()
+    try:
+        st = runner.state
+        block, accel = runner._block_for(4), runner.accel_fn
+        results = []
+        for hand in (True, False):
+            if not hand:
+                monkeypatch.setattr(pm, "_hand_deposit", lambda *t: False)
+            before = deposit_kernel.launches
+            a = accel(st.pos, st.mass)
+            new, _ = block(st)
+            torch.cuda.synchronize()
+            results.append((a, new.vel - st.vel,
+                            deposit_kernel.launches - before))
+    finally:
+        runner.finish()
+    (a_k, dv_k, n_k), (a_s, dv_s, n_s) = results
+    assert (n_k, n_s) == (5, 0)
+    assert _rel(a_k, a_s) <= 1e-6
+    assert _rel(dv_k, dv_s) <= 1e-6
+
+
+def test_deposit_kernel_launches_a_force_call(cuda_device):
+    """One deposit launch a force call in the forward blocks of open and
+    periodic P3M and of PM, as many as the short-range kernel's (no body
+    overflows); none in an 8-step P3M rollout gradient, where autograd
+    records the deposit (``_scatter``)."""
+    for kw in (dict(distribution="plummer", dt=0.01, seed=7),
+               dict(pm_boundary="periodic", pm_box=1.0, dt=0.01)):
+        for kernel in ("p3m", "pm"):
+            sr_kernel.launches = deposit_kernel.launches = 0
+            run(SimConfig(n=4096, nsteps=8, sfreq=4, kernel=kernel,
+                          pm_capacity=4096, **kw), quiet=True)
+            assert deposit_kernel.launches == 12
+            assert sr_kernel.launches == (12 if kernel == "p3m" else 0)
+    pos, vel, mass = (torch.tensor(a, device=cuda_device)
+                      for a in distributions.plummer(8192, seed=3))
+    plan = pm.suggest_sr_plan(pos, mass, 64, 4, differentiable=True)
+    accel = make_accel_fn("p3m", differentiable=True, grid=64, **plan)
+    deposit_kernel.launches = 0
+    x0, v0 = pos.clone().requires_grad_(True), vel.clone().requires_grad_(True)
+    xk, _ = make_rollout_fn(accel, 0.01, 8)(x0, v0, mass)
+    gx, gv = torch.autograd.grad((xk * xk).sum(), (x0, v0))
+    assert deposit_kernel.launches == 0
+    assert bool(torch.isfinite(gx).all() and torch.isfinite(gv).all())
+    with torch.no_grad():
+        accel(x0, mass)
+    assert deposit_kernel.launches == 1
