@@ -324,10 +324,11 @@ def _inverse(specs, ng: int):
 
 
 def _pm_force_grids(rho_hat, h, ng: int, spectra=None):
-    """Plain-PM acceleration grids a(c) = -(rho * f)(c) per component."""
+    """Plain PM's three spectrum products, the half spectra of the
+    acceleration grids a(c) = -(rho * f)(c) per component (``_inverse``
+    makes the grids)."""
     kx, ky, kz = spectra or _force_kernel_spectra(h, ng)
-    return _stage("mesh.ifft", _inverse,
-                  (rho_hat * kx, rho_hat * ky, rho_hat * kz), ng)
+    return rho_hat * kx, rho_hat * ky, rho_hat * kz
 
 
 def _p3m_force_grids(rho_hat, rho_over_hat_fn, h, ng: int, rc2,
@@ -1054,10 +1055,16 @@ class _OpenMesh:
 
     def grids(self, rho_hat, rc2=None, rho_over_hat_fn=None,
               has_over=False):
+        """The force grids inside ``mesh.grids``, which holds the spectrum
+        products; plain PM's inverse transforms follow it in ``mesh.ifft``,
+        P3M's nest inside it."""
         if rc2 is None:
-            return _pm_force_grids(rho_hat, self.h, self.ng, self.spectra)
-        return _p3m_force_grids(rho_hat, rho_over_hat_fn, self.h, self.ng,
-                                rc2, has_over, self.spectra)
+            specs = _stage("mesh.grids", _pm_force_grids, rho_hat, self.h,
+                           self.ng, self.spectra)
+            return _stage("mesh.ifft", _inverse, specs, self.ng)
+        return _stage("mesh.grids", _p3m_force_grids, rho_hat,
+                      rho_over_hat_fn, self.h, self.ng, rc2, has_over,
+                      self.spectra)
 
     def gather(self, grids, pos):
         return _stage("mesh.gather", _gather, grids, pos, self.lo,

@@ -34,7 +34,8 @@ The span names, from the entry point down:
 * integrator (``models/integrators.py``): ``accel`` around each force
   evaluation, ``mesh.env`` around the block's mesh environment;
 * mesh solver (``ops/pm.py``): ``mesh.box``, ``mesh.deposit``,
-  ``mesh.fft``, ``mesh.ifft``, ``mesh.gather``, and on the periodic path
+  ``mesh.fft``, ``mesh.grids`` (the open boundary's spectrum products),
+  ``mesh.ifft``, ``mesh.gather``, and on the periodic path
   ``mesh.ghosts``, each opened around the call of its function, not
   inside it (``pm._stage``): the profiler credits a kernel to the
   innermost range only, so a range a caller wraps around such a function

@@ -16,7 +16,8 @@ env for the mesh tiers) and prints:
   stage inside the profiled block, per step: each kernel counts for the
   innermost of the program's own ``nbt.*`` spans
   (``nbody_tpu_torch/utils/spans.py``: ``mesh.env``, ``mesh.box``,
-  ``mesh.deposit``, ``mesh.fft``, ``mesh.ifft``, ``mesh.gather``,
+  ``mesh.deposit``, ``mesh.fft``, ``mesh.grids`` (the open boundary's
+  spectrum products), ``mesh.ifft``, ``mesh.gather``,
   ``mesh.ghosts``, ``p3m.bin``, ``p3m.worklist``, ``sr``, the backward's
   ``sr.vjp``, and ``accel`` and ``block`` for what no stage holds; "none"
   for the rest of a backward) whose device

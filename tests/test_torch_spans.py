@@ -22,8 +22,8 @@ PACKAGE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "nbody_tpu_torch")
 
 MESH_STAGES = ("nbt.mesh.box", "nbt.mesh.deposit", "nbt.mesh.fft",
-               "nbt.mesh.ifft", "nbt.mesh.gather", "nbt.p3m.bin",
-               "nbt.p3m.worklist", "nbt.sr")
+               "nbt.mesh.grids", "nbt.mesh.ifft", "nbt.mesh.gather",
+               "nbt.p3m.bin", "nbt.p3m.worklist", "nbt.sr")
 
 
 @pytest.fixture
@@ -45,6 +45,13 @@ def _runner(**kw) -> _DeviceRunner:
 
 def _p3m(**kw) -> _DeviceRunner:
     return _runner(n=512, nsteps=8, sfreq=4, kernel="p3m", pm_grid=16,
+                   distribution="plummer", dt=0.01, **kw)
+
+
+def _pm(**kw) -> _DeviceRunner:
+    """Plain PM on a Plummer sphere: bodies outside the box take the far
+    field."""
+    return _runner(n=512, nsteps=8, sfreq=4, kernel="pm", pm_grid=16,
                    distribution="plummer", dt=0.01, **kw)
 
 
@@ -142,6 +149,92 @@ def test_p3m_block_spans():
     assert len(reads) == syncs == 3
 
 
+def test_pm_block_spans():
+    """Plain PM: every mesh stage inside each force call, the spectrum
+    products' ``mesh.grids`` beside the inverse transforms' ``mesh.ifft``;
+    a block syncs twice (the env's box quantiles, the KE) and has no
+    health check."""
+    runner = _pm()
+    events, syncs = _traced(lambda: runner.run_block(4))
+    accels = [e for e in events if e[2] == "nbt.accel"]
+    assert len(accels) == 4
+    # A force call opens mesh.box twice: the box and the moments, then
+    # the far field.
+    for stage, a_call in (("nbt.mesh.box", 2), ("nbt.mesh.deposit", 1),
+                          ("nbt.mesh.fft", 1), ("nbt.mesh.grids", 1),
+                          ("nbt.mesh.ifft", 1), ("nbt.mesh.gather", 1)):
+        got = [e for e in events if e[2] == stage]
+        assert len(got) == 4 * a_call, stage
+        assert all(_inside(e, accels) for e in got), stage
+    grids = [e for e in events if e[2] == "nbt.mesh.grids"]
+    iffts = [e for e in events if e[2] == "nbt.mesh.ifft"]
+    assert not any(_inside(e, grids) for e in iffts)
+    assert sorted(e[2] for e in events if e[2].startswith("nbt.sync.")) == [
+        "nbt.sync.box_quantiles", "nbt.sync.ke"]
+    assert syncs == 2
+    events, syncs = _traced(runner.check_sr_health)
+    assert events == [] and syncs == 0
+
+
+def _bare_grids_stage(monkeypatch):
+    """``pm._stage`` with the ``mesh.grids`` span left out: that name calls
+    its function bare."""
+    from nbody_tpu_torch.ops import pm
+
+    stage = pm._stage
+
+    def bare(name, fn, *args, **kw):
+        if name == "mesh.grids":
+            return fn(*args, **kw)
+        return stage(name, fn, *args, **kw)
+
+    monkeypatch.setattr(pm, "_stage", bare)
+
+
+@pytest.mark.parametrize("kind", ["pm", "p3m", "p3m_overflow"])
+def test_grids_span_changes_no_force_or_sync(one_thread, monkeypatch, kind):
+    """The ``mesh.grids`` span, recording under a profiler, leaves a force
+    call's accelerations (and plain PM's gradient) bit for bit and its host
+    syncs as they are without it; P3M with every body binned and with
+    cells overflowing (the complement deposit inside the span)."""
+    from nbody_tpu_torch.init import make_state
+    from nbody_tpu_torch.ops import pm
+
+    state = make_state(512, distribution="plummer", seed=3, device="cpu")
+    pos, mass = state.pos, state.mass
+    if kind == "pm":
+        def call(p):
+            return pm.accelerations(p, mass, 16)
+    else:
+        capacity = 2 if kind == "p3m_overflow" else 512
+        assert (float(pm.cell_overflow_fraction(pos, mass, 16, 4, capacity))
+                > 0) == (kind == "p3m_overflow")
+        plan = pm.suggest_sr_plan(pos, mass, 16, 4, capacity=capacity)
+
+        def call(p):
+            return pm.p3m_accelerations(p, mass, 16, 4, **plan)
+
+    def run():
+        before = spans.counts["host_syncs"]
+        p = pos.clone().requires_grad_(kind == "pm")
+        acc = call(p)
+        grad = torch.autograd.grad(acc.square().sum(), p)[0] \
+            if kind == "pm" else None
+        return acc.detach(), grad, spans.counts["host_syncs"] - before
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        acc, grad, syncs = run()
+    assert [e.name for e in prof.events()].count("nbt.mesh.grids") == 1
+    with monkeypatch.context() as m:
+        _bare_grids_stage(m)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            acc0, grad0, syncs0 = run()
+    assert "nbt.mesh.grids" not in [e.name for e in prof.events()]
+    assert torch.equal(acc, acc0) and syncs == syncs0 > 0
+    if grad is not None:
+        assert torch.equal(grad, grad0)
+
+
 def test_periodic_p3m_block_syncs_match_the_counter():
     runner = _runner(n=512, nsteps=8, sfreq=4, kernel="p3m", pm_grid=16,
                      pm_boundary="periodic", pm_box=1.0, dt=0.01)
@@ -222,7 +315,8 @@ def test_spans_sit_around_the_wrapped_stage_functions():
     kernels."""
     import importlib
 
-    direct, p3m = _runner(n=256, nsteps=50, sfreq=50), _p3m()
+    direct, p3m, plain = (_runner(n=256, nsteps=50, sfreq=50), _p3m(),
+                          _pm())
     periodic = _runner(n=512, nsteps=8, sfreq=4, kernel="p3m", pm_grid=16,
                        pm_boundary="periodic", pm_box=1.0, dt=0.01)
     saved = []
@@ -243,11 +337,12 @@ def test_spans_sit_around_the_wrapped_stage_functions():
                 where)
             saved.append((owner, attr, getattr(owner, attr)))
             setattr(owner, attr, ranged(label, saved[-1][2]))
-        for runner in (direct, p3m, periodic):
+        for runner in (direct, p3m, plain, periodic):
             runner._blocks.clear()
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             direct.run_block(50)
             p3m.run_block(4)
+            plain.run_block(4)
             periodic.run_block(4)
             periodic.check_sr_health()
     finally:
@@ -260,6 +355,12 @@ def test_spans_sit_around_the_wrapped_stage_functions():
     inner = [e for e in events if e[2].startswith("nbt.")
              and not e[2].startswith("nbt.sync.")]
     assert not [e[2] for e in inner if _inside(e, outer)]
+    # Plain PM's spectrum products: the program's span opens around the
+    # wrapped function, one a force call.
+    wrapped = [e for e in outer if e[2] == "outer:mesh.grids"]
+    spans_grids = [e for e in inner if e[2] == "nbt.mesh.grids"]
+    assert len(wrapped) == 4
+    assert all(_inside(e, spans_grids) for e in wrapped)
 
 
 def test_profile_dir_holds_the_setup_spans(tmp_path):
