@@ -99,9 +99,10 @@ Phases, each printing what it found; any failure exits non-zero:
     other kernel, and prints its ms per step.
 14. ``kernel="p3m"`` and ``kernel="pm"`` at N=1048576 on the reference
     initial conditions, 8 steps, sfreq 4: finite energies, ms per step and
-    the short-range kernel's launches (12 and 0), and the deposit kernel's
+    the short-range kernel's launches (12 and 0), the deposit kernel's
     (at least 12: one a force call, and one more a step in which a body
-    overflows its cell).
+    overflows its cell) and the far field's target kernel's (12: one a
+    force call).
 15. The particle decomposition's kernels against their plain versions: the
     two-sided sweep at Nt = Ns = 4096 and at 4096 x 2048, and at shapes
     from 512 x 512 to 16384 x 8192 in blocks of 128 (R = 2) and 1024 x 512
@@ -234,6 +235,18 @@ Phases, each printing what it found; any failure exits non-zero:
     ``_scatter`` (the accumulating ``index_put_`` it replaces off autograd:
     the row's ``library_ms``), against the bound (16 B a body read, the
     grid written).
+24. The open far field's kernels (``csrc/far_field.cu``) at the solver's
+    box and in-box masses, on the reference initial conditions at
+    N=1048576 (every body inside the box) and the Plummer sphere of the
+    P3M gate (N=262144, bodies outside it), same-set: the moments table
+    within one float32 ulp of ``moments_plain``'s and the target pass
+    equal to the nine-call chain given that table bit for bit, the whole
+    far field equal to the chain's bit for bit at N=1048576, two calls
+    bit for bit; the per-call time of the two kernels (wrapper calls, and
+    device time alone from a CUDA graph), of ``far_field_plain`` and of
+    the nine-call chain that they replace off autograd (the row's
+    ``library_ms``), against the bound (20 B a source read, 28 B a target
+    read and 12 B written).
 
 Each phase's seconds are printed after it.
 
@@ -314,6 +327,12 @@ OPS_SR_VJP_REACTION = 13
 # clamps, 1 - frac), 4 products wx wy, 8 by wz, 8 by m.  Its bytes: x, y, z
 # and m read, the ng^3 fp32 grid written.
 OPS_DEPOSIT = 47
+# The far field: a source's moments 8 (the out-of-box mass, 3 compares, 4
+# for its group), a target's 9 monopoles at 21 each (3 sub, 5 |d|^2 + eps^2,
+# rsqrt, 2 cube, 6 products, 3 adds).  Its bytes: a source's x, y, z, mass
+# and in-box mass read, a target's x, y, z, mask and acc read, acc written.
+OPS_FAR_FIELD_SOURCE = 8
+OPS_FAR_FIELD_TARGET = 189
 # The VJP kernel against its plain version: gp and gm as a share of each
 # one's largest (fp32 sums in other orders, rsqrt with a Newton step), grc2
 # relative (a sum over every pair); the full and rollout gradients, the
@@ -449,6 +468,7 @@ def mesh_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
     from nbody_tpu_torch.models import distributions
     from nbody_tpu_torch.ops import (
         deposit_kernel,
+        far_field_kernel,
         fused_block,
         pm,
         sr_kernel,
@@ -583,20 +603,25 @@ def mesh_phases(dev, tag: str, err: dict, ms: dict, launches: dict) -> dict:
 
     # 14. The uniform and mesh-only rows.
     for kernel, want in (("p3m", 12), ("pm", 0)):
-        for mod in (*counters, deposit_kernel):
+        for mod in (*counters, deposit_kernel, far_field_kernel):
             mod.launches = 0
         res = run(SimConfig(n=N_UNIFORM, nsteps=8, sfreq=4, kernel=kernel),
                   quiet=True)
         counts = tuple(mod.launches for mod in counters)
         launches[f"deposit_{kernel}"] = deposit_kernel.launches
+        launches[f"far_field_{kernel}"] = far_field_kernel.launches
         kes = [ke for _, ke in res.kenergy_trace]
         step_ms = [1e3 * b / 4 for (_, _, _, b, _) in res.samples]
         print(f"{kernel} run N={N_UNIFORM} reference, 8 steps: sr/tiled/sym/"
               f"fused/vjp launches {counts}, deposit launches "
-              f"{deposit_kernel.launches}; ms per step "
+              f"{deposit_kernel.launches}, far-field launches "
+              f"{far_field_kernel.launches}; ms per step "
               f"{', '.join(f'{t:.3f}' for t in step_ms)} {tag}", flush=True)
         if counts != (want, 0, 0, 0, 0):
             fail(f"{kernel} N={N_UNIFORM} launches {counts}")
+        if far_field_kernel.launches != 12:
+            fail(f"{kernel} N={N_UNIFORM}: {far_field_kernel.launches} "
+                 "far-field launches, not one a force call")
         if deposit_kernel.launches < 12:  # a step that overflows adds one
             fail(f"{kernel} N={N_UNIFORM}: {deposit_kernel.launches} deposit "
                  "launches, fewer than one a force call")
@@ -1579,6 +1604,100 @@ def deposit_phases(dev, tag: str, err: dict, ms: dict) -> dict:
     return bounds[("uniform", "open")]
 
 
+def far_field_phases(dev, tag: str, err: dict, ms: dict) -> dict:
+    """Phase 24; fills ``err`` and ``ms`` and returns the far field's bound
+    at the row's state (uniform N=1048576)."""
+    import numpy as np
+    import torch
+
+    from nbody_tpu_torch import make_state
+    from nbody_tpu_torch.models import distributions
+    from nbody_tpu_torch.ops import far_field_kernel as ffk
+    from nbody_tpu_torch.ops import pm
+
+    ref = make_state(N_UNIFORM, device=dev)
+    pos_p, _, mass_p = distributions.plummer(P3M_GATE["n"],
+                                             seed=P3M_GATE["seed"])
+    states = {"uniform": (ref.pos, ref.mass),
+              "plummer": (torch.tensor(pos_p, device=dev),
+                          torch.tensor(mass_p, device=dev))}
+    err["far_field"] = 0.0
+    bounds = {}
+    for name, (pos, mass) in states.items():
+        n = pos.shape[1]
+        lo_box, hi_box = pm._robust_box(pos, mass)
+        in_tgt = pm._inside(pos, lo_box, hi_box)
+        m_in = mass * in_tgt
+        acc = torch.randn(pos.shape, device=dev,
+                          generator=torch.Generator(dev).manual_seed(5))
+        args = (pos, mass, m_in, lo_box, hi_box)
+
+        def kernels():
+            return ffk.monopoles(pos, ffk.moments(*args), acc, in_tgt)
+
+        def chain():  # the nine-call chain, on the card too
+            hand = pm._hand_far_field
+            pm._hand_far_field = lambda *t: False
+            try:
+                return pm._monopoles(acc, pos, in_tgt,
+                                     pm._outlier_moments(*args))
+            finally:
+                pm._hand_far_field = hand
+
+        table, again = ffk.moments(*args), ffk.moments(*args)
+        plain = ffk.moments_plain(*args)
+        got = ffk.monopoles(pos, table, acc, in_tgt)
+        twice = ffk.monopoles(pos, again, acc, in_tgt)
+        given = ffk.monopoles_plain(pos, table, acc, in_tgt)
+        whole, lib = ffk.far_field_plain(*args, pos, in_tgt, acc), chain()
+        torch.cuda.synchronize()
+        label = f"far field {name} N={n}"
+        ulp = torch.tensor(np.spacing(plain.abs().cpu().numpy()), device=dev)
+        if not torch.isfinite(got).all():
+            fail(f"{label}: non-finite far field")
+        if not bool(((table - plain).abs() <= ulp).all()):
+            fail(f"{label}: the table is more than one ulp from "
+                 f"moments_plain's:\n{table}\n{plain}")
+        if not (torch.equal(table, again) and torch.equal(got, twice)):
+            fail(f"{label}: two calls differ")
+        if not torch.equal(got, given):
+            fail(f"{label}: the target kernel differs from the chain given "
+                 "the table")
+        if name == "uniform" and not torch.equal(got, lib):
+            fail(f"{label}: the far field differs from the chain's with "
+                 "every body inside the box")
+        # The far field's own part (every in-box target's acc taken off),
+        # relative norm; 0 where the two are equal (no body outside).
+        base = torch.where(in_tgt > 0, acc, 0.0)
+        r_plain, r_lib = (0.0 if torch.equal(got, other) else
+                          rel_err(got - base, other - base)
+                          for other in (whole, lib))
+        err["far_field"] = max(err["far_field"], r_plain)
+        del again, twice, given, whole, lib, base
+        t = (time_ms(kernels), device_ms(kernels),
+             time_ms(lambda: ffk.far_field_plain(*args, pos, in_tgt, acc),
+                     reps=1),
+             time_ms(chain))
+        b = bound(OPS_FAR_FIELD_SOURCE * n + OPS_FAR_FIELD_TARGET * n,
+                  20 * n + 40 * n)
+        bounds[name] = b
+        ms[label] = t
+        print(f"{label}: table within one ulp of moments_plain's, targets "
+              f"equal to the chain given it, each twice bit for bit; "
+              f"{r_plain:.3e} from far_field_plain, {r_lib:.3e} from the "
+              f"chain (relative norm of the far field); rows M "
+              f"{', '.join(f'{float(v):.6g}' for v in table[:, 0])}; "
+              f"kernels {t[0]:.4f} ms (device {t[1]:.4f}), plain {t[2]:.4f} "
+              f"ms, chain {t[3]:.4f} ms per call; bound {b[0]:.4f} ms "
+              f"({b[1]}) {tag}", flush=True)
+        del pos, mass, acc
+    row = f"far field uniform N={N_UNIFORM}"
+    (ms["far_field"], ms["far_field_device"], ms["far_field_plain"],
+     ms["far_field_library"]) = ms[row]
+    ms["far_field_plummer"] = ms[f"far field plummer N={P3M_GATE['n']}"][0]
+    return bounds["uniform"]
+
+
 def bf16_gate(label: str, bf16, f32, tag: str) -> None:
     """BASELINE.md's gate for the bf16 distance mode: every kinetic-energy
     row of the bf16 run within 1e-4 relative of the f32 run of the same
@@ -2173,6 +2292,8 @@ def main() -> int:
     lap("22")
     deposit_bound = deposit_phases(dev, tag, err, ms)
     lap("23")
+    far_field_bound = far_field_phases(dev, tag, err, ms)
+    lap("24")
 
     # The bounds, from this run's inputs: the least work of each function,
     # whatever layout its kernel takes.  Kernel A and the columns block
@@ -2201,6 +2322,7 @@ def main() -> int:
     # the cheapest (pallas_sym); bytes: the tables and the cotangent read,
     # gp and gm written, the worklist read.
     bounds_ms["deposit"] = deposit_bound
+    bounds_ms["far_field"] = far_field_bound
     bounds_ms["sr_vjp"] = min(
         bound(inside * OPS_SR_VJP + (pairs - inside) * OPS_SR_TEST
               + react * OPS_SR_VJP_REACTION, 44 * nslots + 8 * n_e)
@@ -2239,15 +2361,21 @@ def main() -> int:
          "N=1048576, open)", "deposit.cu",
          "none: nbody_tpu/ops/pm.py deposits with an XLA scatter-add",
          "deposit"),
+        ("far_field_moments_kernel+far_field_monopoles_kernel (the open "
+         "far field, uniform N=1048576)", "far_field.cu",
+         "none: nbody_tpu/ops/pm.py _outlier_moments and _monopole are XLA "
+         "ops", "far_field"),
     ]
     launches["deposit"] = launches["deposit_p3m"]
+    launches["far_field"] = launches["far_field_pm"]
     kernels = [{
         "name": name, "route": "cuda", "source": f"nbody_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": launches[key],
         "max_abs_err": err[key], "ms": ms[key], "plain_ms": ms[f"{key}_plain"],
         "bound_ms": bounds_ms[key][0], "bound_by": bounds_ms[key][1],
-        # No one PyTorch call computes any of them but the deposit:
-        # _scatter's accumulating index_put_, which it replaces.
+        # No one PyTorch call computes any of them but the deposit
+        # (_scatter's accumulating index_put_) and the far field (the
+        # nine-call chain), which they replace.
         "library_ms": ms.get(f"{key}_library"),
         # ms is a wrapper call's; where its Python outlasts its kernels, the
         # device time of the kernels alone goes beside it.
@@ -2270,6 +2398,9 @@ def main() -> int:
             "peak_mb": ms["sr_vjp_peak_mb"]} if key == "sr_vjp" else {}),
         # The deposit on the periodic row's grid (bodies wrapped).
         **({"periodic_ms": ms["deposit_periodic"]} if key == "deposit"
+           else {}),
+        # The far field at the Plummer gate (bodies outside the box).
+        **({"plummer_ms": ms["far_field_plummer"]} if key == "far_field"
            else {}),
     } for name, src, replaces, key in rows]
     print(card_line(), flush=True)

@@ -46,6 +46,12 @@ What differs from the JAX package:
   grid repeats bit for bit whatever the bodies' order; under autograd and
   on the CPU ``_scatter``'s accumulating ``index_put_``, the JAX package's
   scatter-add (``_hand_deposit`` chooses).
+* The open far field: on CUDA tensors that autograd does not record, the
+  two hand kernels of ``csrc/far_field.cu`` (``ops/far_field_kernel.py``):
+  the moments summed in float64 into one (9, 4) table, then the nine
+  monopoles at the targets in one pass, equal to the chain's bit for bit
+  given the same table; under autograd and on the CPU the chain of masks,
+  float32 sums and nine ``_monopole`` calls (``_hand_far_field`` chooses).
 * The overflow ``lax.cond`` is a Python branch on ``bool(has_over)``: one
   host sync per P3M step (``sync.p3m_overflow``, counted in
   ``utils/spans.counts``).  Computing both branches instead would cost
@@ -257,6 +263,15 @@ def _hand_deposit(*tensors) -> bool:
         torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
 
 
+def _hand_far_field(*tensors) -> bool:
+    """Whether the far field takes the hand kernels
+    (``ops/far_field_kernel.py``), by the deposit's rule: on the card,
+    where autograd records nothing of it.  Under autograd, and on the CPU,
+    the chain of ``_outlier_moments`` and ``_monopoles`` runs, as the JAX
+    package's ops."""
+    return _hand_deposit(*tensors)
+
+
 def _deposit(pos, mass, lo, inv_h, ng: int):
     """CIC scatter of masses onto the (ng, ng, ng) grid over the box."""
     if _hand_deposit(pos, mass, lo, inv_h):
@@ -386,9 +401,37 @@ def _inside(pos, lo, hi):
     return ((pos >= lo) & (pos <= hi)).all(dim=0).to(_F32)
 
 
-def _outlier_moments(pos, mass, m_in, lo_box, hi_box):
+class _Moments(NamedTuple):
+    """The far field's masses: the in-box total ``M_in`` (0-d) at
+    ``com_in`` (3, 1), and ``octs``, (M_k, com_k) of the out-of-box mass in
+    each octant k around the box centre.  From the moments kernel they are
+    views of its (9, 4) ``table`` (``ops/far_field_kernel.py``); from the
+    chain ``table`` is None."""
+    M_in: torch.Tensor
+    com_in: torch.Tensor
+    octs: list
+    table: torch.Tensor | None = None
+
+
+def _table_moments(table) -> _Moments:
+    """``_Moments`` as views of a (9, 4) table: row 0 the in-box mass, row
+    1 + k octant k; columns M, then the centre of mass."""
+    return _Moments(table[0, 0], table[0, 1:, None],
+                    [(table[k, 0], table[k, 1:, None]) for k in range(1, 9)],
+                    table)
+
+
+def _outlier_moments(pos, mass, m_in, lo_box, hi_box) -> _Moments:
     """In-box total (M_in, com_in) and one monopole per direction octant of
-    the out-of-box mass around the box centre."""
+    the out-of-box mass around the box centre: on the card off autograd
+    the moments kernel's table (its sums in float64), else the chain of
+    float32 masks and sums."""
+    if _hand_far_field(pos, mass, m_in, lo_box, hi_box):
+        from . import far_field_kernel
+
+        return _table_moments(far_field_kernel.moments(
+            pos.contiguous(), mass.contiguous(), m_in.contiguous(),
+            lo_box.contiguous(), hi_box.contiguous()))
     tiny = 1e-30
     M_in = m_in.sum()
     com_in = (pos * m_in).sum(dim=1, keepdim=True) / M_in.clamp_min(tiny)
@@ -402,15 +445,38 @@ def _outlier_moments(pos, mass, m_in, lo_box, hi_box):
         M_k = m_k.sum()
         S_k = (pos * m_k).sum(dim=1, keepdim=True)
         octs.append((M_k, S_k / M_k.clamp_min(tiny)))
-    return M_in, com_in, octs
+    return _Moments(M_in, com_in, octs)
 
 
-def _monopole(pos_tgt, m_tot, com):
-    """Softened point-mass field of (m_tot, com) at the targets (3, N)."""
+def _monopole(pos_tgt, m_tot, com, acc=None, in_tgt=None):
+    """Softened point-mass field of (m_tot, com) at the targets (3, N).
+
+    With ``acc`` and ``in_tgt`` (the far field on the card off autograd,
+    ``com`` None), ``m_tot`` is the moments kernel's (9, 4) table and the
+    call is ``_monopoles`` on ``acc`` in one launch of the target kernel:
+    one function holds the far field's target pass on either path, so that
+    a profiler range around it sees the whole pass."""
+    if acc is not None:
+        from . import far_field_kernel
+
+        return far_field_kernel.monopoles(pos_tgt.contiguous(), m_tot,
+                                          acc.contiguous(),
+                                          in_tgt.contiguous())
     d = com - pos_tgt
     r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFTENING_SQUARED
     u = torch.rsqrt(r2)
     return m_tot * d * (u * u * u)
+
+
+def _monopoles(acc, tgt, in_tgt, moments: _Moments):
+    """The far field's chain: targets outside the box (``in_tgt`` not
+    positive) take the in-box mass's monopole in place of ``acc``, then
+    every target adds the out-of-box octants', one ``_monopole`` each."""
+    acc = torch.where(in_tgt > 0, acc,
+                      _monopole(tgt, moments.M_in, moments.com_in))
+    for M_k, com_k in moments.octs:
+        acc = acc + _monopole(tgt, M_k, com_k)
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -1392,7 +1458,7 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
                                                                 mass_src)),
                              spectra)
             bodies = mesh.bodies(pos_src, mass_src, pos_tgt)
-            M_in, com_in, octs = _outlier_moments(
+            moments = _outlier_moments(
                 pos_src, mass_src, bodies[1], mesh.lo_box, mesh.hi_box)
     src, m, tgt, in_tgt = bodies
     if cutoff_cells:
@@ -1403,11 +1469,14 @@ def accelerations_between(pos_tgt, pos_src, mass_src, grid: int = DEFAULT_GRID,
         acc = mesh.gather(mesh.grids(mesh.rho_hat(src, m)), tgt)
     if not periodic:
         # The far field: targets outside the box take the in-box mass's
-        # monopole, and every target adds the out-of-box octants'.
+        # monopole, and every target adds the out-of-box octants'; in one
+        # launch where the moments are the kernel's table.
         with spans.span("mesh.box"):
-            acc = torch.where(in_tgt > 0, acc, _monopole(tgt, M_in, com_in))
-            for M_k, com_k in octs:
-                acc = acc + _monopole(tgt, M_k, com_k)
+            if moments.table is not None and _hand_far_field(tgt, in_tgt,
+                                                             acc):
+                acc = _monopole(tgt, moments.table, None, acc, in_tgt)
+            else:
+                acc = _monopoles(acc, tgt, in_tgt, moments)
     return acc * G_NEWTON
 
 

@@ -41,8 +41,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C function -> argument types; every function returns an int, a
-# cudaError_t but for nbt_tiled_targets, nbt_sr_unit, nbt_sr_vjp_unit and
-# nbt_deposit_header.
+# cudaError_t but for nbt_tiled_targets, nbt_sr_unit, nbt_sr_vjp_unit,
+# nbt_deposit_header and nbt_far_field_scratch.
 SIGNATURES = {
     # pos_t, nt, pos_s, mass_s, ns, out, tile_i, tile_j, bf16, stream
     "nbt_tiled_accel": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P),
@@ -80,6 +80,12 @@ SIGNATURES = {
     "nbt_deposit": (_P, _P, _I, _P, _P, _F, _I, _P, _P, _P),
     # -> the int64 words of nbt_deposit's scratch past the ng^3 cells
     "nbt_deposit_header": (),
+    # pos, mass, m_in, n, lo_box, hi_box, scratch, table, stream
+    "nbt_far_field_moments": (_P, _P, _P, _I, _P, _P, _P, _P, _P),
+    # -> the doubles of nbt_far_field_moments' scratch
+    "nbt_far_field_scratch": (),
+    # tgt, in_tgt, acc, table, n, out, stream
+    "nbt_far_field_monopoles": (_P, _P, _P, _P, _I, _P, _P),
 }
 
 

@@ -34,9 +34,14 @@ env for the mesh tiers) and prints:
   autograd (``_scatter``'s accumulating ``index_put_``) and an atomic
   ``index_add_`` (not used by the port: its sums come in another order
   each run);
+* for every cell, the kernels a step (the profiled block's device events
+  but copies and memsets), and the device ops a step with them;
 * for the mesh cells, the deposit kernel's launches a force call (one a
   step: ``deposit_kernel.launches`` over the profiled blocks; one more a
-  step in which a body overflows its cell), and for differentiable P3M its
+  step in which a body overflows its cell) and the far field's (one a
+  force call on the open boundary: ``far_field_kernel.launches``, the
+  target kernel, after a memset and the moments kernel; none periodic),
+  and for differentiable P3M its
   launches in a forward (none: autograd records the deposit, so
   ``_scatter`` runs);
 * for the P3M cells, the worklist's runs (one a target slab) and the
@@ -137,8 +142,13 @@ def profile_block(label: str, block, state, steps: int,
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + 1e-3 * e.device_time_total)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    # Kernels a step: the device's events but copies and memsets.
+    launched = sum(not e.name.startswith(("Memcpy", "Memset"))
+                   for e in kernels)
     print(f"{label}: block {wall:.3f} ms wall ({wall / steps:.3f} per step), "
-          f"device {busy:.3f} ms, idle share {1 - busy / wall:.3f}", flush=True)
+          f"device {busy:.3f} ms, idle share {1 - busy / wall:.3f}; "
+          f"{launched / steps:.1f} kernels a step ({len(kernels) / steps:.1f} "
+          "device ops with copies and memsets)", flush=True)
     for name, (n, t) in top:
         print(f"    {t:9.3f} ms  {n:5d} x  {name[:90]}", flush=True)
     if stages:
@@ -326,7 +336,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from nbody_tpu_torch import SimConfig
-    from nbody_tpu_torch.ops import deposit_kernel
+    from nbody_tpu_torch.ops import deposit_kernel, far_field_kernel
     from nbody_tpu_torch.simulation import _DeviceRunner
     from nbody_tpu_torch.utils import spans
 
@@ -369,7 +379,7 @@ def main() -> int:
         mesh = runner._mesh_env_fn() is not None
         periodic = runner.cfg.pm_boundary == "periodic"
         syncs = spans.counts["host_syncs"]
-        deposit_kernel.launches = 0
+        deposit_kernel.launches = far_field_kernel.launches = 0
         try:
             profile_block(f"{label}, {steps} steps", runner._block_for(steps),
                           runner.state, steps, stages=mesh)
@@ -380,7 +390,11 @@ def main() -> int:
                 print(f"{label}: {syncs / (7 * steps):.3f} host syncs a step "
                       "(the block's, its KE read and health check not "
                       f"included); {deposit_kernel.launches / (7 * steps):.3f}"
-                      " deposit kernel launches a force call", flush=True)
+                      " deposit kernel launches a force call, "
+                      f"{far_field_kernel.launches / (7 * steps):.3f} "
+                      "far-field target kernel launches a force call (open: "
+                      "one, after a memset and the moments kernel)",
+                      flush=True)
                 if periodic and runner._sr_health:
                     images = spans.counts["ghost_images"]
                     full = spans.counts["health_full_bins"]

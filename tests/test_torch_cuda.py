@@ -26,7 +26,11 @@ The short-range sweep's VJP kernel holds 1e-5 of the largest gp and gm and
 through it 1e-4 of the largest against the plain backward's.  The CIC
 deposit kernel sums in fixed point, so it equals its plain version bit for
 bit, and a P3M force call and block through it lie within 1e-6 relative
-norm of the same through ``pm._scatter`` (float32 sums, sorted).
+norm of the same through ``pm._scatter`` (float32 sums, sorted).  The far
+field's moments kernel sums in float64 in a fixed order: its table lies
+within one float32 ulp of its plain version's and repeats bit for bit; its
+target kernel equals PyTorch's nine-call chain bit for bit given the table,
+and so does a force call where every body lies inside the box.
 Kernel A, the fused columns block and the ring run one source loop
 (``nbt::tiled_source_sweep``), so an Euler columns block equals the
 unfused block over Kernel A bit for bit; Kernel B, the two-sided sweep and
@@ -51,6 +55,7 @@ from nbody_tpu_torch.models.gravity import make_accel_fn, make_block_fn
 from nbody_tpu_torch.models.rollout import make_rollout_fn
 from nbody_tpu_torch.ops import (
     deposit_kernel,
+    far_field_kernel,
     fused_block,
     grad,
     mxu_kernel,
@@ -984,3 +989,106 @@ def test_deposit_kernel_launches_a_force_call(cuda_device):
     with torch.no_grad():
         accel(x0, mass)
     assert deposit_kernel.launches == 1
+
+
+def _far_field_args(kind, n, device, n_t=0):
+    """The solver's far-field inputs at a state of ``_deposit_state``:
+    sources, their in-box masses, the robust box; targets (the sources, or
+    ``n_t`` spread a quarter span past them, some outside the box), their
+    in-box mask and a random ``acc``."""
+    pos, mass = _deposit_state(kind, n, device)
+    lo_box, hi_box = pm._robust_box(pos, mass)
+    m_in = mass * pm._inside(pos, lo_box, hi_box)
+    tgt = pos
+    if n_t:
+        g = torch.Generator(device=device).manual_seed(3)
+        lo, hi = pos.amin(dim=1, keepdim=True), pos.amax(dim=1, keepdim=True)
+        u = torch.rand((3, n_t), generator=g, device=device)
+        tgt = (lo - 0.25 * (hi - lo)) + 1.5 * (hi - lo) * u
+    in_tgt = pm._inside(tgt, lo_box, hi_box)
+    acc = torch.randn(tgt.shape, generator=torch.Generator(
+        device=device).manual_seed(5), device=device)
+    return pos, mass, m_in, lo_box, hi_box, tgt, in_tgt, acc
+
+
+@pytest.mark.parametrize("kind,n,n_t", [("uniform", 1048576, 0),
+                                        ("plummer", 262144, 0),
+                                        ("uniform", 300001, 77777),
+                                        ("plummer", 262144, 1000003)])
+def test_far_field_kernels_match_plain(cuda_device, kind, n, n_t):
+    """The moments kernel's table within one float32 ulp of
+    ``moments_plain``'s (both sum in float64, in other orders); the target
+    kernel bit for bit the chain's (``monopoles_plain``, PyTorch's own
+    kernels) given that table, with distinct targets too; two calls of each
+    bit for bit."""
+    pos, mass, m_in, lo_box, hi_box, tgt, in_tgt, acc = _far_field_args(
+        kind, n, cuda_device, n_t)
+    before = far_field_kernel.launches
+    table = far_field_kernel.moments(pos, mass, m_in, lo_box, hi_box)
+    again = far_field_kernel.moments(pos, mass, m_in, lo_box, hi_box)
+    plain = far_field_kernel.moments_plain(pos, mass, m_in, lo_box, hi_box)
+    assert torch.equal(table, again)
+    ulp = torch.tensor(np.spacing(plain.abs().cpu().numpy()),
+                       device=cuda_device)
+    assert bool(((table - plain).abs() <= ulp).all()), (table, plain)
+    got = far_field_kernel.monopoles(tgt, table, acc, in_tgt)
+    assert torch.equal(got, far_field_kernel.monopoles(tgt, table, acc,
+                                                       in_tgt))
+    assert far_field_kernel.launches == before + 2
+    assert torch.equal(got, far_field_kernel.monopoles_plain(tgt, table, acc,
+                                                             in_tgt))
+    if kind == "uniform":  # every source inside: the octants are empty
+        assert bool((table[1:] == 0).all())
+    else:
+        assert float(table[1:, 0].sum()) > 0
+
+
+def test_far_field_kernel_non_finite(cuda_device):
+    """A non-finite position makes the whole table NaN, and every target's
+    far field with it, as in the chain."""
+    pos, mass, m_in, lo_box, hi_box, tgt, in_tgt, acc = _far_field_args(
+        "plummer", 65536, cuda_device)
+    pos = pos.clone()
+    pos[1, 123] = float("nan")
+    table = far_field_kernel.moments(pos, mass, m_in, lo_box, hi_box)
+    assert bool(table.isnan().all())
+    got = far_field_kernel.monopoles(pos, table, acc, in_tgt)
+    assert not bool(torch.isfinite(got).any())
+
+
+@pytest.mark.parametrize("kernel", ["pm", "p3m"])
+def test_far_field_kernels_a_force_call(cuda_device, monkeypatch, kernel):
+    """One target-kernel launch a force call of plain PM and open P3M on the
+    card (none periodic, none under autograd); at the uniform N=1048576
+    state, where every body lies inside the box, the force call equals the
+    nine-call chain's bit for bit."""
+    cfg = SimConfig(n=1048576, nsteps=4, sfreq=4, kernel=kernel, dt=0.001,
+                    pm_capacity=16384)
+    runner = _DeviceRunner(cfg)
+    runner.prepare()
+    try:
+        st = runner.state
+        before = far_field_kernel.launches
+        a = runner.accel_fn(st.pos, st.mass)
+        assert far_field_kernel.launches == before + 1
+        monkeypatch.setattr(pm, "_hand_far_field", lambda *t: False)
+        chain = runner.accel_fn(st.pos, st.mass)
+        torch.cuda.synchronize()
+        assert far_field_kernel.launches == before + 1
+    finally:
+        runner.finish()
+    assert torch.equal(a, chain)
+    far_field_kernel.launches = 0
+    run(SimConfig(n=4096, nsteps=8, sfreq=4, kernel=kernel, pm_capacity=4096,
+                  pm_boundary="periodic", pm_box=1.0, dt=0.01), quiet=True)
+    assert far_field_kernel.launches == 0
+    pos, vel, mass = (torch.tensor(x, device=cuda_device)
+                      for x in distributions.plummer(4096, seed=3))
+    p = pos.clone().requires_grad_(True)
+    acc = pm.accelerations(p, mass, 32, 4 if kernel == "p3m" else 0,
+                           differentiable=kernel == "p3m",
+                           **(pm.suggest_sr_plan(pos, mass, 32, 4,
+                                                 differentiable=True)
+                              if kernel == "p3m" else {}))
+    torch.autograd.grad(acc.square().sum(), p)
+    assert far_field_kernel.launches == 0

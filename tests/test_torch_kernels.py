@@ -256,9 +256,9 @@ def test_banded_two_sided_equals_one_band(nt, ns, block, bands):
 
 def test_build_layout():
     srcs = [p.name for p in build.sources()]
-    assert srcs == ["deposit.cu", "fused.cu", "mxu.cu", "ring.cu", "sr.cu",
-                    "sr_vjp.cu", "sym.cu", "tiled.cu", "two_sided.cu",
-                    "vjp.cu"]
+    assert srcs == ["deposit.cu", "far_field.cu", "fused.cu", "mxu.cu",
+                    "ring.cu", "sr.cu", "sr_vjp.cu", "sym.cu", "tiled.cu",
+                    "two_sided.cu", "vjp.cu"]
     path = build.library_path()
     assert path.name == "libnbody_kernels.so"
     assert path.parent.parent == build.BUILD_DIR
