@@ -20,6 +20,7 @@ import torch
 
 from ..state import ParticleState
 from ..types import G_NEWTON, SOFTENING_SQUARED
+from ..utils import spans
 
 AccelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -57,13 +58,17 @@ def make_fused_block_fn(dt: float, block_steps: int, tile_i: int = 0,
     """A sample block run in one kernel launch (ops/fused_block.py), with
     the same (state) -> (state, kinetic_energy) contract as make_block_fn;
     the energy is computed after the kernel.  Fused leapfrog re-seeds the
-    carried acceleration each block, as the unfused leapfrog does."""
+    carried acceleration each block, as the unfused leapfrog does.  The
+    ``fused`` span opens around the call of ``fused_block``, not inside it,
+    so that a range a caller wraps around that function keeps its kernel
+    (the profiler credits a kernel to the innermost range)."""
     from ..ops import fused_block as fb
 
     def block(state: ParticleState):
-        pos, vel = fb.fused_block(state.pos, state.vel, state.mass, dt,
-                                  block_steps, tile_i=tile_i, tile_j=tile_j,
-                                  integrator=integrator)
+        with spans.span("fused"):
+            pos, vel = fb.fused_block(state.pos, state.vel, state.mass, dt,
+                                      block_steps, tile_i=tile_i,
+                                      tile_j=tile_j, integrator=integrator)
         new = ParticleState(pos=pos, vel=vel, mass=state.mass, n=state.n)
         return new, kinetic_energy(new)
 

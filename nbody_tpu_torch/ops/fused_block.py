@@ -28,7 +28,7 @@ import math
 import torch
 
 from ..models.integrators import INTEGRATORS, advance, step_sizes
-from ..utils import build
+from ..utils import build, spans
 from . import sym_kernel, tiled_kernel
 from .tiled_kernel import check_input, refuse_autograd
 
@@ -40,7 +40,9 @@ DEFAULT_TILE_J = tiled_kernel.DEFAULT_TILE_J
 COLS_BYTES_PER_BODY = 4 * (3 + 3 + 3 + 1)
 
 # Kernel launches on CUDA tensors, either layout; chip_smoke.py zeroes and
-# reads it.
+# reads it.  The force sweeps the blocks run, on either device, count in
+# ``spans.counts["fused_sweeps"]``: ``steps`` a block under Euler, one more
+# under leapfrog (its re-seed); a block of no steps counts none.
 launches = 0
 
 
@@ -141,7 +143,10 @@ def fused_block(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
     check_input("vel", vel, (3, n), dev)
     check_input("mass", mass, (n,), dev)
     rows, ti, tj = layout(n, tile_i, tile_j, sym)
+    leapfrog = int(integrator == "leapfrog")
     if dev.type == "cpu":
+        if steps:
+            spans.counts["fused_sweeps"] += steps + leapfrog
         return fused_block_plain(pos, vel, mass, dt, steps, ti, tj,
                                  integrator, rows)
     if dev.type != "cuda":
@@ -155,8 +160,8 @@ def fused_block(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
     vel_out = vel.clone()
     if steps == 0:
         return pos.clone(), vel_out
+    spans.counts["fused_sweeps"] += steps + leapfrog
     dtf, half = step_sizes(dt)
-    leapfrog = int(integrator == "leapfrog")
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -19,7 +19,9 @@
   health check counts (``pm.sr_plan_health``), from the value its
   ``sync.health`` read brings to the host: no sync of its own; and
   ``health_full_bins`` the checks that found more images than the ghost
-  cap holds and binned again at the guaranteed 7N.
+  cap holds and binned again at the guaranteed 7N; ``fused_sweeps`` the
+  force sweeps the fused blocks run (``ops/fused_block.py``), counted
+  from the call's arguments.
 
 No option turns the spans on: they record exactly when a profiler does,
 under ``--profile-dir`` or a benchmark's traced run.  Spans opened in a
@@ -33,6 +35,9 @@ The span names, from the entry point down:
   (``--profile-dir``'s trace opens before set-up);
 * integrator (``models/integrators.py``): ``accel`` around each force
   evaluation, ``mesh.env`` around the block's mesh environment;
+* fused sample block (``models/gravity.make_fused_block_fn``): ``fused``
+  around the call of ``ops/fused_block.fused_block``, the block's one
+  launch, not inside it (as ``pm._stage`` below);
 * mesh solver (``ops/pm.py``): ``mesh.box``, ``mesh.deposit``,
   ``mesh.fft``, ``mesh.grids`` (the open boundary's spectrum products),
   ``mesh.ifft``, ``mesh.gather``, and on the periodic path

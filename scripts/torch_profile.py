@@ -44,6 +44,9 @@ env for the mesh tiers) and prints:
   and for differentiable P3M its
   launches in a forward (none: autograd records the deposit, so
   ``_scatter`` runs);
+* for the fused cells, the force sweeps a launch runs
+  (``spans.counts["fused_sweeps"]`` over the profiled blocks: the block's
+  steps under Euler);
 * for the P3M cells, the worklist's runs (one a target slab) and the
   short-range kernel's time in every layout, each at its own suggested
   plan.
@@ -379,11 +382,18 @@ def main() -> int:
         mesh = runner._mesh_env_fn() is not None
         periodic = runner.cfg.pm_boundary == "periodic"
         syncs = spans.counts["host_syncs"]
+        sweeps = spans.counts["fused_sweeps"]
         deposit_kernel.launches = far_field_kernel.launches = 0
         try:
             profile_block(f"{label}, {steps} steps", runner._block_for(steps),
                           runner.state, steps, stages=mesh)
             syncs = spans.counts["host_syncs"] - syncs
+            if runner.cfg.fused:
+                # Seven blocks, as below: one launch each.
+                sweeps = spans.counts["fused_sweeps"] - sweeps
+                print(f"{label}: {sweeps / 7:.1f} force sweeps a fused "
+                      f"launch ({sweeps / (7 * steps):.3f} a step)",
+                      flush=True)
             if mesh:
                 # Seven blocks: the warm one, five timed, one profiled; one
                 # force call a step (Euler).

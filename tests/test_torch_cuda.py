@@ -36,7 +36,8 @@ Kernel A, the fused columns block and the ring run one source loop
 unfused block over Kernel A bit for bit; Kernel B, the two-sided sweep and
 the fused rows block run one tile body (``nbt::sym_tile_cross``) with R
 targets a lane, at every R its launchers pick, and an Euler rows block
-equals the unfused block over Kernel B bit for bit at each of them.
+equals the unfused block over Kernel B bit for bit at each of them, and
+through the engine's runner at the benchmark's N=16384.
 """
 
 import contextlib
@@ -212,6 +213,31 @@ def test_fused_euler_rows_is_unfused_sym_block(cuda_device):
     blk = make_block_fn(make_accel_fn("pallas_sym", tile_i=128), 0.1, 10)
     want, _ = blk(st)
     assert torch.equal(pos, want.pos) and torch.equal(vel, want.vel)
+
+
+def test_fused_runner_is_the_unfused_runner(cuda_device):
+    """The engine at the benchmark's direct cells' shapes: a 50-step block
+    at N=16384 through the fused ``_DeviceRunner`` (``direct-n16384-fused``)
+    equals the unfused runner's block over Kernel B (``direct-n16384``) bit
+    for bit, kinetic energy included, in one launch and no Kernel B sweep;
+    ``fused_sweeps`` counts its 50 force sweeps."""
+    def runner(fused):
+        r = _DeviceRunner(SimConfig(n=16384, nsteps=50, sfreq=50,
+                                    fused=fused))
+        r.prepare()
+        return r
+
+    fused, plain = runner(True), runner(False)
+    assert torch.equal(fused.state.pos, plain.state.pos)
+    counts = [fused_block.launches, sym_kernel.launches]
+    sweeps = spans.counts["fused_sweeps"]
+    ke = fused.run_block(50)
+    assert [fused_block.launches, sym_kernel.launches] == [counts[0] + 1,
+                                                           counts[1]]
+    assert spans.counts["fused_sweeps"] - sweeps == 50
+    assert plain.run_block(50) == ke
+    assert torch.equal(fused.state.pos, plain.state.pos)
+    assert torch.equal(fused.state.vel, plain.state.vel)
 
 
 # Shapes that give the pair-symmetric tile body each R its launchers pick

@@ -12,6 +12,13 @@ Tolerances: the port sums in another order than the Pallas kernels (and the
 rows blocks differ: 128 here, 256 in JAX at N=256), so they agree to fp32
 summation error: pos rtol 1e-5 / atol 1e-7, vel rtol 1e-5 / atol 1e-9,
 kinetic energy rel 1e-6.
+
+The engine's fused path (``_DeviceRunner`` under ``SimConfig(fused=True)``,
+what ``--fused`` and the benchmark's cell ``direct-n16384-fused`` run) is
+also held against the benchmark's float64 direct reference
+(``bench_torch/references/direct.py`` through ``harness/reference.follow``),
+with the tolerances of ``REF_TOL``, which the unfused bf16 distance mode
+fails.
 """
 
 import os
@@ -32,11 +39,17 @@ from nbody_tpu_torch.ops import fused_block, sym_kernel, tiled_kernel
 from nbody_tpu_torch.state import from_numpy
 from nbody_tpu_torch.utils.reporting import parse_trace
 
+from nbody_tpu_torch.simulation import _DeviceRunner
+
 from .util import parse_golden_trace
 
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BENCH = os.path.join(ROOT, "bench_torch")
+sys.path.insert(0, BENCH)
+
+from harness import ics, reference  # noqa: E402
 
 
 def _seeded_state(n, seed):
@@ -193,3 +206,71 @@ def test_fused_cli_refuses_p3m():
     assert proc.returncode != 0
     assert "--fused runs the exact" in proc.stderr and "--kernel p3m" in proc.stderr
     assert not proc.stdout.strip()
+
+
+# The fused engine against the float64 direct reference: N=256, two blocks
+# of 10 steps at dt 0.1 from the upstream's cube.  ke: the widest relative
+# gap of a block's kinetic energy, float32 sums of 256 terms on float32
+# velocities (readings 4.3e-8 to 8.3e-8).  dv: the relative L2 gap of the
+# velocity change over the run, which is small against the velocities
+# themselves, so float32's rounding of v each step is ~1e-5 of it
+# (readings 9.8e-6 to 1.4e-5).  x: the relative L2 gap of the positions
+# against the distance moved, float32's rounding of positions near 0.5
+# against short moves (readings 4.3e-5 to 5.4e-5).  The unfused bf16
+# distance mode rounds each pair delta to 8 bits of mantissa, which puts
+# 3.7e-4 to 4.1e-4 into dv.
+REF_TOL = {"ke": 1e-6, "dv": 5e-5, "x": 2e-4}
+
+
+def _gaps_to_reference(seed: int, **kw) -> dict:
+    """The engine's two blocks against the reference's, as REF_TOL reads
+    them."""
+    n, steps = 256, 10
+    runner = _DeviceRunner(SimConfig(n=n, nsteps=2 * steps, sfreq=steps,
+                                     seed=seed, platform="cpu", **kw))
+    runner.prepare()
+    x0 = runner.state.pos[:, :n].double()
+    v0 = runner.state.vel[:, :n].double()
+    kes = [runner.run_block(steps) for _ in range(2)]
+    pos, vel, mass = (torch.from_numpy(a) for a in ics.make("reference", n,
+                                                            seed))
+    assert torch.equal(pos.double(), x0) and torch.equal(vel.double(), v0)
+    config = {"solver": "direct", "G": reference.G_NEWTON,
+              "softening_squared": reference.SOFTENING_SQUARED}
+    ref = reference.follow(pos, vel, mass, config, 0.1, steps, 2)
+    x_ref, v_ref = ref[-1][1], ref[-1][2]
+    x, v = runner.state.pos[:, :n].double(), runner.state.vel[:, :n].double()
+
+    def rel(a, b, scale):
+        return float((a - b).norm() / scale.norm())
+
+    return {"ke": max(abs(k - r[0]) / r[0] for k, r in zip(kes, ref)),
+            "dv": rel(v - v0, v_ref - v0, v_ref - v0),
+            "x": rel(x, x_ref, x_ref - x0)}
+
+
+@pytest.mark.parametrize("seed", [1, 2 ** 31 + 5])
+def test_fused_engine_meets_the_float64_reference(seed):
+    got = _gaps_to_reference(seed, fused=True)
+    assert all(got[k] <= tol for k, tol in REF_TOL.items()), got
+
+
+@pytest.mark.parametrize("seed", [1, 2 ** 31 + 5])
+def test_bf16_distance_mode_fails_the_reference_tolerance(seed):
+    """The fused cell's control: the unfused bf16 distance mode, outside
+    the velocity change's tolerance by more than 4x."""
+    got = _gaps_to_reference(seed, precision="bf16")
+    assert got["dv"] > 4 * REF_TOL["dv"], got
+
+
+def test_direct_reference_imports_no_jax():
+    """The reference the tests and the cell use loads neither JAX, the JAX
+    package nor the program."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from harness import reference; reference.solver('direct'); "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', "
+            "'jaxlib', 'nbody_tpu', 'nbody_tpu_torch'}))")
+    proc = subprocess.run([sys.executable, "-c", code, BENCH], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"

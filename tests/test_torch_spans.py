@@ -278,6 +278,63 @@ def test_ghost_images_counts_the_health_checks_read():
     assert spans.counts["ghost_images"] == before
 
 
+def _fused(**kw) -> _DeviceRunner:
+    return _runner(n=256, nsteps=20, sfreq=10, fused=True, **kw)
+
+
+def test_fused_block_spans(monkeypatch):
+    """A fused block opens ``nbt.fused`` once, inside ``nbt.block``, around
+    the call of ``fused_block`` and not inside it: a range wrapped around
+    that function (as the benchmark's ``fused_roofline`` wraps it) lies
+    inside the span; one sync (the KE).  On the CPU the block's plain
+    version steps through the integrator, one ``nbt.accel`` a step inside
+    the wrapped range, and no other program span opens there (on the card
+    the block is one launch and opens none)."""
+    from nbody_tpu_torch.ops import fused_block
+
+    inner = fused_block.fused_block
+
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function("outer:fused"):
+            return inner(*args, **kwargs)
+
+    runner = _fused()
+    monkeypatch.setattr(fused_block, "fused_block", wrapped)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        runner.run_block(10)
+        runner.run_block(10)
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events())
+    blocks = [e for e in events if e[2] == "nbt.block"]
+    fused = [e for e in events if e[2] == "nbt.fused"]
+    outer = [e for e in events if e[2] == "outer:fused"]
+    assert len(blocks) == len(fused) == len(outer) == 2
+    assert all(_inside(e, blocks) for e in fused)
+    assert all(_inside(e, fused) for e in outer)
+    spans_ = [e for e in events if e[2].startswith("nbt.")]
+    assert [e[2] for e in spans_ if _inside(e, outer)] == ["nbt.accel"] * 20
+    assert [e[2] for e in spans_ if not _inside(e, outer) and e[2] not in (
+        "nbt.block", "nbt.fused")] == ["nbt.sync.ke"] * 2
+
+
+@pytest.mark.parametrize("integrator,extra", [("euler", 0), ("leapfrog", 1)])
+def test_fused_sweeps_counts_a_blocks_force_sweeps(integrator, extra):
+    """``counts["fused_sweeps"]`` grows by the block's steps under Euler and
+    one more under leapfrog (its re-seed), whether or not a profiler
+    records, and adds no host sync."""
+    runner = _fused(integrator=integrator)
+    for traced in (False, True):
+        before = dict(spans.counts)
+        if traced:
+            with profile(activities=[ProfilerActivity.CPU]):
+                runner.run_block(10)
+        else:
+            runner.run_block(10)
+        assert (spans.counts["fused_sweeps"]
+                - before.get("fused_sweeps", 0)) == 10 + extra
+        assert spans.counts["host_syncs"] - before.get("host_syncs", 0) == 1
+
+
 @pytest.mark.parametrize("kind", ["direct", "p3m"])
 def test_block_is_bitwise_the_same_traced(one_thread, kind):
     make = (lambda: _runner(n=256, nsteps=50, sfreq=50)) if kind == "direct" \
@@ -315,8 +372,8 @@ def test_spans_sit_around_the_wrapped_stage_functions():
     kernels."""
     import importlib
 
-    direct, p3m, plain = (_runner(n=256, nsteps=50, sfreq=50), _p3m(),
-                          _pm())
+    direct, p3m, plain, fused = (_runner(n=256, nsteps=50, sfreq=50),
+                                 _p3m(), _pm(), _fused())
     periodic = _runner(n=512, nsteps=8, sfreq=4, kernel="p3m", pm_grid=16,
                        pm_boundary="periodic", pm_box=1.0, dt=0.01)
     saved = []
@@ -337,7 +394,7 @@ def test_spans_sit_around_the_wrapped_stage_functions():
                 where)
             saved.append((owner, attr, getattr(owner, attr)))
             setattr(owner, attr, ranged(label, saved[-1][2]))
-        for runner in (direct, p3m, plain, periodic):
+        for runner in (direct, p3m, plain, periodic, fused):
             runner._blocks.clear()
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             direct.run_block(50)
@@ -345,6 +402,7 @@ def test_spans_sit_around_the_wrapped_stage_functions():
             plain.run_block(4)
             periodic.run_block(4)
             periodic.check_sr_health()
+            fused.run_block(10)
     finally:
         for owner, attr, fn in reversed(saved):
             setattr(owner, attr, fn)
@@ -354,13 +412,22 @@ def test_spans_sit_around_the_wrapped_stage_functions():
     assert bool(outer) == bool(saved)
     inner = [e for e in events if e[2].startswith("nbt.")
              and not e[2].startswith("nbt.sync.")]
-    assert not [e[2] for e in inner if _inside(e, outer)]
+    # On the CPU the fused block's plain version steps through the
+    # integrator's force calls, each in ``nbt.accel``; on the card the block
+    # is one launch and opens no span inside the wrapped entry.
+    outer_fused = [e for e in outer if e[2] == "outer:fused"]
+    assert not [e[2] for e in inner if _inside(e, outer) and not (
+        e[2] == "nbt.accel" and _inside(e, outer_fused))]
     # Plain PM's spectrum products: the program's span opens around the
     # wrapped function, one a force call.
     wrapped = [e for e in outer if e[2] == "outer:mesh.grids"]
     spans_grids = [e for e in inner if e[2] == "nbt.mesh.grids"]
     assert len(wrapped) == 4
     assert all(_inside(e, spans_grids) for e in wrapped)
+    # The fused block: the program's span opens around the wrapped entry.
+    wrapped = [e for e in outer if e[2] == "outer:fused"]
+    assert len(wrapped) == 1
+    assert _inside(wrapped[0], [e for e in inner if e[2] == "nbt.fused"])
 
 
 def test_profile_dir_holds_the_setup_spans(tmp_path):
